@@ -2,7 +2,8 @@
 `semantichuman_tpu/data/synthetic.py`).
 
 A closed genus-0 template with the SMPL vertex count, a 17-part partition, a
-35-keypoint regressor and a deformable sample generator.  Every array equals
+35-keypoint regressor, girth-measurement edge rings, a deformable sample
+generator and the 32-d body measures.  Every array equals
 the JAX package's bit for bit: the bundled topology
 (`assets/topology_synth_full_2222.npz`) was compiled from this template.
 """
@@ -11,7 +12,9 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..constants import N_KPS_FULL, N_PARTS, NEWSKL_LIST, PART_LIST
+from ..constants import (MEASURE_SKL_LIST, N_KPS_FULL, N_PARTS, NEWSKL_LIST,
+                         PART_LIST)
+from .measure_np import bone_lengths_np, girths_np
 
 
 def uv_capsule(n_theta: int = 64, n_phi: int = 109, radius_fn=None):
@@ -105,6 +108,17 @@ class SyntheticHuman:
             J[j, nearest] = 1.0 / len(nearest)
         self.J_regressor = J.astype(np.float64)
 
+        # girth polylines: one ring of edges per measured part (16 entries)
+        self.girth_edges = []
+        self.girth_factors = []
+        vid = np.arange(n_theta * n_phi).reshape(n_theta, n_phi)
+        rings = np.linspace(10, n_phi - 10, 16).astype(int)
+        for ring_p in rings:
+            ring_ids = vid[:, ring_p]
+            e = np.stack([ring_ids, np.roll(ring_ids, -1)], axis=1)
+            self.girth_edges.append(e.astype(np.int64))
+            self.girth_factors.append(np.zeros((len(e), 1)))
+
     def sample_meshes(self, n: int, seed: int = 0) -> np.ndarray:
         """[n, V, 3] smoothly deformed variants of the template (random
         low-frequency radial + bend fields), mimicking posed/shaped bodies."""
@@ -126,4 +140,14 @@ class SyntheticHuman:
             v[:, [0, 2]] = center[[0, 2]] + rad_vec[:, [0, 2]] * radial[:, None]
             v[:, 0] += bend * 0.3
             out[i] = v
+        return out
+
+    def measures(self, verts_batch: np.ndarray) -> np.ndarray:
+        """[N, 32] measure vectors: 16 girths + 16 bone lengths."""
+        out = np.empty((len(verts_batch), 32))
+        for i, v in enumerate(verts_batch):
+            g = girths_np(v, self.girth_factors, self.girth_edges)
+            kps = self.J_regressor @ v
+            ln = bone_lengths_np(kps, MEASURE_SKL_LIST)
+            out[i] = np.concatenate([g, ln])
         return out

@@ -83,7 +83,8 @@ def encoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
         while j < len(plan) and plan[j][0] == i:
             p = params_conv[j]
             x = conv_fn(x, tables.spirals[i], p["w"], p["b"], plan[j][3],
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype,
+                        csr=tables.spiral_csr[i])
             j += 1
         x = pool(x, tables.pool_idx[i])
     return x
@@ -99,6 +100,7 @@ def decoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
         while j < len(plan) and plan[j][0] == lvl:
             p = params_conv[j]
             x = conv_fn(x, tables.spirals[lvl], p["w"], p["b"], plan[j][3],
-                        compute_dtype=compute_dtype)
+                        compute_dtype=compute_dtype,
+                        csr=tables.spiral_csr[lvl])
             j += 1
     return x

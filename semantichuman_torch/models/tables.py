@@ -1,6 +1,7 @@
 """Device-resident topology tables, derived once from a MeshHierarchy
 (counterpart of `semantichuman_tpu/models/tables.py`, without the TPU-only
-band specs)."""
+band specs), plus the inverse spiral tables that the spiral conv's
+backward reduces over."""
 
 from __future__ import annotations
 
@@ -9,6 +10,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..ops.csr_reduce import CSRTable
 from ..utils.device import resolve_device
 
 
@@ -20,6 +22,7 @@ class DeviceTables:
     unpool_w: tuple       # per transition [V_l+1, 3] float32
     sizes: tuple          # V_l
     spiral_sizes: tuple   # S_l
+    spiral_csr: tuple     # per level CSRTable: inverse of spirals[l]
 
     @property
     def n_levels(self) -> int:
@@ -37,6 +40,17 @@ def _checked(idx, n_rows: int, what: str) -> np.ndarray:
     if idx.size and (idx.min() < 0 or idx.max() >= n_rows):
         raise ValueError(f"{what}: indices outside [0, {n_rows})")
     return idx
+
+
+def inverse_spiral_csr(spiral: np.ndarray):
+    """The transpose of a spiral gather as CSR: row u lists every flat
+    index v*S + s with spiral[v, s] == u, in ascending order (a stable
+    sort).  Returns (offs [V1+1], cols [V1*S]) int64."""
+    flat = np.asarray(spiral).reshape(-1)
+    cols = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=spiral.shape[0])
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    return offs, cols
 
 
 def device_tables(hier, device="cuda") -> DeviceTables:
@@ -58,8 +72,14 @@ def device_tables(hier, device="cuda") -> DeviceTables:
         for l, u in enumerate(hier.unpool_idx))
     unpool_w = tuple(torch.as_tensor(np.asarray(w, np.float32), device=dev)
                      for w in hier.unpool_w)
+    # hier.spirals passed the range check above
+    spiral_csr = tuple(
+        CSRTable.build(*inverse_spiral_csr(s), n_src=np.asarray(s).size,
+                       device=dev)
+        for s in hier.spirals)
     return DeviceTables(spirals=spirals, pool_idx=pool_idx,
                         unpool_idx=unpool_idx, unpool_w=unpool_w,
                         sizes=sizes,
                         spiral_sizes=tuple(int(s.shape[1])
-                                           for s in hier.spirals))
+                                           for s in hier.spirals),
+                        spiral_csr=spiral_csr)

@@ -36,6 +36,15 @@ SIGNATURES = {
         "sh_spiral_conv_fwd": ([_VOIDP] * 5 + [_INT] * 7 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
+    "csr_reduce": {
+        "sh_csr_reduce": ([_VOIDP] * 9 + [_INT] * 7 + [_VOIDP], _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "part_dist": {
+        "sh_part_dist": ([_VOIDP] * 10 + [_INT] * 4 + [ctypes.c_float]
+                         + [_INT] * 2 + [_VOIDP], _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
 
 

@@ -10,9 +10,12 @@ row is set to exactly zero after bias and activation.
 `compute_dtype` follows `spiral_conv_take`: with bfloat16, x and W are cast
 BEFORE the gather; products and sums stay float32 and so does the output.
 
-`spiral_conv` is the dispatching wrapper: for a CUDA tensor it launches the
-hand-written kernel (`csrc/spiral_conv.cu`) and counts the launch in
-`spiral_conv.launches`; for a CPU tensor it runs `spiral_conv_plain`.
+`spiral_conv` runs through `SpiralConvFn`, an autograd Function whose
+forward is the hand-written kernel (`csrc/spiral_conv.cu`, counted in
+`spiral_conv.launches`) for a CUDA tensor and `spiral_conv_plain` for a
+CPU tensor.  Its backward takes the activation's derivative from the
+output, dW and db as plain matmul and sum, and dx as the CSR reduce over
+the inverse spiral table (`ops/csr_reduce.py`, a kernel on CUDA).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .csr_reduce import csr_reduce
 from .kernels import build
 
 ACTIVATIONS = {
@@ -38,13 +42,32 @@ _ACT_CODES = {"identity": 0, "elu": 1, "relu": 2, "leaky_relu": 3,
               "sigmoid": 4, "tanh": 5}
 
 
+def _act_grad(y: torch.Tensor, activation: str) -> torch.Tensor:
+    """The activation's derivative, from its output y."""
+    if activation == "elu":
+        return torch.where(y > 0, torch.ones_like(y), y + 1.0)
+    if activation == "relu":
+        return (y > 0).to(y.dtype)
+    if activation == "leaky_relu":
+        return torch.where(y >= 0, torch.ones_like(y),
+                           torch.full_like(y, 0.02))
+    if activation == "sigmoid":
+        return y * (1.0 - y)
+    if activation == "tanh":
+        return 1.0 - y * y
+    if activation == "identity":
+        return torch.ones_like(y)
+    raise ValueError(f"unknown activation {activation!r}")
+
+
 def spiral_conv_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
                       w: torch.Tensor, bias: torch.Tensor,
                       activation: str = "elu",
-                      compute_dtype=None) -> torch.Tensor:
+                      compute_dtype=None, csr=None) -> torch.Tensor:
     """The plain PyTorch version: a gather, one matmul, bias, activation.
     x [B, V1, C], spiral_idx [V1, S] int32, w [S*C, Co], bias [Co]
-    -> [B, V1, Co] float32."""
+    -> [B, V1, Co] float32.  `csr` is not used: autograd differentiates
+    the gather itself."""
     act = ACTIVATIONS[activation]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -56,8 +79,8 @@ def spiral_conv_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
     # gather keeps the f32 accumulation of the reference
     y = torch.matmul(g.float(), w.float())
     y = act(y + bias.float())
-    y[:, -1] = 0.0
-    return y
+    # out of place, so that autograd can differentiate the plain version
+    return torch.cat([y[:, :-1], y.new_zeros((b, 1, y.shape[2]))], dim=1)
 
 
 def _check(x, spiral_idx, w, bias) -> None:
@@ -90,20 +113,11 @@ def _check(x, spiral_idx, w, bias) -> None:
         raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
 
 
-def spiral_conv(x: torch.Tensor, spiral_idx: torch.Tensor, w: torch.Tensor,
-                bias: torch.Tensor, activation: str = "elu",
-                compute_dtype=None) -> torch.Tensor:
-    """x [B, V1, C], spiral_idx [V1, S] int32, w [S*C, Co], bias [Co] float32
-    -> [B, V1, Co] float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
+def _forward(x, spiral_idx, w, bias, activation) -> torch.Tensor:
+    """The forward kernel on a CUDA tensor, the plain version on a CPU one;
+    x and w arrive in the compute type."""
     if x.device.type == "cpu":
-        return spiral_conv_plain(x, spiral_idx, w, bias, activation,
-                                 compute_dtype)
-    if x.device.type != "cuda":
-        raise ValueError(f"spiral_conv runs on cpu or cuda, not {x.device}")
-    if compute_dtype is not None:
-        x = x.to(compute_dtype)
-        w = w.to(compute_dtype)
+        return spiral_conv_plain(x, spiral_idx, w, bias, activation)
     _check(x, spiral_idx, w, bias)
     b, v1, c = x.shape
     s = spiral_idx.shape[1]
@@ -121,6 +135,63 @@ def spiral_conv(x: torch.Tensor, spiral_idx: torch.Tensor, w: torch.Tensor,
     build.check(lib, rc, "spiral_conv kernel launch")
     spiral_conv.launches += 1
     return y
+
+
+class SpiralConvFn(torch.autograd.Function):
+    """y = act(gather(x) @ W + bias), dummy row 0, with the backward
+
+        dy' = dy * act'(y), dummy row 0     db = sum dy'
+        dW  = gather(x)^T dy'               dx = csr_reduce(dy' W^T)
+
+    x and W arrive in the compute type; their gradients are computed in
+    float32 and returned in that type, so a bf16 cast in front of the
+    Function turns them back into float32, as JAX's astype VJP does."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, spiral_idx, csr, activation):
+        y = _forward(x, spiral_idx, w, bias, activation)
+        ctx.save_for_backward(x, w, y)
+        ctx.spiral_idx, ctx.csr, ctx.activation = spiral_idx, csr, activation
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, y = ctx.saved_tensors
+        need_x, need_w, need_b = ctx.needs_input_grad[:3]
+        dy = dy * _act_grad(y, ctx.activation)
+        dy[:, -1] = 0.0
+        b, v1, c = x.shape
+        s = ctx.spiral_idx.shape[1]
+        co = w.shape[1]
+        dx = dw = db = None
+        if need_b:
+            db = dy.sum(dim=(0, 1))
+        if need_w:
+            g = x.index_select(1, ctx.spiral_idx.reshape(-1).long())
+            g = g.reshape(b * v1, s * c).float()
+            dw = torch.matmul(g.t(), dy.reshape(b * v1, co)).to(w.dtype)
+        if need_x:
+            dg = torch.matmul(dy, w.float().t())          # [B, V1, S*C]
+            dx = csr_reduce(dg.reshape(b, v1 * s, c), ctx.csr).to(x.dtype)
+        return dx, dw, db, None, None, None
+
+
+def spiral_conv(x: torch.Tensor, spiral_idx: torch.Tensor, w: torch.Tensor,
+                bias: torch.Tensor, activation: str = "elu",
+                compute_dtype=None, csr=None) -> torch.Tensor:
+    """x [B, V1, C], spiral_idx [V1, S] int32, w [S*C, Co], bias [Co] float32
+    -> [B, V1, Co] float32.  `csr` (a CSRTable, the inverse of spiral_idx)
+    is needed only when x's gradient is.  CPU tensors take the plain
+    versions of the kernels; CUDA tensors launch them or raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"spiral_conv runs on cpu or cuda, not {x.device}")
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    if csr is None and x.requires_grad and torch.is_grad_enabled():
+        raise ValueError("spiral_conv: x needs a gradient, which needs the "
+                         "inverse spiral table (csr=)")
+    return SpiralConvFn.apply(x, w, bias, spiral_idx, csr, activation)
 
 
 spiral_conv.launches = 0

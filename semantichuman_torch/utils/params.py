@@ -35,3 +35,21 @@ def params_from_jax(np_params, device="cuda") -> dict:
 def params_to_numpy(params) -> dict:
     """Inverse of params_from_jax: float32 numpy leaves."""
     return tree_map(lambda t: t.detach().cpu().numpy(), params)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a tree of dicts and lists, in tree_map's order."""
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
+    return [tree]
+
+
+def tree_unflatten(like, leaves) -> dict:
+    """A tree shaped like `like` holding `leaves` (tree_leaves' order)."""
+    it = iter(leaves)
+    out = tree_map(lambda _: next(it), like)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out
