@@ -7,18 +7,24 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, in parallel) and print the card.
+   csrc/` (one nvcc per source, five sources, in parallel) and print the
+   card.
 2. kernels: at each of the nine full-width conv shapes of the serving path
    (B=64, the bundled 6892-vertex topology's spiral tables), in float32 and
    bfloat16 inputs, hold the spiral-conv kernel against its plain PyTorch
    version (rtol 1e-4, atol 1e-5: the only difference is the order of f32
    sums over K <= 1920), require an exactly zero dummy row, and time both.
 3. serving: build the full-width PartAE from the default ModelConfig (seed
-   0), export a bundle, load it on the card, answer forward at B = 1, 16, 64
-   and encode -> decode at B = 64 with the launch count set to 0 just
-   before; require 9 kernel launches per forward and per encode+decode,
+   0, banded_conv on), export a bundle, load it on the card, answer forward
+   at B = 1, 16, 64 and encode -> decode at B = 64 with the launch counts
+   set to 0 just before; require per forward, by route (SERVE_LAUNCHES):
+   at B <= 16 five banded convs and four banded unpools (9 banded-gather
+   forwards, 8 fix-up row gathers) and 4 spiral-conv launches, at B = 64
+   nine spiral-conv launches and the four banded unpools (3 row gathers);
    finite outputs, exactly zero dummy rows, and agreement (atol 1e-4) with
-   the same model run through the plain conv on the card.  Then time it.
+   the same model run through the plain conv on the card and with the
+   same params exported with banded_conv off (9 spiral-conv launches).
+   Then time both bundles.
 
 4. training kernels, at the training step's full-width shapes (trunk
    batch 384 = three segments of B = 128): the spiral conv's backward
@@ -38,6 +44,29 @@ run:
    part_dist fwd_grad launches (0 fwd, 0 bwd).  Then ms/step, meshes/s
    (128 per step, as bench.py counts), the device idle share, the top
    kernels (torch.profiler) and one bf16-trunk step (finite loss).
+   At trunk batch 384 no banded route engages: 0 banded launches.
+6. banded kernels, at the trainer's shapes (trunk batch 12 = three
+   segments of B = 4, the bundled topology's band tables): every banded
+   call of one step (convs at levels 0-1 at their input widths, unpools
+   into levels 0-3).  The banded-gather forward against its plain version
+   (bit-equal unweighted, rtol 1e-6 weighted), its backward (1e-5 of the
+   largest entry with the dummy row zeroed, two runs bit-equal) and the
+   fix-up row gather (bit-equal to index_select), each timed on the device
+   (torch.profiler: these kernels take microseconds, so back-to-back calls
+   are paced by the host) beside its plain version, the library call
+   (index_select, index_add_) and its bound (bytes moved / 3.35 TB/s).
+7. the Trainer: the paper recipe (Config() defaults: B = 4 per segment,
+   lr 1e-3, banded_conv on) on synthetic SMPL-scale data (64 train, 16
+   test meshes), full width, 3 epochs with the launch counts set to 0 just
+   before fit(): finite falling epoch losses and per step (TRAIN_LAUNCHES)
+   9 banded-gather forwards, 8 backwards, 8 row gathers, 4 spiral-conv
+   forwards, 11 csr_reduce (4 conv dx, 7 fix-up gather backwards) and 2
+   part_dist fwd_grad, plus 9/8/4 forward launches per validation pass.
+   Then resume from the epoch-2 checkpoint four times, banded_conv on,
+   off, off, on (epoch 3's train loss to rtol 1e-4 banded, 1e-3 take),
+   evaluate once (finite l1 and mm), and per route: ms/step (the median
+   of both runs' epoch-3 steps, a synchronize after each step), meshes/s
+   (4 a step), s/epoch, the idle share and top kernels.
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
@@ -48,6 +77,8 @@ from __future__ import annotations
 
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -64,7 +95,29 @@ SERVE_BATCHES = (1, 16, 64)
 TRAIN_B = 128                  # per segment, as bench.py
 TRUNK_B = 3 * TRAIN_B          # the three segments share the trunk
 TRAIN_STEPS = 10
+TRAINER_B = 4                  # the paper recipe's batch_train/batch_interp
+TRAINER_TRUNK_B = 3 * TRAINER_B
 DEVICE = "cuda"
+KERNEL_COUNTS = ("spiral_conv_fwd", "csr_reduce", "part_dist_fwd",
+                 "part_dist_fwd_grad", "part_dist_bwd", "banded_gather_fwd",
+                 "banded_gather_bwd", "row_gather")
+# launches per forward of the default model, by route: at B <= 16 the
+# convs at levels 0-1 (5 of 9) and the four unpools take the banded route;
+# every banded call but unpool 4->3 (no out-of-band taps) adds a fix-up
+# row gather.  At 16 < B <= 128 only the unpools do.
+SERVE_LAUNCHES = {
+    "small": {"spiral_conv_fwd": 4, "banded_gather_fwd": 9, "row_gather": 8},
+    "large": {"spiral_conv_fwd": 9, "banded_gather_fwd": 4, "row_gather": 3},
+    "take": {"spiral_conv_fwd": 9},
+}
+# launches per Trainer step at trunk batch 12: the forward as "small"
+# above; backward through 8 banded calls (all but the first conv, whose
+# input is data), their 7 fix-up gathers' backward through csr_reduce, and
+# csr_reduce for the 4 take-route convs' dx; the loss's two part_dist
+# fwd_grad calls
+TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "banded_gather_fwd": 9,
+                  "banded_gather_bwd": 8, "row_gather": 8, "csr_reduce": 11,
+                  "part_dist_fwd_grad": 2}
 # H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -100,6 +153,33 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
+    """Device time per call of fn(): the summed durations of every kernel
+    and copy that `iters` calls ran (torch.profiler), over iters.  Unlike
+    time_ms it leaves out the host: back-to-back calls of a kernel of a
+    few microseconds are paced by the host's launch rate, not the card.
+    A profiling window that records no device activity (seen once in
+    some thirty windows on the chip machine) is taken again."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != "cuda":
+        return time_ms(fn, iters)
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+        if us > 0:
+            return us / 1e3 / iters
+    raise SmokeFailure(f"the profiler saw no device time in {attempts} "
+                       "windows")
 
 
 def phase_build() -> str:
@@ -191,10 +271,13 @@ def phase_kernels(model):
     return rows, max_err
 
 
-def phase_serving(model, params, human):
+def serve_route(b: int) -> str:
+    return "small" if b <= 16 else "large"
+
+
+def phase_serving(model, model_take, params, human):
     from semantichuman_torch.constants import KPS_KEEP
-    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
-                                                     spiral_conv_plain)
+    from semantichuman_torch.ops.spiral_conv import spiral_conv_plain
     from semantichuman_torch.serving import ServingBundle, export_inference
 
     meshes = human.sample_meshes(max(SERVE_BATCHES), seed=0)
@@ -203,31 +286,59 @@ def phase_serving(model, params, human):
     with tempfile.TemporaryDirectory() as tmp:
         manifest = export_inference(model, params, human.J_regressor, tmp)
         bundle = ServingBundle(tmp, device="cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        manifest_take = export_inference(model_take, params,
+                                         human.J_regressor, tmp)
+        bundle_take = ServingBundle(tmp, device="cuda")
     require(manifest["n_vertices"] == len(human.template_verts),
             "manifest vertex count")
+    require(manifest["banded_conv"] and not manifest_take["banded_conv"],
+            "bundles must carry their banded_conv flag")
     v1 = manifest["n_vertices"] + 1
     batches = {b: torch.from_numpy(verts_all[:b]).cuda()
                for b in SERVE_BATCHES}
-    bundle.forward(batches[1])                       # warm-up, not counted
+    for bd in (bundle, bundle_take):
+        for b in SERVE_BATCHES:                      # warm-up, not counted
+            bd.forward(batches[b])
     torch.cuda.synchronize()
 
     # --- the main path: counts from 0, read right after -------------------
-    spiral_conv.launches = 0
+    reset_counts()
     outs = {}
     for b in SERVE_BATCHES:
-        before = spiral_conv.launches
+        before = read_counts()
         outs[b] = bundle.forward(batches[b])
         torch.cuda.synchronize()
-        require(spiral_conv.launches - before == 9,
-                f"forward B={b}: {spiral_conv.launches - before} launches")
-    before = spiral_conv.launches
+        got = counts_diff(read_counts(), before)
+        want = expect(SERVE_LAUNCHES[serve_route(b)])
+        require(got == want, f"forward B={b}: launches {got}, want {want}")
+    before = read_counts()
     z, z_kps, _dummy = bundle.encode(batches[BATCH])
     dec = bundle.decode(z, z_kps)
     torch.cuda.synchronize()
-    require(spiral_conv.launches - before == 9,
-            f"encode+decode: {spiral_conv.launches - before} launches")
-    launches = spiral_conv.launches
-    log(f"[serve] main path: {launches} spiral_conv launches")
+    got = counts_diff(read_counts(), before)
+    require(got == expect(SERVE_LAUNCHES["large"]),
+            f"encode+decode: launches {got}")
+    launches = read_counts()
+    log(f"[serve] main path (banded bundle): launches {launches}")
+
+    # the same params exported with banded_conv off: the take route only
+    reset_counts()
+    outs_take = {}
+    for b in SERVE_BATCHES:
+        outs_take[b] = bundle_take.forward(batches[b])
+    torch.cuda.synchronize()
+    launches_take = read_counts()
+    require(launches_take == expect(SERVE_LAUNCHES["take"],
+                                    len(SERVE_BATCHES)),
+            f"take bundle: launches {launches_take}")
+    for b in SERVE_BATCHES:
+        for name, got, want in zip(("rec", "z", "z_kps"), outs[b],
+                                   outs_take[b]):
+            err = float((got - want).abs().max())
+            log(f"[serve] banded vs take B={b} {name}: max abs err "
+                f"{err:.3e}")
+            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
     for b, (rec, zb, zkb) in outs.items():
         require(rec.shape == (b, v1, 3) and zb.shape == (b, 17, 8)
@@ -256,24 +367,33 @@ def phase_serving(model, params, human):
         log(f"[serve] kernel vs plain conv, {name}: max abs err {err:.3e}")
         torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
 
-    # --- timing (after the counted run) -----------------------------------
-    timing = {}
-    for b in SERVE_BATCHES:
+    # --- timing (after the counted run), the two routes in turns ----------
+    def wall_ms(bd, b, reps=20):
         for _ in range(3):
-            bundle.forward(batches[b])
+            bd.forward(batches[b])
         torch.cuda.synchronize()
-        reps = 20
         t0 = time.perf_counter()
         for _ in range(reps):
-            bundle.forward(batches[b])
+            bd.forward(batches[b])
         torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / reps
-        timing[b] = ms
-        log(f"[serve] forward B={b}: {ms:.3f} ms, "
-            f"{b / ms * 1e3:.1f} meshes/s")
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    timing, timing_take = {}, {}
     for b in SERVE_BATCHES:
-        profile_forward(bundle, batches[b], timing[b])
-    return launches, timing
+        runs = {"banded": [], "take": []}
+        for route in ("banded", "take", "take", "banded"):
+            runs[route].append(wall_ms(
+                bundle if route == "banded" else bundle_take, b))
+        timing[b], timing_take[b] = (float(np.mean(runs["banded"])),
+                                     float(np.mean(runs["take"])))
+        log(f"[serve] forward B={b}: banded {runs['banded']} ms, take "
+            f"{runs['take']} ms; {b / timing[b] * 1e3:.1f} meshes/s banded")
+    for b in SERVE_BATCHES:
+        for route, bd, wall in (("banded", bundle, timing[b]),
+                                ("take", bundle_take, timing_take[b])):
+            log(f"[profile] serving, {route} bundle")
+            profile_forward(bd, batches[b], wall)
+    return launches, launches_take, timing, timing_take
 
 
 def profile_forward(bundle, verts, wall_ms: float, reps: int = 5) -> None:
@@ -585,24 +705,43 @@ def host_batch(human, tables, seed: int) -> dict:
 
 
 def reset_counts():
+    from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
+                                                       banded_gather_fwd)
     from semantichuman_torch.ops.csr_reduce import csr_reduce
     from semantichuman_torch.ops.part_dist import part_dist_sums
+    from semantichuman_torch.ops.row_gather import row_gather
     from semantichuman_torch.ops.spiral_conv import spiral_conv
 
-    spiral_conv.launches = 0
-    csr_reduce.launches = 0
+    for fn in (spiral_conv, csr_reduce, banded_gather_fwd, banded_gather_bwd,
+               row_gather):
+        fn.launches = 0
     for mode in part_dist_sums.launches:
         part_dist_sums.launches[mode] = 0
 
 
 def read_counts() -> dict:
+    from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
+                                                       banded_gather_fwd)
     from semantichuman_torch.ops.csr_reduce import csr_reduce
     from semantichuman_torch.ops.part_dist import part_dist_sums
+    from semantichuman_torch.ops.row_gather import row_gather
     from semantichuman_torch.ops.spiral_conv import spiral_conv
 
     return {"spiral_conv_fwd": spiral_conv.launches,
             "csr_reduce": csr_reduce.launches,
-            **{f"part_dist_{m}": n for m, n in part_dist_sums.launches.items()}}
+            **{f"part_dist_{m}": n for m, n in part_dist_sums.launches.items()},
+            "banded_gather_fwd": banded_gather_fwd.launches,
+            "banded_gather_bwd": banded_gather_bwd.launches,
+            "row_gather": row_gather.launches}
+
+
+def counts_diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in KERNEL_COUNTS}
+
+
+def expect(per_call: dict, calls: int = 1) -> dict:
+    """Every kernel count as per_call x calls (kernels absent: 0)."""
+    return {k: per_call.get(k, 0) * calls for k in KERNEL_COUNTS}
 
 
 def phase_train(human, hier):
@@ -679,12 +818,11 @@ def phase_train(human, hier):
     wall = time.perf_counter() - t0
     counts = read_counts()
     log(f"[train] main path, {TRAIN_STEPS} steps: launches {counts}")
-    per_step = {"spiral_conv_fwd": 9, "csr_reduce": 8,
-                "part_dist_fwd_grad": 2, "part_dist_fwd": 0,
-                "part_dist_bwd": 0}
-    for name, n in per_step.items():
-        require(counts[name] == n * TRAIN_STEPS,
-                f"{name}: {counts[name]} launches in {TRAIN_STEPS} steps")
+    # at trunk batch 384 no banded route engages
+    want = expect({"spiral_conv_fwd": 9, "csr_reduce": 8,
+                   "part_dist_fwd_grad": 2}, TRAIN_STEPS)
+    require(counts == want, f"{TRAIN_STEPS} steps: launches {counts}, "
+            f"want {want}")
     losses = torch.stack(losses).cpu()
     require(bool(torch.isfinite(losses).all()), f"non-finite loss {losses}")
     log(f"[train] losses {[round(float(v), 6) for v in losses]}")
@@ -741,6 +879,325 @@ def profile_steps(run, wall_ms: float, reps: int = 3) -> dict:
             "top_kernels": [[n[:90], t] for n, t in top]}
 
 
+def banded_calls(model):
+    """(label, band table, C, needs dx) of every banded call of one trunk
+    pass at B <= 16, in order: the convs at banded levels (their input
+    width), then the unpools into banded transitions (the width entering
+    the level, which unpool keeps).  The first conv's input is data, so its
+    backward never runs."""
+    t = model.tables
+    calls = []
+    for side, plan in (("enc", model.enc_plan), ("dec", model.dec_plan)):
+        for j, (lvl, cin, _cout, _act) in enumerate(plan):
+            if t.band_for(lvl) is not None:
+                calls.append((f"{side} conv L{lvl} C={cin}", t.band_for(lvl),
+                              cin, not (side == "enc" and j == 0)))
+    for lvl in range(t.n_levels - 2, -1, -1):
+        band = t.unpool_band_for(lvl)
+        if band is not None:
+            c = next(cin for lv, cin, _co, _a in model.dec_plan if lv == lvl)
+            calls.append((f"unpool {lvl + 1}->{lvl} C={c}", band, c, True))
+    return calls
+
+
+def phase_banded_kernels(model, b: int = TRAINER_TRUNK_B):
+    """Rows 5-7 at every banded call of one Trainer step (trunk batch 12),
+    float32 as the step feeds them: the forward bit-equal (unweighted) or
+    to rtol 1e-6 (weighted: one product per element either way), the
+    backward to 1e-5 of the largest entry with the dummy row zeroed (sums
+    of the same terms in another order; the dummy row collects every
+    in-band pad and its gradient is discarded) and bit-equal over two
+    runs, the fix-up gather bit-equal.  One bf16 forward per conv call,
+    bit-equal (a copy).  Device times per call (device_ms): kernel, plain,
+    library (index_select of the sources, index_add_ of the in-band rows,
+    selected and weighted before the timed call); the kernel's host-paced
+    time (time_ms); bound = bytes / 3.35 TB/s."""
+    from semantichuman_torch.ops import banded_gather as BG
+    from semantichuman_torch.ops import row_gather as RG
+
+    gen = torch.Generator(device=DEVICE).manual_seed(4)
+    rows = []
+    for label, table, c, needs_dx in banded_calls(model):
+        m = b * c
+        xp = torch.randn((table.n_src, m), generator=gen, device=DEVICE)
+        xp[-1] = 0.0
+        src, inband = BG._sources(table)
+        row = {"call": label, "m": m, "weighted": table.weighted,
+               "n_rows": table.n_rows, "n_src": table.n_src}
+        # --- row 5 ----------------------------------------------------------
+        got = BG.banded_gather_fwd(xp, table)
+        ref = BG.banded_gather_fwd_plain(xp, table)
+        sync()
+        if table.weighted:
+            torch.testing.assert_close(got, ref, rtol=1e-6, atol=0,
+                                       msg=lambda s: f"fwd {label}: {s}")
+        else:
+            require(torch.equal(got, ref), f"fwd {label}: not bit-equal")
+            x16 = xp.bfloat16()
+            require(torch.equal(BG.banded_gather_fwd(x16, table),
+                                BG.banded_gather_fwd_plain(x16, table)),
+                    f"fwd {label} bf16: not bit-equal")
+        extra = table.n_rows * 4 if table.weighted else 0
+        fwd_bytes = ((table.n_src + table.n_rows) * m * 4 + table.n_rows * 4
+                     + table.base.numel() * 4 + extra)
+        row["fwd"] = {
+            "max_abs_err": float((got - ref).abs().max()),
+            "ms": device_ms(lambda: BG.banded_gather_fwd(xp, table)),
+            "host_ms": time_ms(lambda: BG.banded_gather_fwd(xp, table)),
+            "plain_ms": device_ms(lambda: BG.banded_gather_fwd_plain(
+                xp, table)),
+            "library_ms": device_ms(lambda: xp.index_select(0, src)),
+            "bound_ms": fwd_bytes / PEAK_BYTES * 1e3}
+        del got, ref
+        # --- row 6 ----------------------------------------------------------
+        if needs_dx:
+            ct = torch.randn((table.n_rows, m), generator=gen, device=DEVICE)
+            got = BG.banded_gather_bwd(ct, table)
+            again = BG.banded_gather_bwd(ct, table)
+            ref = BG.banded_gather_bwd_plain(ct, table)
+            sync()
+            require(torch.equal(got, again), f"bwd {label}: runs differ")
+            got[-1] = 0
+            ref[-1] = 0
+            err = float((got - ref).abs().max())
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-5 * float(ref.abs().max()),
+                                       msg=lambda s: f"bwd {label}: {s}")
+            ct_in = ct[inband]
+            if table.weighted:
+                ct_in = ct_in * table.w[inband][:, None]
+            src_in = src[inband]
+            nnz = int(src_in.numel())
+            bwd_bytes = ((table.n_rows + table.n_src) * m * 4
+                         + (table.n_src + 1 + nnz) * 4
+                         + (nnz * 4 if table.weighted else 0))
+            row["bwd"] = {
+                "max_abs_err": err, "rel_err": err / float(ref.abs().max()),
+                "ms": device_ms(lambda: BG.banded_gather_bwd(ct, table)),
+                "host_ms": time_ms(lambda: BG.banded_gather_bwd(ct, table)),
+                "plain_ms": device_ms(lambda: BG.banded_gather_bwd_plain(
+                    ct, table)),
+                "library_ms": device_ms(lambda: torch.zeros(
+                    (table.n_src, m), device=DEVICE).index_add_(0, src_in,
+                                                                ct_in)),
+                "bound_ms": bwd_bytes / PEAK_BYTES * 1e3}
+            del got, again, ref, ct, ct_in
+        # --- row 7 ----------------------------------------------------------
+        if table.fix is not None:
+            idx = table.fix.idx
+            got = RG.row_gather(xp, idx)
+            ref = RG.row_gather_plain(xp, idx)
+            sync()
+            require(torch.equal(got, ref), f"row_gather {label}: not equal")
+            n_fix = int(idx.numel())
+            n_read = int(torch.unique(idx).numel())
+            row["row_gather"] = {
+                "n_fix": n_fix, "max_abs_err": 0.0,
+                "ms": device_ms(lambda: RG.row_gather(xp, idx)),
+                "host_ms": time_ms(lambda: RG.row_gather(xp, idx)),
+                "plain_ms": device_ms(lambda: RG.row_gather_plain(xp, idx)),
+                "library_ms": device_ms(lambda: xp.index_select(
+                    0, idx.long())),
+                "bound_ms": ((n_read + n_fix) * m * 4 + n_fix * 4)
+                / PEAK_BYTES * 1e3}
+        rows.append(row)
+        parts = " ".join(
+            f"{k} {row[k]['ms']:.4f}/{row[k]['plain_ms']:.4f}/"
+            f"{row[k]['library_ms']:.4f}/{row[k]['bound_ms']:.4f}"
+            for k in ("fwd", "bwd", "row_gather") if k in row)
+        log(f"[banded] {label:22s} M={m:5d} kernel/plain/library/bound "
+            f"ms (device): {parts}")
+    return rows
+
+
+def banded_summary(rows, key: str) -> dict:
+    """A kernel's numbers summed over the step's calls of it."""
+    calls = [r[key] for r in rows if key in r]
+    out = {k: sum(c[k] for c in calls)
+           for k in ("ms", "host_ms", "plain_ms", "library_ms", "bound_ms")}
+    out["max_abs_err"] = max(c["max_abs_err"] for c in calls)
+    out["calls"] = len(calls)
+    return out
+
+
+def trainer_cfg(banded: bool = True, **train):
+    """The paper recipe (Config() defaults) on synthetic SMPL-scale data."""
+    from semantichuman_torch.config import Config
+    return Config.from_dict({
+        "model": {"banded_conv": banded},
+        "data": {"synthetic": True, "synthetic_train": 64,
+                 "synthetic_test": 16},
+        "train": {"n_epochs": 3, "ck_frequency": 2, "save_recons": False,
+                  **train}})
+
+
+def trainer_workdir(root: Path, name: str) -> str:
+    """A workdir holding the compiled hierarchy where the Trainer reads it
+    (the port has no topology compiler)."""
+    d = root / name
+    d.mkdir()
+    for suffix in ("", ".meta"):
+        shutil.copy(str(TOPOLOGY) + suffix,
+                    d / f"topology_2222.npz{suffix}")
+    return str(d)
+
+
+def timed_steps(trainer) -> list:
+    """Wrap the trainer's steps: a synchronize after each, and the host
+    time of each loop iteration (batch fetch, edit sampling and the step)
+    appended to the returned list."""
+    times, last = [], [None]
+    get = trainer._get_step
+
+    def get_step(epoch, variant):
+        step = get(epoch, variant)
+
+        def run(*args):
+            out = step(*args)
+            sync()
+            now = time.perf_counter()
+            if last[0] is not None:
+                times.append((now - last[0]) * 1e3)
+            last[0] = now
+            return out
+        return run
+
+    trainer._get_step = get_step
+    return times
+
+
+def phase_trainer():
+    """The Trainer's main path (fit with counts), resume, evaluate, and
+    the banded and take routes timed from the same checkpoint."""
+    from semantichuman_torch.train.loop import Trainer
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        tr = Trainer(trainer_cfg(), trainer_workdir(root, "fit"),
+                     device=DEVICE)
+        out["init_s"] = time.perf_counter() - t0
+        t = tr.model.tables
+        require([b is not None for b in t.bands] == [True, True] + [False] * 3
+                and all(b is not None for b in t.unpool_bands),
+                "expected conv bands at levels 0-1 and four unpool bands")
+        require(tr.device_data is not None, "data not staged on the device")
+        n_steps = len(tr.train_loader) * 3
+        n_val = len(tr.val_loader) * 3
+        require(n_val == 3, "expected one validation batch per epoch")
+
+        # --- the main path: counts from 0, read right after -------------
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr.fit()
+        sync()
+        out["fit_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        # a validation batch of 16 is one forward on the B <= 16 routes
+        val = SERVE_LAUNCHES["small"]
+        want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps + val.get(k, 0) * n_val
+                for k in KERNEL_COUNTS}
+        log(f"[trainer] fit: {n_steps} steps, {n_val} val batches, "
+            f"launches {counts}")
+        require(counts == want, f"trainer launches {counts}, want {want}")
+        hist = tr.history
+        losses = [h["train"] for h in hist]
+        log(f"[trainer] epochs {[(h['epoch'], h['train'], h['val'], h['sec']) for h in hist]}")
+        require(all(np.isfinite(losses)) and all(
+            np.isfinite(h["val"]) for h in hist), "non-finite epoch loss")
+        require(losses[2] < losses[1] < losses[0],
+                f"epoch losses not falling: {losses}")
+        out.update(counts=counts, epoch_losses=losses,
+                   epoch_val=[h["val"] for h in hist],
+                   epoch_s=[h["sec"] for h in hist])
+        ckpt = os.path.join(tr.workdir, "checkpoints")
+        require(os.path.isdir(os.path.join(ckpt, "2")),
+                "no epoch-2 checkpoint")
+        del tr
+
+        # --- resume at epoch 3: banded, take, take, banded ------------------
+        runs = {"banded": {"run_ms": [], "step_ms": [], "epoch_s": [],
+                           "epoch3_loss": []},
+                "take": {"run_ms": [], "step_ms": [], "epoch_s": [],
+                         "epoch3_loss": []}}
+        for i, banded in enumerate((True, False, False, True)):
+            name = "banded" if banded else "take"
+            r = runs[name]
+            tr = Trainer(trainer_cfg(banded, resume=ckpt),
+                         trainer_workdir(root, f"resume{i}"), device=DEVICE)
+            require(tr.start_epoch == 3, f"resumed at {tr.start_epoch}")
+            times = timed_steps(tr)
+            tr.fit()
+            loss3 = tr.history[0]["train"]
+            r["run_ms"].append(float(np.median(times)))
+            r["step_ms"] += times
+            r["epoch_s"].append(tr.history[0]["sec"])
+            r["epoch3_loss"].append(loss3)
+            log(f"[trainer] resumed {name}: epoch 3 loss {loss3:.7f} "
+                f"(uninterrupted {losses[2]:.7f}), {r['run_ms'][-1]:.3f} "
+                f"ms/step median of {len(times)}, epoch "
+                f"{tr.history[0]['sec']:.3f} s with val")
+            if banded:
+                np.testing.assert_allclose(loss3, losses[2], rtol=1e-4)
+            else:
+                # the two routes gather the same values; the gradients'
+                # f32 sums run in another order through 16 Adam steps
+                np.testing.assert_allclose(loss3, losses[2], rtol=1e-3)
+            if i == 0:
+                _p, _z, _zk, _tx, l1, mm = tr.evaluate()
+                require(np.isfinite(l1) and np.isfinite(mm),
+                        f"evaluate: l1 {l1} mm {mm}")
+                log(f"[trainer] evaluate: l1 {l1:.6f}, {mm:.3f} mm")
+                out.update(eval_l1=l1, eval_mm=mm)
+            if i < 2:
+                r.update(profile_epoch(tr))
+            del tr
+        for name, r in runs.items():
+            ms = float(np.median(r["step_ms"]))
+            r.update(ms_per_step=ms, meshes_per_s=TRAINER_B / ms * 1e3)
+            if "device_busy_ms" in r:
+                r["idle_share"] = max(0.0, 1 - r["device_busy_ms"] / ms)
+            log(f"[trainer] {name}: {ms:.3f} ms/step (median of "
+                f"{len(r['step_ms'])} steps; runs {r['run_ms']}), "
+                f"{TRAINER_B / ms * 1e3:.1f} meshes/s, idle share "
+                f"{r.get('idle_share', 'not measured')}")
+        out["routes"] = runs
+    return out
+
+
+def profile_epoch(tr) -> dict:
+    """Device time per step by kernel name over one more epoch of steps
+    (torch.profiler); the caller sets it against the unprofiled median
+    step time for the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if DEVICE != "cuda":
+        return {}
+    n = len(tr.train_loader)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tr._run_epoch_steps(3, tr.interp_loader.cycle(anchor=3))
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / n)
+    if not by_name:
+        log("[profile] trainer: the profiler saw no device kernels; device "
+            "time not measured")
+        return {}
+    busy = sum(by_name.values())
+    log(f"[profile] trainer step: device busy {busy:.3f} ms")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    for name, t in top:
+        log(f"[profile]   {t:8.4f} ms  {name[:90]}")
+    return {"device_busy_ms": busy,
+            "top_kernels": [[nm[:90], t] for nm, t in top]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
@@ -762,11 +1219,15 @@ def main() -> int:
     human = SyntheticHuman()
     hier = MeshHierarchy.load(str(TOPOLOGY))
     model = build_model(ModelConfig(), hier, human.part_dict, device="cuda")
+    model_take = build_model(ModelConfig(banded_conv=False), hier,
+                             human.part_dict, device="cuda")
     params = model.init(0)
     require(len(conv_layers(model)) == 9, "expected 9 convs per forward")
 
     rows, max_err = phase_kernels(model)
-    launches, timing = phase_serving(model, params, human)
+    serve, serve_take, timing, timing_take = phase_serving(
+        model, model_take, params, human)
+    del model_take
 
     f32 = [r for r in rows if r["dtype"] == "float32"]
     kernel_ms = sum(r["ms"] for r in f32)
@@ -777,9 +1238,21 @@ def main() -> int:
     conv_bwd = phase_conv_backward(model)
     csr_rows = phase_csr_reduce(model)
     pd_rows = phase_part_dist(human)
+    banded_rows = phase_banded_kernels(model)
     torch.cuda.empty_cache()
     train = phase_train(human, hier)
-    counts = train.pop("counts")
+    step_counts = train.pop("counts")
+    torch.cuda.empty_cache()
+    trainer = phase_trainer()
+    trainer_counts = trainer.pop("counts")
+
+    paths = {"serve": serve, "serve_take": serve_take,
+             "train_step": step_counts, "trainer": trainer_counts}
+
+    def launches(name):
+        by_path = {p: c[name] for p, c in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path}
 
     # the step's dx calls: every conv but the first, whose input is data
     step_csr = csr_rows[1:]
@@ -793,12 +1266,11 @@ def main() -> int:
     pallas = "semantichuman_tpu/ops/pallas/part_dist_pallas.py"
     kernels = [{
         "name": "spiral_conv_fwd",
+        "row": 1,
         "route": "cuda",
         "source": "semantichuman_torch/csrc/spiral_conv.cu",
         "replaces": "semantichuman_tpu/ops/pallas/spiral_conv_pallas.py:78",
-        "launches": launches + counts["spiral_conv_fwd"],
-        "launches_by_path": {"serve": launches,
-                             "train": counts["spiral_conv_fwd"]},
+        **launches("spiral_conv_fwd"),
         "max_abs_err": max_err,
         # the nine float32 convs of one B=64 forward, summed
         "ms": kernel_ms,
@@ -807,33 +1279,19 @@ def main() -> int:
         "bound_by": ("operations" if sum(r["ops_ms"] for r in f32)
                      >= sum(r["bytes_ms"] for r in f32) else "bytes"),
         "library_ms": None,
-        "forward_ms": timing,
+        "forward_ms": {"banded": timing, "take": timing_take},
         "layers": rows,
-    }, {
-        "name": "csr_reduce",
-        "route": "cuda",
-        "source": "semantichuman_torch/csrc/csr_reduce.cu",
-        "replaces": "benchmarks/pallas_dma_gather_probe.py:157",
-        "launches": counts["csr_reduce"],
-        "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
-        # the eight dx reductions of one training step, summed
-        "ms": sum(r["ms"] for r in step_csr),
-        "plain_ms": sum(r["plain_ms"] for r in step_csr),
-        "bound_ms": sum(r["bound_ms"] for r in step_csr),
-        "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in step_csr),
-        "layers": csr_rows,
-        "conv_backward_f32_sum": bwd_sum,
-        "conv_backward": conv_bwd,
     }]
-    for mode, line in (("fwd", 330), ("fwd_grad", 356), ("bwd", 413)):
+    for row, (mode, line) in enumerate((("fwd", 330), ("fwd_grad", 356),
+                                        ("bwd", 413)), start=2):
         r = pd[("threshold", mode)]
         kernels.append({
             "name": f"part_dist_{mode}",
+            "row": row,
             "route": "cuda",
             "source": "semantichuman_torch/csrc/part_dist.cu",
             "replaces": f"{pallas}:{line}",
-            "launches": counts[f"part_dist_{mode}"],
+            **launches(f"part_dist_{mode}"),
             "max_abs_err": r["err"]["max_abs"],
             # one call at 17 parts x B = 128, w_mode threshold
             "ms": r["ms"],
@@ -843,6 +1301,56 @@ def main() -> int:
             "library_ms": None,
             "sin": pd[("sin", mode)],
         })
+    banded_pallas = "semantichuman_tpu/ops/pallas/banded_gather_pallas.py"
+    for row, name, key, source, replaces in (
+            (5, "banded_gather_fwd", "fwd", "banded_gather.cu",
+             f"{banded_pallas}:187"),
+            (6, "banded_gather_bwd", "bwd", "banded_gather.cu",
+             f"{banded_pallas}:237"),
+            (7, "row_gather", "row_gather", "row_gather.cu",
+             "benchmarks/pallas_dma_gather_probe.py:83")):
+        # every call of it in one Trainer step (trunk batch 12), summed
+        summary = banded_summary(banded_rows, key)
+        kernels.append({
+            "name": name,
+            "row": row,
+            "route": "cuda",
+            "source": f"semantichuman_torch/csrc/{source}",
+            "replaces": replaces,
+            **launches(name),
+            "max_abs_err": summary.pop("max_abs_err"),
+            **{k: summary.pop(k) for k in ("ms", "plain_ms", "bound_ms")},
+            # back-to-back calls timed with CUDA events: the host's pace
+            "host_ms": summary.pop("host_ms"),
+            "bound_by": "bytes",
+            "library_ms": summary.pop("library_ms"),
+            "step_calls": summary.pop("calls"),
+            "calls": [{"call": r["call"], "m": r["m"], **r[key]}
+                      for r in banded_rows if key in r],
+        })
+    kernels.append({
+        "name": "csr_reduce",
+        "row": 8,
+        "route": "cuda",
+        "source": "semantichuman_torch/csrc/csr_reduce.cu",
+        "replaces": "benchmarks/pallas_dma_gather_probe.py:157",
+        **launches("csr_reduce"),
+        "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
+        # the eight dx reductions of one training step (B = 384), summed
+        "ms": sum(r["ms"] for r in step_csr),
+        "plain_ms": sum(r["plain_ms"] for r in step_csr),
+        "bound_ms": sum(r["bound_ms"] for r in step_csr),
+        "bound_by": "bytes",
+        "library_ms": sum(r["library_ms"] for r in step_csr),
+        "layers": csr_rows,
+        "conv_backward_f32_sum": bwd_sum,
+        "conv_backward": conv_bwd,
+    })
+    for k in KERNEL_COUNTS:
+        require(paths["trainer"][k] > 0 or k in ("part_dist_fwd",
+                                                 "part_dist_bwd"),
+                f"{k}: no launch on the trainer path")
+    log(json.dumps({"trainer": trainer}))
     log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -1,25 +1,47 @@
-"""Model and training configuration (the port's copy of
-`semantichuman_tpu/config.py` ModelConfig and TrainConfig, same defaults).
+"""Configuration (the port's copy of `semantichuman_tpu/config.py`: the same
+dataclass tree, fields and defaults, and the same YAML overrides, so every
+file in `configs/` loads into either package).
 
-Only the fields the port reads are kept.  The TPU dispatch switches
-(`use_pallas`, `banded_conv`) select XLA/Pallas forms with no counterpart
-here.  The topology compile parameters (`ds_factors`, `step_sizes`,
-`dilation`) belong to the compiler, which the port does not have: it loads
-a compiled hierarchy.  The neural3DMM fields (`nz`, `vae`, `activation`)
-arrive with that model.  TrainConfig keeps the fields that the train
-step, the edit sampler and the optimizer read; the trainer's fields
-(checkpoints, logging, epochs of a run) arrive with the trainer.
+    cfg = Config.from_yaml("configs/train_dfaust.yaml")
+    cfg = Config()          # code defaults: the paper recipe
+
+Fields that select a mechanism of the JAX package's TPU runtime load and
+have no effect in the port:
+
+  * `model.use_pallas`: the port's kernels are its only implementation;
+  * `train.epoch_scan`, `train.scan_epochs`: the port always runs the
+    step loop (the JAX package's own test holds the epoch scan equal to
+    it; its counterpart here, a CUDA graph, is not ported);
+  * `train.data_parallel`: one process drives one card; a distributed run
+    raises (data parallelism is not ported);
+  * `train.profile_start` / `profile_stop`: at their default (0, 0);
+    a profiling window raises (the trace window is not ported).
+
+`model.banded_conv` (on by default, as in the JAX package) builds band
+tables for the fine spiral levels and the large unpool transitions; the
+spiral conv and unpool take the banded routes on the card at the JAX
+package's batch gates (`ops/spiral_conv.py`, `ops/sampling.py`).  The
+topology fields (`ds_factors`, `step_sizes`, `dilation`) name the compiled
+hierarchy the trainer loads (the port has no topology compiler).  The
+neural3DMM fields (`nz`, `vae`, `activation`) load for that model, which is
+not ported.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
+from typing import Any, Optional
 
 
 @dataclass
 class ModelConfig:
-    # 'multiz+partkps' (paper flagship); 'neural3DMM' is not ported yet
+    model_name: str = "dfaust_multiz8_partkps8"
+    # 'multiz+partkps' (paper flagship); 'neural3DMM' is not ported
     model_type: str = "multiz+partkps"
+    ds_factors: list = field(default_factory=lambda: [2, 2, 2, 2])
+    step_sizes: list = field(default_factory=lambda: [2, 2, 1, 1, 1])
+    dilation: list = field(default_factory=lambda: [2, 2, 1, 1, 1])
     # [per-level main filters, per-level optional extra filters]
     filter_sizes_enc: list = field(
         default_factory=lambda: [[3, 16, 32, 64, 128], [[], [], [], [], []]])
@@ -27,18 +49,51 @@ class ModelConfig:
         default_factory=lambda: [[128, 64, 32, 32, 16], [[], [], [], [], 3]])
     part_shape_latent_size: int = 8
     part_kps_latent_size: int = 8
+    nz: int = 256             # latent size for the neural3DMM baseline
+    activation: str = "elu"
+    vae: bool = False
     # numeric policy: 'float32' or 'bfloat16' for the conv trunk
     trunk_dtype: str = "float32"
+    use_pallas: bool = True   # no effect in the port
+    banded_conv: bool = True
+
+
+@dataclass
+class DataConfig:
+    root_dir: str = "data/DFAUST"
+    dataset: str = "DFAUST"
+    n_val: int = 0
+    normalization: str = "zeroroot"  # substring-matched modes, data.dataset
+    measure: bool = True
+    shuffle: bool = True
+    from_stacked: bool = True
+    reference_hierarchy: Optional[str] = None
+    prefetch: int = 2
+    # stage array splits on the device (data.device_data): True / False /
+    # 'auto' (on when everything fits device_resident_max_gb)
+    device_resident: Any = "auto"
+    device_resident_max_gb: float = 6.0
+    asset_dir: str = "data/asset"
+    # synthetic data (no DFAUST needed)
+    synthetic: bool = False
+    synthetic_train: int = 256
+    synthetic_test: int = 64
+    # synthetic mesh resolution (None = SMPL scale, 6892 vertices)
+    synthetic_n_theta: Optional[int] = None
+    synthetic_n_phi: Optional[int] = None
 
 
 @dataclass
 class TrainConfig:
+    n_epochs: int = 300
+    batch_train: int = 4
+    batch_test: int = 16
+    batch_interp: int = 4
     lr: float = 1e-3
     weight_decay: float = 5e-5        # torch-style coupled L2 inside Adam
     lr_decay: float = 0.99            # per-epoch exponential (StepLR gamma)
     lr_warmup_epochs: int = 0         # linear lr ramp over the first N epochs
     lr_schedule: str = "exp"          # 'exp' | 'cosine' (needs n_epochs)
-    n_epochs: int = 300
     grad_clip: float = 0.0            # global-norm clip, 0 = off
     adam_b2: float = 0.999
     skip_nonfinite: int = 0           # >0: skip steps with NaN/Inf grads
@@ -69,3 +124,63 @@ class TrainConfig:
     noleaf_flag: bool = True
     leafkeep_flag: bool = True
     factor: list = field(default_factory=lambda: [0.4, 0.8])
+    # checkpointing
+    ck_frequency: int = 100
+    ck_keep: Optional[int] = None     # keep only the newest N checkpoints
+    ck_name: str = "checkpoint"
+    resume: Optional[str] = None      # checkpoint dir to resume from
+    resume_torch: Optional[str] = None  # reference .pth.tar: not ported
+    finetune: bool = False            # load weights only, restart schedule
+    eval_flag: bool = True
+    val_every: int = 1                # val pass every N epochs
+    save_recons: bool = True
+    data_parallel: bool = True        # no effect in the port (one card)
+    epoch_scan: bool = True           # no effect in the port (step loop)
+    scan_epochs: int = 1              # no effect in the port
+    log_every: int = 0                # extra step-level logging (0 = off)
+    profile_start: int = 0
+    profile_stop: int = 0             # > profile_start: not ported, raises
+
+
+@dataclass
+class Config:
+    model: ModelConfig = field(default_factory=ModelConfig)
+    data: DataConfig = field(default_factory=DataConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
+    out_dir: str = "results"
+
+    @staticmethod
+    def from_yaml(path: str) -> "Config":
+        import yaml
+
+        with open(path) as f:
+            raw = yaml.safe_load(f) or {}
+        return Config.from_dict(raw)
+
+    @staticmethod
+    def from_dict(raw: dict) -> "Config":
+        return _merge(Config(), raw)
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+def _merge(node: Any, raw: dict) -> Any:
+    if not dataclasses.is_dataclass(node):
+        raise TypeError(f"cannot merge into non-dataclass {node!r}")
+    updates = {}
+    valid = {f.name: f for f in dataclasses.fields(node)}
+    for key, val in raw.items():
+        if key not in valid:
+            raise KeyError(
+                f"unknown config key {key!r} for {type(node).__name__}; "
+                f"valid keys: {sorted(valid)}")
+        cur = getattr(node, key)
+        if dataclasses.is_dataclass(cur) and isinstance(val, dict):
+            updates[key] = _merge(cur, val)
+        else:
+            updates[key] = val
+    return dataclasses.replace(node, **updates)

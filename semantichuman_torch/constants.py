@@ -84,6 +84,15 @@ CHILD_DICT = {
 }
 
 
+PARTCOLOR_LIST = [
+    [0, 191, 255], [255, 0, 191], [255, 0, 63], [0, 127, 255],
+    [255, 0, 254], [0, 254, 255], [255, 0, 127], [255, 127, 0],
+    [0, 0, 255], [255, 191, 0], [63, 0, 255], [191, 255, 0],
+    [0, 255, 0], [0, 63, 255], [127, 255, 0], [127, 0, 255],
+    [255, 63, 0], [191, 0, 255], [0, 255, 63], [254, 255, 0],
+    [63, 255, 0], [255, 0, 0], [0, 255, 191], [0, 255, 127],
+]
+
 def bone_endpoint_arrays(skl_list: list[list[int]]):
     """(idx_a, idx_b1, idx_b2) int32 arrays; the far endpoint of bone k is
     (kps[idx_b1[k]] + kps[idx_b2[k]]) / 2, which equals kps[idx_b1[k]] when

@@ -75,6 +75,13 @@ def init_conv_stack(rng: np.random.Generator, plan, spiral_sizes):
     return params
 
 
+def _band_kw(tables, level: int) -> dict:
+    """`band=` only for levels that carry one, so a conv_fn without the
+    keyword (a test's) keeps working on unbanded tables."""
+    band = tables.band_for(level)
+    return {"band": band} if band is not None else {}
+
+
 def encoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
                   conv_fn=spiral_conv):
     """Apply encoder convs + pooling; returns coarse features [B, V_L+1, C]."""
@@ -84,7 +91,7 @@ def encoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
             p = params_conv[j]
             x = conv_fn(x, tables.spirals[i], p["w"], p["b"], plan[j][3],
                         compute_dtype=compute_dtype,
-                        csr=tables.spiral_csr[i])
+                        csr=tables.spiral_csr[i], **_band_kw(tables, i))
             j += 1
         x = pool(x, tables.pool_idx[i])
     return x
@@ -96,11 +103,12 @@ def decoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
     j = 0
     for i in range(tables.n_levels - 1):
         lvl = tables.n_levels - 2 - i
-        x = unpool(x, tables.unpool_idx[lvl], tables.unpool_w[lvl])
+        x = unpool(x, tables.unpool_idx[lvl], tables.unpool_w[lvl],
+                   band=tables.unpool_band_for(lvl))
         while j < len(plan) and plan[j][0] == lvl:
             p = params_conv[j]
             x = conv_fn(x, tables.spirals[lvl], p["w"], p["b"], plan[j][3],
                         compute_dtype=compute_dtype,
-                        csr=tables.spiral_csr[lvl])
+                        csr=tables.spiral_csr[lvl], **_band_kw(tables, lvl))
             j += 1
     return x

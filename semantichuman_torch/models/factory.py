@@ -20,7 +20,7 @@ def build_model(cfg: ModelConfig, hier, part_dict: dict,
     if cfg.model_type != "multiz+partkps":
         raise ValueError(f"model_type {cfg.model_type!r} is not ported; "
                          "the port builds 'multiz+partkps'")
-    tables = device_tables(hier, device)
+    tables = device_tables(hier, device, banded=cfg.banded_conv)
     coarse_parts = hier.downsample_part_indices(part_dict)
     return PartAE(tables, coarse_parts, KPS_INDEX_LIST,
                   cfg.filter_sizes_enc, cfg.filter_sizes_dec,

@@ -1,7 +1,12 @@
 """Device-resident topology tables, derived once from a MeshHierarchy
-(counterpart of `semantichuman_tpu/models/tables.py`, without the TPU-only
-band specs), plus the inverse spiral tables that the spiral conv's
-backward reduces over."""
+(counterpart of `semantichuman_tpu/models/tables.py`), plus the inverse
+spiral tables that the spiral conv's backward reduces over.
+
+With `banded=True` (ModelConfig.banded_conv, on by default as in the JAX
+package) the fine spiral levels and the large unpool transitions also carry
+a band (`ops/banded_gather.py:BandTable`), which the banded routes of
+`spiral_conv` and `unpool` read.  The JAX package's pool bands are not
+built: its own gate never routes to them."""
 
 from __future__ import annotations
 
@@ -10,8 +15,16 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops.csr_reduce import CSRTable
+from ..ops import banding
+from ..ops.banded_gather import BandTable
+from ..ops.csr_reduce import CSRTable, inverse_csr
 from ..utils.device import resolve_device
+
+# conv bands only at the fine levels (V1 above the JAX one-hot form's upper
+# bound, where the JAX package bands); unpool bands at transitions with at
+# least this many fine rows.  Read at call time, so tests can lower them.
+BAND_MIN_V1 = 2049
+BAND_MIN_ROWS = 512
 
 
 @dataclass(frozen=True)
@@ -23,10 +36,21 @@ class DeviceTables:
     sizes: tuple          # V_l
     spiral_sizes: tuple   # S_l
     spiral_csr: tuple     # per level CSRTable: inverse of spirals[l]
+    # per level / transition: a BandTable, or None -> the take route
+    bands: tuple = ()
+    unpool_bands: tuple = ()
+    banded_conv: bool = False     # the flag the bands were built under
 
     @property
     def n_levels(self) -> int:
         return len(self.sizes)
+
+    def band_for(self, level: int):
+        return self.bands[level] if level < len(self.bands) else None
+
+    def unpool_band_for(self, level: int):
+        return (self.unpool_bands[level]
+                if level < len(self.unpool_bands) else None)
 
     @property
     def device(self) -> torch.device:
@@ -46,16 +70,37 @@ def inverse_spiral_csr(spiral: np.ndarray):
     """The transpose of a spiral gather as CSR: row u lists every flat
     index v*S + s with spiral[v, s] == u, in ascending order (a stable
     sort).  Returns (offs [V1+1], cols [V1*S]) int64."""
-    flat = np.asarray(spiral).reshape(-1)
-    cols = np.argsort(flat, kind="stable")
-    counts = np.bincount(flat, minlength=spiral.shape[0])
-    offs = np.concatenate([[0], np.cumsum(counts)])
-    return offs, cols
+    return inverse_csr(spiral, np.asarray(spiral).shape[0])
 
 
-def device_tables(hier, device="cuda") -> DeviceTables:
+def _bands(hier, dev):
+    """(conv bands per level, unpool bands per transition), as the JAX
+    package's device_tables picks them."""
+    sizes = [int(v) for v in hier.sizes]
+
+    def band(table, presets, dummy, weights=None):
+        spec = banding.pick_band_spec(np.asarray(table), presets=presets,
+                                      dummy=dummy)
+        return None if spec is None else BandTable.build(spec, dev, weights)
+
+    bands = tuple(
+        band(s, banding.BAND_PRESETS, None)
+        if np.asarray(s).shape[0] >= BAND_MIN_V1 else None
+        for s in hier.spirals)
+    # the unpool source is the next-coarser level: its zero dummy row is
+    # passed explicitly; the gate keys on the fine row count
+    unpool_bands = tuple(
+        band(u, banding.UNPOOL_BAND_PRESETS, sizes[l + 1],
+             np.asarray(w, np.float32).reshape(-1))
+        if np.asarray(u).shape[0] >= BAND_MIN_ROWS else None
+        for l, (u, w) in enumerate(zip(hier.unpool_idx, hier.unpool_w)))
+    return bands, unpool_bands
+
+
+def device_tables(hier, device="cuda", banded: bool = False) -> DeviceTables:
     """`hier` is a MeshHierarchy; spirals stay int32 (the kernel's index
-    type), sampling tables become int64 (torch.index_select's)."""
+    type), sampling tables become int64 (torch.index_select's).  `banded`
+    adds the band tables."""
     dev = resolve_device(device)
     sizes = tuple(int(v) for v in hier.sizes)
     spirals = tuple(
@@ -77,9 +122,11 @@ def device_tables(hier, device="cuda") -> DeviceTables:
         CSRTable.build(*inverse_spiral_csr(s), n_src=np.asarray(s).size,
                        device=dev)
         for s in hier.spirals)
+    bands, unpool_bands = _bands(hier, dev) if banded else ((), ())
     return DeviceTables(spirals=spirals, pool_idx=pool_idx,
                         unpool_idx=unpool_idx, unpool_w=unpool_w,
                         sizes=sizes,
                         spiral_sizes=tuple(int(s.shape[1])
                                            for s in hier.spirals),
-                        spiral_csr=spiral_csr)
+                        spiral_csr=spiral_csr, bands=bands,
+                        unpool_bands=unpool_bands, banded_conv=banded)

@@ -73,6 +73,17 @@ class CSRTable:
                         n_src=int(n_src))
 
 
+def inverse_csr(flat_idx, n_rows: int):
+    """The transpose of a gather by `flat_idx` as CSR: row u lists every
+    position k with flat_idx[k] == u, in ascending order (a stable sort).
+    Returns (offs [n_rows+1], cols [len(flat_idx)]) int64."""
+    flat = np.asarray(flat_idx, np.int64).reshape(-1)
+    cols = np.argsort(flat, kind="stable")
+    counts = np.bincount(flat, minlength=n_rows)
+    offs = np.concatenate([[0], np.cumsum(counts)])
+    return offs, cols
+
+
 def csr_reduce_plain(g: torch.Tensor, table: CSRTable) -> torch.Tensor:
     """The plain PyTorch version: gather every entry's source row, then add
     each into its output row.  g [B, M, C] -> [B, n_rows, C]."""

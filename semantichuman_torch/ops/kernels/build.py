@@ -45,6 +45,16 @@ SIGNATURES = {
                          + [_INT] * 2 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
+    "banded_gather": {
+        "sh_banded_gather_fwd": ([_VOIDP] * 5 + [_INT] * 6 + [_VOIDP], _INT),
+        "sh_banded_gather_bwd": ([_VOIDP] * 10 + [_INT] * 6 + [_VOIDP],
+                                 _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "row_gather": {
+        "sh_row_gather": ([_VOIDP] * 3 + [_INT] * 3 + [_VOIDP], _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
 }
 
 

@@ -10,12 +10,17 @@ row is set to exactly zero after bias and activation.
 `compute_dtype` follows `spiral_conv_take`: with bfloat16, x and W are cast
 BEFORE the gather; products and sums stay float32 and so does the output.
 
-`spiral_conv` runs through `SpiralConvFn`, an autograd Function whose
-forward is the hand-written kernel (`csrc/spiral_conv.cu`, counted in
-`spiral_conv.launches`) for a CUDA tensor and `spiral_conv_plain` for a
-CPU tensor.  Its backward takes the activation's derivative from the
-output, dW and db as plain matmul and sum, and dx as the CSR reduce over
-the inverse spiral table (`ops/csr_reduce.py`, a kernel on CUDA).
+`spiral_conv` dispatches, as the JAX package's does with the card in the
+TPU's place: a level whose tables carry a band (`models/tables.py`) takes
+the banded route `spiral_conv_banded` for a CUDA tensor at batch <= 16;
+every other call takes the take route through `SpiralConvFn`, an autograd
+Function whose forward is the hand-written kernel (`csrc/spiral_conv.cu`,
+counted in `spiral_conv.launches`) for a CUDA tensor and
+`spiral_conv_plain` for a CPU tensor.  Its backward takes the activation's
+derivative from the output, dW and db as plain matmul and sum, and dx as
+the CSR reduce over the inverse spiral table (`ops/csr_reduce.py`, a
+kernel on CUDA).  The JAX package's one-hot form is a TPU gather-engine
+workaround with the take route's values and is not ported.
 """
 
 from __future__ import annotations
@@ -23,8 +28,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .banded_gather import BandedGatherFn, BandTable
 from .csr_reduce import csr_reduce
 from .kernels import build
+from .row_gather import RowGatherFn
 
 ACTIVATIONS = {
     "relu": torch.relu,
@@ -60,14 +67,28 @@ def _act_grad(y: torch.Tensor, activation: str) -> torch.Tensor:
     raise ValueError(f"unknown activation {activation!r}")
 
 
+# the banded route's batch gate: the JAX dispatch's _BANDED_MAX_B, adopted
+# with the card in the TPU's place (PERF.md holds the card's numbers for
+# both routes)
+_BANDED_MAX_B = 16
+
+
+def _banded_ok(b: int, device: torch.device) -> bool:
+    """The banded route runs on the card at batch <= 16; on the CPU the
+    take route stays, as the JAX dispatch keeps banding off the CPU."""
+    return device.type == "cuda" and b <= _BANDED_MAX_B
+
+
 def spiral_conv_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
                       w: torch.Tensor, bias: torch.Tensor,
                       activation: str = "elu",
-                      compute_dtype=None, csr=None) -> torch.Tensor:
+                      compute_dtype=None, csr=None,
+                      band=None) -> torch.Tensor:
     """The plain PyTorch version: a gather, one matmul, bias, activation.
     x [B, V1, C], spiral_idx [V1, S] int32, w [S*C, Co], bias [Co]
-    -> [B, V1, Co] float32.  `csr` is not used: autograd differentiates
-    the gather itself."""
+    -> [B, V1, Co] float32.  `csr` and `band` are not used: autograd
+    differentiates the gather itself, and the banded route computes the
+    same values."""
     act = ACTIVATIONS[activation]
     if compute_dtype is not None:
         x = x.to(compute_dtype)
@@ -176,15 +197,44 @@ class SpiralConvFn(torch.autograd.Function):
         return dx, dw, db, None, None, None
 
 
+def spiral_conv_banded(x: torch.Tensor, spiral_idx: torch.Tensor,
+                       band: BandTable, w: torch.Tensor, bias: torch.Tensor,
+                       activation: str = "elu",
+                       compute_dtype=None) -> torch.Tensor:
+    """The banded route (counterpart of JAX `spiral_conv_banded_pallas`):
+    pack x as [V1, B*C], gather the in-band entries with the banded-gather
+    kernels, add the out-of-band fix-up rows through the row-gather kernel,
+    then one matmul with W, bias, activation and a zero dummy row.  Same
+    values as the take route: every gathered row is one copied source row,
+    and dummy pads out of the window read the zero dummy row either way."""
+    act = ACTIVATIONS[activation]
+    if compute_dtype is not None:
+        x = x.to(compute_dtype)
+        w = w.to(compute_dtype)
+    b, _, c = x.shape
+    v1, s = spiral_idx.shape
+    xp = x.transpose(0, 1).reshape(v1, b * c).contiguous()
+    g = BandedGatherFn.apply(xp, band)                  # [V1*S, B*C]
+    if band.fix is not None:
+        g = g.index_add(0, band.fix_pos, RowGatherFn.apply(xp, band.fix))
+    g = g.reshape(v1, s, b, c).permute(2, 0, 1, 3).reshape(b, v1, s * c)
+    y = act(torch.matmul(g.float(), w.float()) + bias.float())
+    return torch.cat([y[:, :-1], y.new_zeros((b, 1, y.shape[2]))], dim=1)
+
+
 def spiral_conv(x: torch.Tensor, spiral_idx: torch.Tensor, w: torch.Tensor,
                 bias: torch.Tensor, activation: str = "elu",
-                compute_dtype=None, csr=None) -> torch.Tensor:
+                compute_dtype=None, csr=None, band=None) -> torch.Tensor:
     """x [B, V1, C], spiral_idx [V1, S] int32, w [S*C, Co], bias [Co] float32
     -> [B, V1, Co] float32.  `csr` (a CSRTable, the inverse of spiral_idx)
-    is needed only when x's gradient is.  CPU tensors take the plain
-    versions of the kernels; CUDA tensors launch them or raise."""
+    is needed only when x's gradient is; `band` (a BandTable, or None) is
+    the level's band.  CPU tensors take the plain versions of the kernels;
+    CUDA tensors launch them or raise."""
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"spiral_conv runs on cpu or cuda, not {x.device}")
+    if band is not None and _banded_ok(x.shape[0], x.device):
+        return spiral_conv_banded(x, spiral_idx, band, w, bias, activation,
+                                  compute_dtype)
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)

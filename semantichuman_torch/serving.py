@@ -4,8 +4,10 @@
 A bundle is a directory with `manifest.json` and one `torch.save` payload
 holding the parameters, the topology tables, the part layout and the joint
 regressor: everything needed to serve without the topology compiler or a
-checkpoint.  The loaded bundle exposes the JAX artifacts' functions with
-the same signatures and shapes, for any batch size:
+checkpoint.  The loaded bundle rebuilds its band tables under the same
+`banded_conv` flag as the model it was exported from, and exposes the JAX
+artifacts' functions with the same signatures and shapes, for any batch
+size:
 
   forward  (verts [B, V+1, 3])          -> (rec [B, V+1, 3], z, z_kps)
   encode   (verts [B, V+1, 3])          -> (z, z_kps, dummy)
@@ -55,6 +57,7 @@ def export_inference(model: PartAE, params: dict, j_regressor,
         "nz": model.latent_size,
         "nk": model.kps_latent_size,
         "trunk_dtype": trunk_dtype,
+        "banded_conv": t.banded_conv,
         "j_regressor": torch.as_tensor(np.asarray(j_regressor, np.float32)),
     }
     torch.save(payload, os.path.join(out_dir, PAYLOAD))
@@ -63,7 +66,7 @@ def export_inference(model: PartAE, params: dict, j_regressor,
     in_shapes = {"forward": [["b", v + 1, 3]], "encode": [["b", v + 1, 3]],
                  "decode": [["b", p, nz], ["b", p, nk]]}
     manifest = {"n_vertices": v, "n_parts": p, "nz": nz, "nk": nk,
-                "trunk_dtype": trunk_dtype,
+                "trunk_dtype": trunk_dtype, "banded_conv": t.banded_conv,
                 "artifacts": {name: {"file": PAYLOAD, "in_shapes": shapes}
                               for name, shapes in in_shapes.items()}}
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
@@ -87,7 +90,8 @@ class ServingBundle:
             **{k: [a.numpy() for a in tab[k]]
                for k in ("spirals", "pool_idx", "unpool_idx", "unpool_w")})
         self.model = PartAE(
-            device_tables(hier, self.device),
+            device_tables(hier, self.device,
+                          banded=pl.get("banded_conv", False)),
             {k: v.numpy() for k, v in pl["part_indices"].items()},
             pl["kps_index_list"], pl["filters_enc"], pl["filters_dec"],
             latent_size=pl["nz"], part_kps_latent_size=pl["nk"],

@@ -1,0 +1,532 @@
+"""Trainer: init, train, validate, evaluate (the port's counterpart of
+`semantichuman_tpu/train/loop.py`).
+
+  hierarchy (loaded) -> assets -> model -> loss tables -> optimizer
+  -> step cache -> epoch loop (train / val) -> checkpoints
+  -> final eval + prediction export
+
+It runs on one device, the card unless the caller asks for the CPU, and
+always as a loop of eager steps (the JAX package's whole-epoch scan equals
+that loop by its own test; a CUDA graph, its counterpart, is not ported).
+Each epoch reseeds the batch shuffle, the edit sampler and the interp/exc
+cycle from the epoch number, so the port replays the JAX Trainer's batch,
+edit-spec and exc-variant schedule exactly, and a resumed run replays the
+uninterrupted one.  Per-step losses stay on the device until the epoch
+ends; validation and evaluation sums accumulate on the device and are read
+once per pass.
+
+The port has no topology compiler: the trainer loads the hierarchy that the
+JAX package's compiler cached as `<workdir>/topology_<ds tag>.npz`, or the
+bundled `assets/topology_synth_full_<tag>.npz` when its compile key matches
+(the default synthetic template).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import subprocess
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from ..config import Config
+from ..data.assets import BodyAssets
+from ..data.dataset import (ArraySource, BatchLoader, compute_stats,
+                            place_batch)
+from ..data.device_data import (DeviceBatchLoader, DeviceDataSource,
+                                gt_bytes)
+from ..models import build_model
+from ..topology import MeshHierarchy
+from ..utils.checkpoint import restore_checkpoint, save_checkpoint
+from ..utils.device import resolve_device
+from ..utils.logging import MetricsLogger
+from . import losses as L
+from .edits import EditSampler
+from .optim import AdamState, make_optimizer
+from .step import flags_for_epoch, make_eval_step, make_train_step, to_device
+
+BUNDLED_TOPOLOGY_DIR = Path(__file__).resolve().parents[2] / "assets"
+
+
+def topology_key(verts, faces, ds_factors, step_sizes, dilation,
+                 reference_vertex: int) -> str:
+    """The JAX compiler's cache key (the `.meta` sidecar of a compiled
+    hierarchy), for a compile without explicit level meshes."""
+    geom = hashlib.sha1(
+        np.ascontiguousarray(np.asarray(verts, np.float64)).tobytes()
+        + np.ascontiguousarray(np.asarray(faces, np.int64)).tobytes()
+    ).hexdigest()[:16]
+    return repr((geom, tuple(ds_factors), tuple(step_sizes), tuple(dilation),
+                 int(reference_vertex), None))
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
+                               f"section 1, '{item}'")
+
+
+class Trainer:
+    def __init__(self, cfg: Config, workdir: str,
+                 assets: BodyAssets | None = None, data=None,
+                 device="cuda"):
+        self.cfg = cfg
+        self.workdir = workdir
+        self.device = resolve_device(device)
+        t = cfg.train
+        if t.resume_torch:
+            raise _not_ported("train.resume_torch (reference checkpoints)",
+                              "import_torch and resume_torch")
+        if cfg.model.model_type != "multiz+partkps":
+            raise _not_ported(f"model_type {cfg.model.model_type!r}",
+                              "neural3DMM and the baseline steps")
+        if t.profile_stop > t.profile_start:
+            raise _not_ported("the profiling window (TraceWindow)",
+                              "the trace window")
+        if (torch.distributed.is_available()
+                and torch.distributed.is_initialized()
+                and torch.distributed.get_world_size() > 1):
+            raise _not_ported("data-parallel training", "DDP")
+        for sub in ("checkpoints", "summaries", "samples", "predictions"):
+            os.makedirs(os.path.join(workdir, sub), exist_ok=True)
+
+        # --- assets + data ----------------------------------------------------
+        self._synthetic = None
+        if assets is None:
+            if not cfg.data.synthetic:
+                raise _not_ported("the DFAUST asset files (BodyAssets.load)",
+                                  "the DFAUST data path")
+            assets, self._synthetic = BodyAssets.synthetic(
+                n_theta=cfg.data.synthetic_n_theta,
+                n_phi=cfg.data.synthetic_n_phi)
+        elif cfg.data.synthetic and data is None:
+            from ..data.synthetic import SyntheticHuman
+            self._synthetic = SyntheticHuman(
+                n_theta=cfg.data.synthetic_n_theta,
+                n_phi=cfg.data.synthetic_n_phi)
+            if (len(self._synthetic.template_verts)
+                    != len(assets.template_verts)):
+                raise ValueError(
+                    f"explicit assets have {len(assets.template_verts)} "
+                    "template vertices but the synthetic generator makes "
+                    f"{len(self._synthetic.template_verts)}: set "
+                    "data.synthetic_n_theta/n_phi to match the assets")
+        self.assets = assets
+        self._setup_data(data)
+
+        # --- topology, model, losses, optimizer -------------------------------
+        self.hierarchy = self._load_topology()
+        self.model = build_model(cfg.model, self.hierarchy, assets.part_dict,
+                                 device=self.device)
+        self.tables = L.build_loss_tables(
+            assets.template_faces, assets.j_regressor, assets.part_dict,
+            device=self.device)
+        self.steps_per_epoch = max(len(self.train_loader), 1)
+        self.optimizer = make_optimizer(
+            t.lr, t.weight_decay, t.lr_decay, self.steps_per_epoch,
+            warmup_epochs=t.lr_warmup_epochs, schedule_kind=t.lr_schedule,
+            n_epochs=t.n_epochs, grad_clip=t.grad_clip, adam_b2=t.adam_b2,
+            skip_nonfinite=t.skip_nonfinite)
+        self.params = self.model.init(t.seed)
+        self.opt_state = self.optimizer.init(self.params)
+        self.start_epoch = 1
+        self.global_step = 0
+        if t.resume:
+            self._resume(t.resume, t.finetune)
+        self.device_data = None
+        self._maybe_stage_device_data()
+
+        self.sampler = EditSampler(
+            edit_mode=t.edit_mode, rand_mode=t.rand_mode, factor=t.factor,
+            noleaf_flag=t.noleaf_flag, editskl_flag=t.editskl_flag,
+            exc_mode=t.exc_mode, seed=t.seed)
+        self.logger = MetricsLogger(os.path.join(workdir, "summaries"))
+        self.history = []          # per epoch: {"epoch", "train", "val", "sec"}
+        self._step_cache: dict = {}
+        self._eval_steps: dict = {}
+
+    # --- topology ----------------------------------------------------------------
+    def _load_topology(self) -> MeshHierarchy:
+        m = self.cfg.model
+        tag = "".join(str(f) for f in m.ds_factors)
+        tv = self.assets.template_verts
+        key = topology_key(tv, self.assets.template_faces, m.ds_factors,
+                           m.step_sizes, m.dilation, min(414, len(tv) - 1))
+        cache = Path(self.workdir) / f"topology_{tag}.npz"
+        bundled = BUNDLED_TOPOLOGY_DIR / f"topology_synth_full_{tag}.npz"
+        for path in (cache, bundled):
+            if not path.exists():
+                continue
+            meta = Path(str(path) + ".meta")
+            saved = meta.read_text() if meta.exists() else None
+            if saved is not None and saved != key:
+                if path == cache:
+                    raise ValueError(
+                        f"{path} was compiled for another template or other "
+                        "compile parameters, and the port has no topology "
+                        "compiler to rebuild it: compile it with "
+                        "semantichuman_tpu.topology.compile_topology")
+                continue
+            hier = MeshHierarchy.load(str(path))
+            if (hier.sizes[0] != len(tv)
+                    or not np.allclose(hier.verts[0], tv)):
+                raise ValueError(f"{path}: its level-0 mesh is not the "
+                                 "template of these assets")
+            return hier
+        raise FileNotFoundError(
+            f"no compiled topology at {cache}: the port has no topology "
+            "compiler (ROADMAP.md section 1, 'the topology compiler'); "
+            "compile it with semantichuman_tpu.topology.compile_topology "
+            "(cache_path=...) or copy a compiled hierarchy there")
+
+    # --- data ------------------------------------------------------------------
+    def _setup_data(self, data):
+        cfg = self.cfg
+        if data is not None:
+            self.data = data
+            self.stats = None
+        elif cfg.data.synthetic:
+            sh = self._synthetic
+            train = sh.sample_meshes(cfg.data.synthetic_train,
+                                     seed=cfg.train.seed)
+            test = sh.sample_meshes(cfg.data.synthetic_test,
+                                    seed=cfg.train.seed + 1)
+            self.data = {
+                "train": ArraySource(train.astype(np.float32),
+                                     sh.measures(train).astype(np.float32)),
+                "val": ArraySource(test.astype(np.float32)),
+                "test": ArraySource(test.astype(np.float32)),
+            }
+            self.stats = compute_stats(train, test, cfg.data.normalization)
+        else:
+            raise _not_ported("the DFAUST data files (MeshData, FileSource)",
+                              "the DFAUST data path")
+        t = cfg.train
+        common = dict(normalization=cfg.data.normalization,
+                      j_regressor=self.assets.j_regressor, stats=self.stats)
+        self.train_loader = BatchLoader(
+            self.data["train"], t.batch_train, shuffle=cfg.data.shuffle,
+            seed=t.seed, drop_last=True, **common)
+        self.interp_loader = BatchLoader(
+            self.data["train"], t.batch_interp, shuffle=cfg.data.shuffle,
+            seed=t.seed + 101, drop_last=True, **common)
+        self.val_loader = BatchLoader(
+            self.data["val"], t.batch_test, shuffle=False, seed=0,
+            pad_final=True, **common)
+        self.test_loader = BatchLoader(
+            self.data["test"], t.batch_test, shuffle=False, seed=0,
+            pad_final=True, **common)
+
+    def _maybe_stage_device_data(self):
+        """Stage array splits on the device and swap the loaders for
+        on-device batches.  data.device_resident: True / False / 'auto'
+        (on when the splits and the GT loss inputs of the train/interp
+        source fit data.device_resident_max_gb)."""
+        mode = self.cfg.data.device_resident
+        if mode is False or mode == "false":
+            return
+        loaders = {"train": self.train_loader, "interp": self.interp_loader,
+                   "val": self.val_loader, "test": self.test_loader}
+        sources = {id(ld.source): ld.source for ld in loaders.values()}
+        train_ids = {id(self.train_loader.source),
+                     id(self.interp_loader.source)}
+        supported = all(isinstance(s, ArraySource) for s in sources.values())
+        n_faces = len(self.assets.template_faces)
+        n_vol = self.tables.face_part_mask.shape[1]
+        total = sum(
+            int(np.prod(s.verts.shape)) * 4
+            + (0 if s.measures is None else int(np.prod(s.measures.shape)) * 4)
+            + (gt_bytes(len(s), n_faces, n_vol) if sid in train_ids else 0)
+            for sid, s in sources.items())
+        budget = float(self.cfg.data.device_resident_max_gb) * 1e9
+        if not supported or total > budget:
+            if mode is True or mode == "true":
+                raise ValueError(
+                    "data.device_resident=True but the dataset cannot be "
+                    f"staged (array-backed={supported}, bytes={total:.3g} "
+                    f"vs budget {budget:.3g})")
+            return
+        faces = np.asarray(self.assets.template_faces)
+        mask = self.tables.face_part_mask.cpu().numpy()
+        staged = {
+            sid: DeviceDataSource(
+                src.verts, src.measures, self.cfg.data.normalization,
+                j_regressor=self.assets.j_regressor, stats=self.stats,
+                device=self.device,
+                # GT loss inputs only where a train step reads them
+                gt_faces=faces if sid in train_ids else None,
+                gt_face_part_mask=mask if sid in train_ids else None)
+            for sid, src in sources.items()}
+        self.device_data = staged
+        for name in ("train_loader", "interp_loader", "val_loader",
+                     "test_loader"):
+            ld = getattr(self, name)
+            setattr(self, name, DeviceBatchLoader(ld, staged[id(ld.source)]))
+
+    def _put(self, batch: dict) -> dict:
+        return place_batch(batch, self.device)
+
+    @staticmethod
+    def _step_view(batch: dict) -> dict:
+        """The tensors a step reads (host-side ids stay out)."""
+        return {k: batch[k] for k in ("verts", "measure", "gt_face_edges",
+                                      "gt_part_vols") if k in batch}
+
+    # --- checkpoint -------------------------------------------------------------
+    def _ckpt_dir(self):
+        return os.path.join(self.workdir, "checkpoints")
+
+    def _resume(self, resume_dir: str, finetune: bool):
+        state, _ = restore_checkpoint(resume_dir, device=self.device)
+        self.params = state["params"]
+        if not finetune:
+            self.opt_state = AdamState(**state["opt_state"])
+            self.start_epoch = int(state["epoch"]) + 1
+            self.global_step = int(state["step"])
+
+    def save(self, epoch: int):
+        save_checkpoint(self._ckpt_dir(), epoch, {
+            "params": self.params,
+            "opt_state": vars(self.opt_state),
+            "epoch": epoch, "step": self.global_step},
+            max_to_keep=self.cfg.train.ck_keep)
+
+    # --- steps ------------------------------------------------------------------
+    def _get_step(self, epoch: int, variant: str):
+        flags = flags_for_epoch(self.cfg.train, epoch)
+        key = (flags, variant)
+        if key not in self._step_cache:
+            self._step_cache[key] = make_train_step(
+                self.model, self.tables, self.optimizer, flags, variant)
+        return self._step_cache[key]
+
+    def _get_eval_step(self, mm_constant: float = 1000.0):
+        key = float(mm_constant)
+        if key not in self._eval_steps:
+            self._eval_steps[key] = make_eval_step(self.model, self.tables,
+                                                   mm_constant)
+        return self._eval_steps[key]
+
+    def _interp_measure(self, interp_b: dict):
+        """Host measures of the interp batch: only edit_mode='exc' reads
+        them."""
+        m = interp_b.get("measure")
+        if m is None or self.cfg.train.edit_mode != "exc":
+            return None
+        return m.cpu().numpy()
+
+    # --- main loop ---------------------------------------------------------------
+    def dump_part_template(self):
+        """Part-coloured template OBJ at train start."""
+        from ..data.assets import part_color_map
+        from ..topology.obj_io import save_obj
+        v = self.assets.template_verts
+        save_obj(os.path.join(self.workdir, "samples", "template_parts.obj"),
+                 v, self.assets.template_faces,
+                 vert_colors=part_color_map(self.assets.part_dict, len(v)))
+
+    def _dump_train_params(self):
+        """The resolved config (and the code revision, where git knows it)
+        into checkpoints/train_params.txt, once per Trainer."""
+        if getattr(self, "_params_dumped", False):
+            return
+        self._params_dumped = True
+        sha = None
+        try:
+            sha = subprocess.run(
+                ["git", "rev-parse", "HEAD"], capture_output=True, text=True,
+                timeout=5, cwd=os.path.dirname(os.path.abspath(__file__)),
+            ).stdout.strip() or None
+        except (OSError, subprocess.SubprocessError):
+            pass
+        with open(os.path.join(self._ckpt_dir(), "train_params.txt"),
+                  "a") as f:
+            f.write(json.dumps({"git_sha": sha,
+                                "start_epoch": self.start_epoch,
+                                "config": self.cfg.to_dict()},
+                               indent=2, default=str) + "\n")
+
+    def fit(self, n_epochs: int | None = None):
+        cfg = self.cfg
+        n_epochs = n_epochs or cfg.train.n_epochs
+        if len(self.train_loader) == 0:
+            raise ValueError(
+                f"train split has {len(self.data['train'])} samples, fewer "
+                f"than batch_train={cfg.train.batch_train} (drop_last)")
+        if len(self.interp_loader) == 0:
+            raise ValueError(
+                f"train split has {len(self.data['train'])} samples, fewer "
+                f"than batch_interp={cfg.train.batch_interp} (drop_last)")
+        self._dump_train_params()
+        if self.start_epoch == 1 and cfg.train.save_recons:
+            self.dump_part_template()
+        for epoch in range(self.start_epoch, n_epochs + 1):
+            t0 = time.time()
+            # per-epoch deterministic state: the batch order, the edit-spec
+            # RNG and the interp/exc schedule are functions of the epoch,
+            # so resume-at-E replays the uninterrupted run's epoch E
+            self.train_loader.set_epoch(epoch)
+            self.sampler.reseed(epoch)
+            interp_iter = self.interp_loader.cycle(anchor=epoch)
+            tloss, metrics, last_batch = self._run_epoch_steps(epoch,
+                                                               interp_iter)
+            self.logger.log(self.global_step, metrics)
+            vloss = None
+            if epoch % max(cfg.train.val_every, 1) == 0 or epoch == n_epochs:
+                vloss = self.validate()
+            sec = time.time() - t0
+            ep_metrics = {"epoch_train": tloss}
+            if vloss is not None:
+                ep_metrics["epoch_val"] = vloss
+            self.logger.log(epoch, ep_metrics, prefix="epoch")
+            self.history.append({"epoch": epoch, "train": tloss,
+                                 "val": vloss, "sec": sec})
+            vtxt = "-" if vloss is None else f"{vloss:.6f}"
+            print(f"epoch {epoch} | tr {tloss:.6f} | val {vtxt} | "
+                  f"{sec:.1f}s", flush=True)
+            if epoch % cfg.train.ck_frequency == 0:
+                self.save(epoch)
+            if (cfg.train.save_recons and epoch % 50 == 0
+                    and last_batch is not None):
+                self._dump_sample(epoch, last_batch)
+        return self
+
+    def _run_epoch_steps(self, epoch: int, interp_iter):
+        """One epoch as a loop of steps; losses stay on the device until it
+        ends (reading each would make the host wait for the card)."""
+        cfg = self.cfg
+        step_losses, step_sizes = [], []
+        last_batch, metrics = None, {}
+        for batch in self.train_loader:
+            batch = self._put(batch)
+            interp_b = self._put(next(interp_iter))
+            exc_b = self._put(next(interp_iter))
+            variant = self.sampler.sample_exc_variant()
+            spec = to_device(self.sampler.sample_interp(
+                epoch, interp_b["verts"].shape[0],
+                measure=self._interp_measure(interp_b)), self.device)
+            step = self._get_step(epoch, variant)
+            self.params, self.opt_state, metrics = step(
+                self.params, self.opt_state, self._step_view(batch),
+                self._step_view(interp_b), self._step_view(exc_b), spec)
+            step_losses.append(metrics["loss"])
+            step_sizes.append(batch["verts"].shape[0])
+            self.global_step += 1
+            if cfg.train.log_every and (
+                    self.global_step % cfg.train.log_every == 0):
+                self.logger.log(self.global_step, _to_host(metrics))
+            last_batch = batch
+        losses = torch.stack(step_losses).double().cpu().numpy()
+        sizes = np.asarray(step_sizes, np.float64)
+        epoch_loss = float((losses * sizes).sum() / max(sizes.sum(), 1.0))
+        return epoch_loss, _to_host(metrics), last_batch
+
+    def validate(self) -> float:
+        """Mean per-sample L1 over the val split (pad rows masked)."""
+        step = self._get_eval_step()
+        total = count = None
+        for batch in self.val_loader:
+            batch = self._put(batch)
+            out = step(self.params, self._step_view(batch))
+            valid = batch["valid"]
+            s, c = (out["l1"] * valid).sum(), valid.sum()
+            total = s if total is None else total + s
+            count = c if count is None else count + c
+        if total is None:
+            return 0.0
+        total, count = torch.stack([total, count]).double().cpu().tolist()
+        return total / max(count, 1.0)
+
+    def evaluate(self, loader=None, mm_constant: float = 1000.0,
+                 unnormalize: bool | None = None):
+        """Full test-set eval: (predictions, z, z_kps, inputs, mean L1, mean
+        per-vertex mm error).  `unnormalize` (default: on whenever the
+        normalization has a scaling mode, 'gass' or 'normal') inverts the
+        scaling first, so the mm number is true millimetres."""
+        from ..data.dataset import unnormalize_batch
+        loader = loader or self.test_loader
+        norm = self.cfg.data.normalization
+        if unnormalize is None:
+            unnormalize = ("gass" in norm) or ("normal" in norm)
+        if unnormalize and self.stats is None:
+            raise ValueError("unnormalize=True needs dataset stats "
+                             "(train with gass/normal normalization)")
+        step = self._get_eval_step(mm_constant)
+        preds, zs, zkps, txs = [], [], [], []
+        l1_sum = l2_sum = None
+        l1_host = l2_host = 0.0
+        count = 0
+        for batch in loader:
+            batch = self._put(batch)
+            out = step(self.params, self._step_view(batch))
+            n_valid = batch["verts"].shape[0] - batch.get("pad", 0)
+            rec = out["rec"][:n_valid].cpu().numpy()
+            tx = batch["verts"][:n_valid].cpu().numpy()
+            if unnormalize:
+                idx = np.asarray(batch["global_idx"][:n_valid])
+                rec = np.concatenate(
+                    [unnormalize_batch(rec[:, :-1], norm, self.stats, idx),
+                     rec[:, -1:]], axis=1)
+                tx = np.concatenate(
+                    [unnormalize_batch(tx[:, :-1], norm, self.stats, idx),
+                     tx[:, -1:]], axis=1)
+                d = rec[:, :-1] - tx[:, :-1]
+                l1_host += float(np.sum(np.mean(np.abs(d), axis=(1, 2))))
+                l2_host += float(np.sum(np.mean(np.sqrt(np.sum(
+                    (d * mm_constant) ** 2, axis=2)), axis=1)))
+            else:
+                valid = batch["valid"]
+                s1 = (out["l1"] * valid).sum()
+                s2 = (out["l2_mm"] * valid).sum()
+                l1_sum = s1 if l1_sum is None else l1_sum + s1
+                l2_sum = s2 if l2_sum is None else l2_sum + s2
+            preds.append(rec)
+            zs.append(out["z"][:n_valid].cpu().numpy())
+            zkps.append(out["z_kps"][:n_valid].cpu().numpy())
+            txs.append(tx)
+            count += n_valid
+        if l1_sum is not None:
+            l1_host, l2_host = torch.stack([l1_sum, l2_sum]).double() \
+                .cpu().tolist()
+        return (np.concatenate(preds), np.concatenate(zs),
+                np.concatenate(zkps), np.concatenate(txs),
+                l1_host / count, l2_host / count)
+
+    def export_predictions(self, out_dir: str | None = None):
+        out_dir = out_dir or os.path.join(self.workdir, "predictions")
+        os.makedirs(out_dir, exist_ok=True)
+        preds, z, z_kps, tx, l1, l2 = self.evaluate()
+        np.save(os.path.join(out_dir, "predictions.npy"), preds)
+        np.save(os.path.join(out_dir, "z_s.npy"), z)
+        np.save(os.path.join(out_dir, "z_kps_s.npy"), z_kps)
+        np.save(os.path.join(out_dir, "tx_s.npy"), tx)
+        with open(os.path.join(self._ckpt_dir(), "train_params.txt"),
+                  "a") as f:
+            f.write(f"autoencoder: L1 loss {l1}\n")
+            f.write(f"autoencoder: euclidean distance in mm {l2}\n")
+        return preds, z, z_kps, tx, l1, l2
+
+    def _dump_sample(self, epoch: int, batch: dict):
+        """GT and reconstruction OBJ of the batch's first sample."""
+        from ..topology.obj_io import save_obj
+        res = self._get_eval_step()(self.params, self._step_view(batch))
+        gt = batch["verts"][0, :-1].cpu().numpy()
+        rec = res["rec"][0, :-1].cpu().numpy()
+        sdir = os.path.join(self.workdir, "samples")
+        save_obj(os.path.join(sdir, f"epoch{epoch}_GT.obj"), gt,
+                 self.assets.template_faces)
+        save_obj(os.path.join(sdir, f"epoch{epoch}_rec.obj"), rec,
+                 self.assets.template_faces)
+
+
+def _to_host(metrics: dict) -> dict:
+    """Device scalars -> floats in one transfer."""
+    if not metrics:
+        return {}
+    names = list(metrics)
+    vals = torch.stack([metrics[k].detach().double().reshape(())
+                        for k in names]).cpu().tolist()
+    return dict(zip(names, vals))

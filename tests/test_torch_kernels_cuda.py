@@ -227,6 +227,275 @@ def test_part_dist_autograd_routes_agree(cuda):
     assert TP.part_dist_sums.launches["fwd_grad"] == before["fwd_grad"]
 
 
+# --- the banded gather (rows 5, 6) and the row gather (row 7) ------------------
+
+TOPOLOGY = "assets/topology_synth_full_2222.npz"
+
+
+def _local_table(n, s, spread, rng, far_frac=0.02):
+    """A local index table with dummy pads and a few far entries (the
+    out-of-band fix-ups); the dummy is row n - 1."""
+    tbl = np.clip(np.arange(n)[:, None] + rng.integers(-spread, spread,
+                                                       (n, s)), 0, n - 1)
+    tbl[rng.uniform(size=(n, s)) < 0.3] = n - 1
+    far = rng.uniform(size=(n, s)) < far_frac
+    tbl[far] = rng.integers(0, n, far.sum())
+    return tbl.astype(np.int32)
+
+
+def _small_band(device, weighted=False, seed=0):
+    from semantichuman_torch.ops import banding
+    from semantichuman_torch.ops.banded_gather import BandTable
+    rng = np.random.default_rng(seed)
+    n, s = 600, 9
+    tbl = _local_table(n, s, 150, rng)
+    spec = banding.pick_band_spec(tbl, presets=((128, 384),), max_oob=1.0,
+                                  dummy=n - 1)
+    weights = rng.uniform(size=n * s).astype(np.float32) if weighted else None
+    return BandTable.build(spec, device, weights)
+
+
+@pytest.fixture(scope="module")
+def full_bands():
+    """The trainer's band tables at full width: conv levels 0-1 and the
+    four unpool transitions of the bundled topology, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from semantichuman_torch.models.tables import device_tables
+    from semantichuman_torch.topology import MeshHierarchy
+    t = device_tables(MeshHierarchy.load(TOPOLOGY), "cuda", banded=True)
+    bands = {f"conv{lvl}": b for lvl, b in enumerate(t.bands)
+             if b is not None}
+    bands.update({f"unpool{lvl}": b for lvl, b in enumerate(t.unpool_bands)
+                  if b is not None})
+    assert sorted(bands) == ["conv0", "conv1", "unpool0", "unpool1",
+                             "unpool2", "unpool3"]
+    return bands
+
+
+# channels C of every banded call of the default model's step: the conv
+# inputs at levels 0-1 and the unpool inputs into levels 0-3
+TRAINER_WIDTHS = {"conv0": (3, 32, 16), "conv1": (16, 32),
+                  "unpool0": (32,), "unpool1": (32,), "unpool2": (64,),
+                  "unpool3": (128,)}
+
+
+def _band_cases(full_bands, cuda):
+    """(label, table, row width M = B*C) at the trainer's widths (trunk
+    batch 12) and a small table with odd widths."""
+    small, weighted = _small_band(cuda), _small_band(cuda, weighted=True)
+    cases = [("small", small, 24), ("small-odd", small, 7),
+             ("small-w", weighted, 20), ("small-w-odd", weighted, 5)]
+    for name, table in full_bands.items():
+        for c in TRAINER_WIDTHS[name]:
+            cases.append((name, table, 12 * c))
+    return cases
+
+
+def _xp(table, m, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((table.n_src, m), generator=gen, device=device)
+    x[-1] = 0.0                                  # the zero dummy source row
+    return x.to(dtype)
+
+
+@pytest.mark.cuda
+def test_banded_gather_fwd_matches_plain(cuda, full_bands):
+    """Row 5: unweighted (f32 and bf16) a copy, bit-equal to the plain
+    version; weighted (f32) one product per element, rtol 1e-6.  One
+    counted launch per call."""
+    from semantichuman_torch.ops import banded_gather as BG
+    for label, table, m in _band_cases(full_bands, cuda):
+        dtypes = ((torch.float32,) if table.weighted
+                  else (torch.float32, torch.bfloat16))
+        for dtype in dtypes:
+            xp = _xp(table, m, dtype, cuda)
+            before = BG.banded_gather_fwd.launches
+            got = BG.banded_gather_fwd(xp, table)
+            ref = BG.banded_gather_fwd_plain(xp, table)
+            torch.cuda.synchronize()
+            assert BG.banded_gather_fwd.launches == before + 1
+            assert got.dtype == dtype and got.shape == (table.n_rows, m)
+            if table.weighted:
+                torch.testing.assert_close(got, ref, rtol=1e-6, atol=0,
+                                           msg=lambda s: f"{label}: {s}")
+            else:
+                assert torch.equal(got, ref), f"{label} {dtype}"
+
+
+@pytest.mark.cuda
+def test_banded_gather_bwd_matches_plain_and_repeats(cuda, full_bands):
+    """Row 6: the transpose against index_add_ of the plain version, to
+    1e-5 of the largest entry with the dummy row zeroed (sums in another
+    order; the dummy row collects every in-band pad); two runs bit-equal
+    (fixed order, no atomics)."""
+    from semantichuman_torch.ops import banded_gather as BG
+    for label, table, m in _band_cases(full_bands, cuda):
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        ct = torch.randn((table.n_rows, m), generator=gen, device=cuda)
+        before = BG.banded_gather_bwd.launches
+        got = BG.banded_gather_bwd(ct, table)
+        again = BG.banded_gather_bwd(ct, table)
+        ref = BG.banded_gather_bwd_plain(ct, table)
+        torch.cuda.synchronize()
+        assert BG.banded_gather_bwd.launches == before + 2
+        assert torch.equal(got, again), label
+        got[-1] = 0
+        ref[-1] = 0
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()),
+                                   msg=lambda s: f"{label}: {s}")
+
+
+@pytest.mark.cuda
+def test_banded_gather_fn_gradient(cuda, full_bands):
+    """BandedGatherFn's gradient on the card equals autograd of the plain
+    forward (1e-5 of the largest entry, dummy row zeroed), and the weights
+    get none."""
+    from semantichuman_torch.ops import banded_gather as BG
+    for label in ("conv0", "unpool0"):
+        table = full_bands[label]
+        xp = _xp(table, 12 * 16, torch.float32, cuda).requires_grad_(True)
+        gen = torch.Generator(device=cuda).manual_seed(2)
+        ct = torch.randn((table.n_rows, 12 * 16), generator=gen, device=cuda)
+        (got,) = torch.autograd.grad(BG.BandedGatherFn.apply(xp, table), xp,
+                                     ct)
+        (ref,) = torch.autograd.grad(BG.banded_gather_fwd_plain(xp, table),
+                                     xp, ct)
+        torch.cuda.synchronize()
+        got[-1] = 0
+        ref[-1] = 0
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_src,d,n_out", [(300, 24, 64), (6893, 192, 2368),
+                                           (3447, 384, 904), (50, 3, 7),
+                                           (1724, 192, 208)])
+def test_row_gather_matches_index_select(cuda, n_src, d, n_out, dtype):
+    """Row 7 copies rows: bit-equal to index_select, one counted launch;
+    its gradient (csr_reduce over the inverse index) equals index_add_'s
+    to 1e-6 of the largest entry."""
+    from semantichuman_torch.ops import row_gather as RG
+    rng = np.random.default_rng(n_src)
+    idx = rng.integers(0, n_src, n_out)
+    idx[:3] = idx[3]                                    # repeated rows
+    table = RG.GatherTable.build(idx, n_src, cuda)
+    x = torch.from_numpy(rng.standard_normal((n_src, d)).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = RG.row_gather.launches
+    got = RG.row_gather(x, table.idx)
+    torch.cuda.synchronize()
+    assert RG.row_gather.launches == before + 1
+    assert torch.equal(got, x.index_select(0, table.idx.long()))
+    if dtype != torch.float32:
+        return
+    xg = x.clone().requires_grad_(True)
+    ct = torch.from_numpy(rng.standard_normal((n_out, d)).astype(
+        np.float32)).to(cuda)
+    (dx,) = torch.autograd.grad(RG.RowGatherFn.apply(xg, table), xg, ct)
+    ref = torch.zeros_like(x).index_add_(0, table.idx.long(), ct)
+    torch.testing.assert_close(dx, ref, rtol=0,
+                               atol=1e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_banded_routes_match_take(cuda, full_bands, dtype):
+    """spiral_conv at B <= 16 on a banded level and unpool on a banded
+    transition launch rows 5-7 and give the take route's values (f32
+    1e-5, bf16 inputs the same gathered values, so the same tolerance)
+    and x/W/b gradients (1e-5 of the largest entry, dummy row zeroed)."""
+    from semantichuman_torch.models.tables import device_tables
+    from semantichuman_torch.ops import banded_gather as BG
+    from semantichuman_torch.ops import row_gather as RG
+    from semantichuman_torch.ops import sampling as SA
+    from semantichuman_torch.topology import MeshHierarchy
+    t = device_tables(MeshHierarchy.load(TOPOLOGY), "cuda")
+    b, c, co = 12, 16, 32
+    v1, s = t.spirals[0].shape
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn((b, v1, c), generator=gen, device=cuda)
+    x[:, -1] = 0
+    w = torch.randn((s * c, co), generator=gen, device=cuda) / (s * c) ** 0.5
+    bias = torch.randn((co,), generator=gen, device=cuda)
+    dy = torch.randn((b, v1, co), generator=gen, device=cuda)
+    cd = None if dtype == torch.float32 else dtype
+    outs = []
+    for band in (full_bands["conv0"], None):
+        leaves = [a.clone().requires_grad_(True) for a in (x, w, bias)]
+        counts = (BG.banded_gather_fwd.launches, RG.row_gather.launches)
+        y = TC.spiral_conv(leaves[0], t.spirals[0], leaves[1], leaves[2],
+                           "elu", compute_dtype=cd, csr=t.spiral_csr[0],
+                           band=band)
+        grads = torch.autograd.grad(y, leaves, dy)
+        torch.cuda.synchronize()
+        if band is not None:
+            assert (BG.banded_gather_fwd.launches, RG.row_gather.launches) \
+                == (counts[0] + 1, counts[1] + 1)
+        outs.append((y, grads))
+    (yb, gb), (yt, gt) = outs
+    torch.testing.assert_close(yb, yt, rtol=0, atol=1e-5)
+    for i, (g, r) in enumerate(zip(gb, gt)):
+        g, r = g.clone(), r.clone()
+        if g.dim() == 3:
+            g[:, -1] = 0
+            r[:, -1] = 0
+        # x and W gradients of a bf16 conv are rounded to bf16 on both
+        # routes: f32 sums in another order may round one ulp apart, and
+        # the banded route adds dx's in-band and fix-up parts in bf16
+        bf16 = cd is not None and i < 2
+        torch.testing.assert_close(
+            g, r, rtol=2 ** -7 if bf16 else 0,
+            atol=(2 ** -7 if i == 0 and bf16 else 1e-5)
+            * float(r.abs().max()))
+    # unpool 0: fine level 0 from coarse level 1
+    xc = torch.randn((b, t.sizes[1] + 1, c), generator=gen, device=cuda)
+    xc[:, -1] = 0
+    band = full_bands["unpool0"]
+    res = []
+    for fn in (lambda a: SA.unpool(a, t.unpool_idx[0], t.unpool_w[0],
+                                   band=band),
+               lambda a: SA.unpool_take(a, t.unpool_idx[0], t.unpool_w[0])):
+        a = xc.clone().requires_grad_(True)
+        y = fn(a)
+        res.append((y, torch.autograd.grad(y, a, torch.ones_like(y))[0]))
+    torch.testing.assert_close(res[0][0], res[1][0], rtol=0, atol=1e-5)
+    g, r = res[0][1].clone(), res[1][1].clone()
+    g[:, -1] = 0
+    r[:, -1] = 0
+    torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_banded_kernels_reject_bad_input(cuda):
+    from semantichuman_torch.ops import banded_gather as BG
+    from semantichuman_torch.ops import row_gather as RG
+    table = _small_band(cuda)
+    weighted = _small_band(cuda, weighted=True)
+    xp = _xp(table, 24, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        BG.banded_gather_fwd(xp.double(), table)
+    with pytest.raises(TypeError):
+        BG.banded_gather_fwd(xp.bfloat16(), weighted)
+    with pytest.raises(ValueError):
+        BG.banded_gather_fwd(xp[:-1].contiguous(), table)
+    with pytest.raises(ValueError):
+        BG.banded_gather_fwd(xp, _small_band("cpu"))
+    with pytest.raises(ValueError):
+        BG.banded_gather_bwd(torch.zeros((5, 24), device=cuda), table)
+    gt = RG.GatherTable.build(np.array([0, 3, 3]), 10, cuda)
+    x = torch.zeros((10, 8), device=cuda)
+    with pytest.raises(TypeError):
+        RG.row_gather(x, gt.idx.long())
+    with pytest.raises(ValueError):
+        RG.row_gather(x, gt.idx.cpu())
+    with pytest.raises(ValueError):
+        RG.row_gather(x.t(), gt.idx)
+
+
 @pytest.mark.cuda
 def test_training_kernels_reject_bad_input(cuda):
     from semantichuman_torch.ops import csr_reduce as TR
