@@ -7,7 +7,7 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, five sources, in parallel) and print the
+   csrc/` (one nvcc per source, six sources, in parallel) and print the
    card.
 2. kernels: at each of the nine full-width conv shapes of the serving path
    (B=64, the bundled 6892-vertex topology's spiral tables), in float32 and
@@ -28,8 +28,13 @@ run:
 
 4. training kernels, at the training step's full-width shapes (trunk
    batch 384 = three segments of B = 128): the spiral conv's backward
-   (dx through the csr_reduce kernel, dW, db) against autograd of the
-   plain conv at the nine conv shapes in float32 and bfloat16; csr_reduce
+   (dx, dW, db) against autograd of the plain conv at the nine conv
+   shapes in float32 and bfloat16, and there the two fused kernels
+   (spiral_conv_bwd_dw, spiral_conv_bwd_dx) each alone against its plain
+   version (1e-4 of the largest entry, two runs bit-equal) and timed
+   beside the unfused route (torch matmuls around the [B, V1, S*C]
+   buffers and csr_reduce), whole and half by half, the routes in turns
+   (a, b, b, a) with both readings kept; csr_reduce
    against its plain version and `index_add_`; the part_dist kernels
    (rows fwd, fwd_grad, bwd) against their plain versions at 17 parts x
    B = 128, for w_mode threshold and sin, relat on.  Errors, times and
@@ -40,8 +45,11 @@ run:
    of B = 128.  One loss+gradient through the kernels and one through the
    plain versions (plain conv, autograd of the plain distance sums) must
    agree; then 10 steps with the launch counts set to 0 just before:
-   finite losses and, per step, 9 conv forward, 8 csr_reduce and 2
-   part_dist fwd_grad launches (0 fwd, 0 bwd).  Then ms/step, meshes/s
+   finite losses and, per step (STEP_LAUNCHES), 9 conv forward, 9 dW, 7
+   dx and 1 csr_reduce launches (the first conv's input is data, so 8
+   convs ask for dx; the 64 -> 128 conv's takes the unfused route, whose
+   reduction is the csr_reduce launch) and 2 part_dist fwd_grad launches
+   (0 fwd, 0 bwd).  Then ms/step, meshes/s
    (128 per step, as bench.py counts), the device idle share, the top
    kernels (torch.profiler) and one bf16-trunk step (finite loss).
    At trunk batch 384 no banded route engages: 0 banded launches.
@@ -55,26 +63,41 @@ run:
    (torch.profiler: these kernels take microseconds, so back-to-back calls
    are paced by the host) beside its plain version, the library call
    (index_select, index_add_) and its bound (bytes moved / 3.35 TB/s).
+   Then the two fused backward kernels at the four convs that stay on the
+   take route there (enc L2, enc L3, dec L3, dec L2; batch 12 fills the
+   dx kernel's batch tiles only partly), float32 and bfloat16: each
+   within 1e-4 of the largest entry of its plain version, two runs
+   bit-equal.
 7. the Trainer: the paper recipe (Config() defaults: B = 4 per segment,
    lr 1e-3, banded_conv on) on synthetic SMPL-scale data (64 train, 16
    test meshes), full width, 3 epochs with the launch counts set to 0 just
    before fit(): finite falling epoch losses and per step (TRAIN_LAUNCHES)
    9 banded-gather forwards, 8 backwards, 8 row gathers, 4 spiral-conv
-   forwards, 11 csr_reduce (4 conv dx, 7 fix-up gather backwards) and 2
-   part_dist fwd_grad, plus 9/8/4 forward launches per validation pass.
-   Then resume from the epoch-2 checkpoint four times, banded_conv on,
-   off, off, on (epoch 3's train loss to rtol 1e-4 banded, 1e-3 take),
-   evaluate once (finite l1 and mm), and per route: ms/step (the median
-   of both runs' epoch-3 steps, a synchronize after each step), meshes/s
-   (4 a step), s/epoch, the idle share and top kernels.
+   forwards, 2 part_dist fwd_grad, and for the four coarse convs on the
+   take route (enc L2, enc L3, dec L3, dec L2) 4 dW and 3 dx launches, and
+   8 csr_reduce (the 7 fix-up gathers' backwards and the 64 -> 128 conv's
+   unfused dx); plus 9/8/4 forward launches per validation pass.
+   fit() runs as a user's does, with torch's default algorithms.  Four
+   runs resumed from its epoch-2 checkpoint, banded_conv on, off, off, on,
+   repeat epoch 3: its train loss to rtol 1e-2 (atomics make the
+   comparison chaotic, see phase_trainer), and per route ms/step (the
+   median of both runs' epoch-3 steps, a synchronize after each step),
+   meshes/s (4 a step), s/epoch, the idle share and top kernels; evaluate
+   once (finite l1 and mm).  The exact gate runs under torch's
+   deterministic algorithms: a second fit() there, and two runs resumed
+   from its epoch-2 checkpoint, banded_conv on and off, held to its epoch
+   3 (train loss to rtol 1e-4 banded, 1e-3 take).
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
-before printing any result.
+before printing any result.  `python3 chip_smoke.py --conv-backward` runs
+phase 1 and phase 4's conv backward alone with a per-kernel profile, for
+tuning those kernels: it prints no result line and is no gate.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import os
@@ -98,7 +121,8 @@ TRAIN_STEPS = 10
 TRAINER_B = 4                  # the paper recipe's batch_train/batch_interp
 TRAINER_TRUNK_B = 3 * TRAINER_B
 DEVICE = "cuda"
-KERNEL_COUNTS = ("spiral_conv_fwd", "csr_reduce", "part_dist_fwd",
+KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_bwd_dw",
+                 "spiral_conv_bwd_dx", "csr_reduce", "part_dist_fwd",
                  "part_dist_fwd_grad", "part_dist_bwd", "banded_gather_fwd",
                  "banded_gather_bwd", "row_gather")
 # launches per forward of the default model, by route: at B <= 16 the
@@ -112,12 +136,20 @@ SERVE_LAUNCHES = {
 }
 # launches per Trainer step at trunk batch 12: the forward as "small"
 # above; backward through 8 banded calls (all but the first conv, whose
-# input is data), their 7 fix-up gathers' backward through csr_reduce, and
-# csr_reduce for the 4 take-route convs' dx; the loss's two part_dist
-# fwd_grad calls
-TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "banded_gather_fwd": 9,
-                  "banded_gather_bwd": 8, "row_gather": 8, "csr_reduce": 11,
+# input is data) and their 7 fix-up gathers' backward through csr_reduce;
+# the loss's two part_dist fwd_grad calls; the 4 take-route convs' backward
+# (enc L2, enc L3, dec L3, dec L2) launches 4 dW and 3 dx, and the 64 -> 128
+# conv's unfused dx one csr_reduce more.
+TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
+                  "spiral_conv_bwd_dx": 3, "banded_gather_fwd": 9,
+                  "banded_gather_bwd": 8, "row_gather": 8, "csr_reduce": 8,
                   "part_dist_fwd_grad": 2}
+# launches per B = 128 training step (trunk batch 384, no banded route):
+# nine convs forward and their dW; dx for all but the first, whose input
+# is data, the 64 -> 128 conv's on the unfused route (one csr_reduce)
+STEP_LAUNCHES = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
+                 "spiral_conv_bwd_dx": 7, "csr_reduce": 1,
+                 "part_dist_fwd_grad": 2}
 # H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -126,6 +158,19 @@ PEAK_BYTES = 3.35e12
 # acos) per second: 16 per clock per SM on sm_90 (CUDA C++ Programming
 # Guide, arithmetic instruction throughput) x 132 SMs x 1.98 GHz
 PEAK_SFU = 16 * 132 * 1.98e9
+
+
+# kernel families of the step's profile, by a substring of the kernel name
+PROFILE_GROUPS = {"conv_fwd": "spiral_conv_fwd_kernel",
+                  "conv_bwd_dw": "dw_partial_kernel",
+                  "conv_bwd_dw_finish": "dw_finish_kernel",
+                  "conv_bwd_dx_short": "dx_short_kernel",
+                  "conv_bwd_dx_narrow": "dx_narrow_kernel",
+                  "conv_bwd_dx_long": "dx_long_",
+                  "csr_reduce": "csr_", "part_dist": "part_dist_kernel",
+                  "gemm": "gemm", "index_add": "indexFunc",
+                  "index_select": "index_elementwise",
+                  "scatter_gather": "_scatter_gather"}
 
 
 class SmokeFailure(RuntimeError):
@@ -446,17 +491,35 @@ def conv_bwd_bound(b, v1, s, cin, cout, dtype):
     return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def phase_conv_backward(model):
-    """The spiral conv's backward (SpiralConvFn: csr_reduce kernel for dx)
-    against autograd of the plain conv, at the nine conv shapes at trunk
-    batch 384.  float32: max |err| <= 1e-4 of the largest entry (the same
-    products summed in another order; dW sums 2.6M terms at level 0, the
-    dummy row's dx 34,041).  bfloat16: the reference is the plain conv in
-    f32 on the bf16-rounded x and W, its gradients rounded to bf16 like
-    the kernel route's, so the two differ by that f32 order (atol 1e-4 of
-    the largest entry) and one bf16 rounding (rtol 2^-7)."""
-    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
-                                                     spiral_conv_plain)
+def phase_conv_backward(model, profile: bool = False):
+    """The spiral conv's backward (SpiralConvFn) against autograd of the
+    plain conv, at the nine conv shapes at trunk batch 384.  float32: max
+    |err| <= 1e-4 of the largest entry (the same products summed in
+    another order; dW sums 2.6M terms at level 0, the dummy row's dx
+    34,041).  bfloat16: the reference is the plain conv in f32 on the
+    bf16-rounded x and W, its gradients rounded to bf16 like the kernel
+    route's, so the two differ by that f32 order (atol 1e-4 of the
+    largest entry) and one bf16 rounding (rtol 2^-7).
+
+    Then the two fused kernels alone, on dy with a zero dummy row: each
+    within 1e-4 of the largest entry of its plain version and bit-equal
+    over two runs.  Times per conv and type, each the mean of two
+    readings taken in turns (a, b, b, a) that are kept beside it
+    (`*_runs`, the run's spread): SpiralConvFn.backward's body (dy', db,
+    dx, dW and the casts back) with the halves the dispatch table names
+    unfused (`ms`), with both fused (`fused_ms`) and with both on the
+    unfused route (`unfused_ms`, the yardstick: torch matmuls around the
+    [B, V1, S*C] buffers and csr_reduce); each half alone, fused and
+    unfused; and the plain conv's autograd (`plain_ms`).  `profile` adds
+    the dispatched float32 backward's device time by kernel name."""
+    from semantichuman_torch.ops import spiral_conv as SC
+
+    def in_turns(fns: dict) -> dict:
+        order = list(fns.items())
+        runs = {k: [] for k in fns}
+        for k, fn in order + order[::-1]:
+            runs[k].append(time_ms(fn, iters=3, warmup=1))
+        return runs
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = []
@@ -468,12 +531,18 @@ def phase_conv_backward(model):
         bias = torch.randn((cout,), generator=gen, device=DEVICE) * 0.1
         dy = torch.randn((TRUNK_B, v1, cout), generator=gen,
                          device=DEVICE) * 0.1
+        dyz = dy.clone()
+        dyz[:, -1] = 0.0
         for dtype in (torch.float32, torch.bfloat16):
             cd = None if dtype == torch.float32 else dtype
             leaves = [t.detach().requires_grad_(True) for t in (x, w, bias)]
-            y = spiral_conv(*leaves[:1], spiral, *leaves[1:], act,
-                            compute_dtype=cd, csr=csr)
-            got = torch.autograd.grad(y, leaves, dy, retain_graph=True)
+            y = SC.spiral_conv(*leaves[:1], spiral, *leaves[1:], act,
+                               compute_dtype=cd, csr=csr)
+
+            def backward():
+                return torch.autograd.grad(y, leaves, dy, retain_graph=True)
+
+            got = backward()
             if cd is None:
                 ref_in = [t.detach().requires_grad_(True)
                           for t in (x, w, bias)]
@@ -481,7 +550,7 @@ def phase_conv_backward(model):
                 ref_in = [x.to(cd).float().requires_grad_(True),
                           w.to(cd).float().requires_grad_(True),
                           bias.detach().requires_grad_(True)]
-            y_ref = spiral_conv_plain(ref_in[0], spiral, *ref_in[1:], act)
+            y_ref = SC.spiral_conv_plain(ref_in[0], spiral, *ref_in[1:], act)
             ref = torch.autograd.grad(y_ref, ref_in, dy, retain_graph=True)
             if cd is not None:
                 ref = [r.to(cd).float() for r in ref[:2]] + [ref[2]]
@@ -497,26 +566,84 @@ def phase_conv_backward(model):
                     g, r, rtol=2 ** -7 if bf16 else 0,
                     atol=1e-4 * float(r.abs().max()),
                     msg=lambda m: f"{label} {dtype} {name}: {m}")
-            k_ms = time_ms(lambda: torch.autograd.grad(
-                y, leaves, dy, retain_graph=True), iters=5, warmup=1)
+            del got, ref, y_ref, ref_in
+
+            # --- each kernel alone against its plain version ----------------
+            xc, wc = x.to(dtype), w.to(dtype)
+            halves = {
+                "dw": (lambda: SC.spiral_conv_bwd_dw(xc, spiral, dyz),
+                       lambda: SC.spiral_conv_bwd_dw_plain(xc, spiral, dyz),
+                       lambda: SC.spiral_conv_bwd_unfused(
+                           xc, wc, dyz, spiral, csr, need_x=False)),
+                "dx": (lambda: SC.spiral_conv_bwd_dx(dyz, wc, csr, (v1, s)),
+                       lambda: SC.spiral_conv_bwd_dx_plain(dyz, wc, csr,
+                                                           (v1, s)),
+                       lambda: SC.spiral_conv_bwd_unfused(
+                           xc, wc, dyz, spiral, csr, need_w=False))}
+            row = {"layer": label, "dtype": str(dtype).split(".")[-1],
+                   "rel_err": errs}
+            for name, (kernel, plain, unfused) in halves.items():
+                a, again, r = kernel(), kernel(), plain()
+                sync()
+                require(torch.equal(a, again),
+                        f"{label} {dtype} {name} kernel: two runs differ")
+                torch.testing.assert_close(
+                    a, r, rtol=0, atol=1e-4 * float(r.abs().max()),
+                    msg=lambda m: f"{label} {dtype} {name} kernel: {m}")
+                row[f"{name}_kernel_max_abs_err"] = float((a - r).abs().max())
+                row[f"{name}_kernel_rel_err"] = rel_err(a, r)
+                del a, again, r
+                runs = in_turns({f"{name}_ms": kernel,
+                                 f"{name}_unfused_ms": unfused})
+                for k, v in runs.items():
+                    row[k], row[f"{k}_runs"] = float(np.mean(v)), v
+
+            # --- the whole backward: dispatched, fused, unfused, plain ------
+            y_out = y.detach()
+
+            def body(unfused):
+                # SpiralConvFn.backward with the route given
+                dyp = SC._dy_prime(dy, y_out, act)
+                db = dyp.sum(dim=(0, 1))
+                dx, dw = SC._conv_backward(xc, wc, dyp, spiral, csr, True,
+                                           True, unfused)
+                return dx.to(dtype), dw.to(dtype), db
+
+            dispatched = SC._unfused_halves(xc, wc, spiral)
+            runs = in_turns({"ms": lambda: body(dispatched),
+                             "fused_ms": lambda: body(()),
+                             "unfused_ms": lambda: body(("dx", "dw"))})
+            for k, v in runs.items():
+                row[k], row[f"{k}_runs"] = float(np.mean(v)), v
+            if profile and cd is None:
+                log(f"[profile] {label} backward as dispatched")
+                profile_steps(backward, row["ms"])
             plain_in = [t.detach().requires_grad_(True) for t in (x, w, bias)]
-            y_pl = spiral_conv_plain(plain_in[0], spiral, *plain_in[1:], act,
-                                     compute_dtype=cd)
-            p_ms = time_ms(lambda: torch.autograd.grad(
-                y_pl, plain_in, dy, retain_graph=True), iters=5, warmup=1)
+            y_pl = SC.spiral_conv_plain(plain_in[0], spiral, *plain_in[1:],
+                                        act, compute_dtype=cd)
+            row["plain_ms"] = time_ms(lambda: torch.autograd.grad(
+                y_pl, plain_in, dy, retain_graph=True), iters=3, warmup=1)
             ops_ms, bytes_ms = conv_bwd_bound(TRUNK_B, v1, s, cin, cout,
                                               dtype)
-            row = {"layer": label, "dtype": str(dtype).split(".")[-1],
-                   "rel_err": errs, "ms": k_ms, "plain_ms": p_ms,
-                   "bound_ms": max(ops_ms, bytes_ms),
-                   "bound_by": "operations" if ops_ms >= bytes_ms
-                   else "bytes"}
+            row.update(bound_ms=max(ops_ms, bytes_ms),
+                       bound_by="operations" if ops_ms >= bytes_ms
+                       else "bytes", ops_ms=ops_ms, bytes_ms=bytes_ms,
+                       unfused_halves=list(dispatched))
             rows.append(row)
             log(f"[conv-bwd] {label:18s} {row['dtype']:8s} rel err dx "
                 f"{errs['dx']:.2e} dw {errs['dw']:.2e} db {errs['db']:.2e} "
-                f"kernel route={k_ms:.3f} ms plain={p_ms:.3f} ms "
-                f"bound={row['bound_ms']:.3f} ms ({row['bound_by']})")
-            del y, y_pl, y_ref, got, ref
+                f"kernels dx {row['dx_kernel_rel_err']:.2e} dw "
+                f"{row['dw_kernel_rel_err']:.2e} | ms dispatched "
+                f"{row['ms']:.3f} fused {row['fused_ms']:.3f} unfused "
+                f"{row['unfused_ms']:.3f} plain {row['plain_ms']:.3f} bound "
+                f"{row['bound_ms']:.3f} ({row['bound_by']}) | dw "
+                f"{row['dw_ms']:.3f}/{row['dw_unfused_ms']:.3f} dx "
+                f"{row['dx_ms']:.3f}/{row['dx_unfused_ms']:.3f} "
+                f"fused/unfused | runs dispatched "
+                f"{np.round(row['ms_runs'], 3).tolist()} fused "
+                f"{np.round(row['fused_ms_runs'], 3).tolist()} unfused "
+                f"{np.round(row['unfused_ms_runs'], 3).tolist()}")
+            del y, y_out, y_pl, leaves, plain_in, xc, wc
     return rows
 
 
@@ -710,10 +837,12 @@ def reset_counts():
     from semantichuman_torch.ops.csr_reduce import csr_reduce
     from semantichuman_torch.ops.part_dist import part_dist_sums
     from semantichuman_torch.ops.row_gather import row_gather
-    from semantichuman_torch.ops.spiral_conv import spiral_conv
+    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
+                                                     spiral_conv_bwd_dw,
+                                                     spiral_conv_bwd_dx)
 
-    for fn in (spiral_conv, csr_reduce, banded_gather_fwd, banded_gather_bwd,
-               row_gather):
+    for fn in (spiral_conv, spiral_conv_bwd_dw, spiral_conv_bwd_dx,
+               csr_reduce, banded_gather_fwd, banded_gather_bwd, row_gather):
         fn.launches = 0
     for mode in part_dist_sums.launches:
         part_dist_sums.launches[mode] = 0
@@ -725,9 +854,13 @@ def read_counts() -> dict:
     from semantichuman_torch.ops.csr_reduce import csr_reduce
     from semantichuman_torch.ops.part_dist import part_dist_sums
     from semantichuman_torch.ops.row_gather import row_gather
-    from semantichuman_torch.ops.spiral_conv import spiral_conv
+    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
+                                                     spiral_conv_bwd_dw,
+                                                     spiral_conv_bwd_dx)
 
     return {"spiral_conv_fwd": spiral_conv.launches,
+            "spiral_conv_bwd_dw": spiral_conv_bwd_dw.launches,
+            "spiral_conv_bwd_dx": spiral_conv_bwd_dx.launches,
             "csr_reduce": csr_reduce.launches,
             **{f"part_dist_{m}": n for m, n in part_dist_sums.launches.items()},
             "banded_gather_fwd": banded_gather_fwd.launches,
@@ -771,9 +904,14 @@ def phase_train(human, hier):
     # --- kernels against the plain route, one loss + gradient -------------
     plain = copy.copy(model)
     plain.conv_fn = spiral_conv_plain
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     got = value_and_grad(make_loss_fn(model, tables, flags, "ori"),
                          params, *segs, spec)
     sync()
+    kernel_peak = (torch.cuda.max_memory_allocated() / 2 ** 30
+                   if DEVICE == "cuda" else 0.0)
+    log(f"[train] kernel route peak device memory {kernel_peak:.1f} GiB")
     if DEVICE == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ref = value_and_grad(make_loss_fn(plain, tables, flags, "ori",
@@ -819,8 +957,7 @@ def phase_train(human, hier):
     counts = read_counts()
     log(f"[train] main path, {TRAIN_STEPS} steps: launches {counts}")
     # at trunk batch 384 no banded route engages
-    want = expect({"spiral_conv_fwd": 9, "csr_reduce": 8,
-                   "part_dist_fwd_grad": 2}, TRAIN_STEPS)
+    want = expect(STEP_LAUNCHES, TRAIN_STEPS)
     require(counts == want, f"{TRAIN_STEPS} steps: launches {counts}, "
             f"want {want}")
     losses = torch.stack(losses).cpu()
@@ -844,7 +981,7 @@ def phase_train(human, hier):
     return {"counts": counts, "ms_per_step": ms,
             "meshes_per_s": TRAIN_B / ms * 1e3, "losses": losses.tolist(),
             "grad_rel_err_max": max(grad_errs), "plain_peak_gib": peak,
-            "bf16_loss": loss16, **prof}
+            "kernel_peak_gib": kernel_peak, "bf16_loss": loss16, **prof}
 
 
 def profile_steps(run, wall_ms: float, reps: int = 3) -> dict:
@@ -875,8 +1012,13 @@ def profile_steps(run, wall_ms: float, reps: int = 3) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, t in top:
         log(f"[profile]   {t:8.4f} ms  {name[:90]}")
+    groups = {label: sum(t for n, t in by_name.items() if key in n)
+              for label, key in PROFILE_GROUPS.items()}
+    log(f"[profile] by kernel family, ms per step: "
+        f"{ {k: round(v, 4) for k, v in groups.items()} }")
     return {"device_busy_ms": busy, "idle_share": idle,
-            "top_kernels": [[n[:90], t] for n, t in top]}
+            "top_kernels": [[n[:90], t] for n, t in top],
+            "kernel_families_ms": groups}
 
 
 def banded_calls(model):
@@ -1010,6 +1152,71 @@ def phase_banded_kernels(model, b: int = TRAINER_TRUNK_B):
     return rows
 
 
+def phase_conv_backward_trainer(model, b: int = TRAINER_TRUNK_B):
+    """The two fused backward kernels at the Trainer's shapes: the convs
+    that stay on the take route at trunk batch 12 (the levels without a
+    band: enc L2, enc L3, dec L3, dec L2).  Twelve batch elements fill the
+    dx kernel's batch tiles only partly, which trunk batch 384 never
+    does.  float32 and bfloat16, each kernel within 1e-4 of the largest
+    entry of its plain version and bit-equal over two runs; device times
+    (device_ms) of the float32 kernels and their plain versions."""
+    from semantichuman_torch.ops import spiral_conv as SC
+
+    t = model.tables
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    rows = []
+    for side, plan in (("enc", model.enc_plan), ("dec", model.dec_plan)):
+        for lvl, cin, cout, _act in plan:
+            if t.band_for(lvl) is not None:
+                continue
+            label = f"{side} L{lvl} {cin}->{cout}"
+            spiral, csr = t.spirals[lvl], t.spiral_csr[lvl]
+            v1, s = spiral.shape
+            x = torch.randn((b, v1, cin), generator=gen, device=DEVICE)
+            x[:, -1] = 0.0
+            w = torch.randn((s * cin, cout), generator=gen, device=DEVICE)
+            w /= (s * cin) ** 0.5
+            dy = torch.randn((b, v1, cout), generator=gen,
+                             device=DEVICE) * 0.1
+            dy[:, -1] = 0.0
+            for dtype in (torch.float32, torch.bfloat16):
+                xc, wc = x.to(dtype), w.to(dtype)
+                halves = {
+                    "dw": (lambda: SC.spiral_conv_bwd_dw(xc, spiral, dy),
+                           lambda: SC.spiral_conv_bwd_dw_plain(xc, spiral,
+                                                               dy)),
+                    "dx": (lambda: SC.spiral_conv_bwd_dx(dy, wc, csr,
+                                                         (v1, s)),
+                           lambda: SC.spiral_conv_bwd_dx_plain(dy, wc, csr,
+                                                               (v1, s)))}
+                row = {"layer": label, "dtype": str(dtype).split(".")[-1],
+                       "batch": b}
+                for name, (kernel, plain) in halves.items():
+                    a, again, r = kernel(), kernel(), plain()
+                    sync()
+                    require(torch.equal(a, again), f"{label} B={b} {dtype} "
+                            f"{name} kernel: two runs differ")
+                    torch.testing.assert_close(
+                        a, r, rtol=0, atol=1e-4 * float(r.abs().max()),
+                        msg=lambda m: f"{label} B={b} {dtype} {name}: {m}")
+                    row[f"{name}_max_abs_err"] = float((a - r).abs().max())
+                    row[f"{name}_rel_err"] = rel_err(a, r)
+                    if dtype == torch.float32:
+                        row[f"{name}_ms"] = device_ms(kernel)
+                        row[f"{name}_plain_ms"] = device_ms(plain)
+                rows.append(row)
+                log(f"[conv-bwd] {label:18s} B={b} {row['dtype']:8s} kernel "
+                    f"rel err dw {row['dw_rel_err']:.2e} dx "
+                    f"{row['dx_rel_err']:.2e}" + (
+                        f" | device ms kernel/plain dw {row['dw_ms']:.4f}/"
+                        f"{row['dw_plain_ms']:.4f} dx {row['dx_ms']:.4f}/"
+                        f"{row['dx_plain_ms']:.4f}"
+                        if dtype == torch.float32 else ""))
+    require(len(rows) == 8, f"expected four take-route convs, got "
+            f"{len(rows) // 2}")
+    return rows
+
+
 def banded_summary(rows, key: str) -> dict:
     """A kernel's numbers summed over the step's calls of it."""
     calls = [r[key] for r in rows if key in r]
@@ -1066,9 +1273,49 @@ def timed_steps(trainer) -> list:
     return times
 
 
+@contextlib.contextmanager
+def deterministic_torch():
+    """torch's deterministic algorithms on for the block: `index_add_` and
+    the scatters of the pool, unpool and head backward then add in a fixed
+    order instead of with atomics (the port's own kernels always do), so
+    two runs of the Trainer give the same bits.  Ops without a
+    deterministic form only warn."""
+    was = torch.are_deterministic_algorithms_enabled()
+    warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(was, warn_only=warn_only)
+
+
+def resumed_epoch(root: Path, name: str, banded: bool, ckpt: str):
+    """A Trainer resumed from the epoch-2 checkpoint, its epoch 3 run with
+    timed steps: (trainer, step times in ms, epoch-3 train loss)."""
+    from semantichuman_torch.train.loop import Trainer
+
+    tr = Trainer(trainer_cfg(banded, resume=ckpt),
+                 trainer_workdir(root, name), device=DEVICE)
+    require(tr.start_epoch == 3, f"resumed at {tr.start_epoch}")
+    times = timed_steps(tr)
+    tr.fit()
+    return tr, times, tr.history[0]["train"]
+
+
 def phase_trainer():
     """The Trainer's main path (fit with counts), resume, evaluate, and
-    the banded and take routes timed from the same checkpoint."""
+    the banded and take routes timed from the same checkpoint.
+
+    The counted fit() and the four timed resumed runs use torch's default
+    algorithms, as a user's training does.  There the order of the
+    `index_add_` sums (atomics) changes from run to run, Adam amplifies
+    that through the 16 steps of an epoch, and a resumed epoch misses the
+    uninterrupted one's loss by up to 4.8e-3 in a third of all runs (19
+    runs of this phase on one H100), so those runs are held to rtol 1e-2,
+    twice the largest miss seen.  The exact gate runs under torch's
+    deterministic algorithms, where the resumed banded epoch repeats the
+    uninterrupted one bit for bit: a second fit() and two runs resumed
+    from its epoch-2 checkpoint (rtol 1e-4 banded, 1e-3 take)."""
     from semantichuman_torch.train.loop import Trainer
 
     out = {}
@@ -1097,8 +1344,8 @@ def phase_trainer():
         counts = read_counts()
         # a validation batch of 16 is one forward on the B <= 16 routes
         val = SERVE_LAUNCHES["small"]
-        want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps + val.get(k, 0) * n_val
-                for k in KERNEL_COUNTS}
+        want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps
+                + val.get(k, 0) * n_val for k in KERNEL_COUNTS}
         log(f"[trainer] fit: {n_steps} steps, {n_val} val batches, "
             f"launches {counts}")
         require(counts == want, f"trainer launches {counts}, want {want}")
@@ -1117,7 +1364,7 @@ def phase_trainer():
                 "no epoch-2 checkpoint")
         del tr
 
-        # --- resume at epoch 3: banded, take, take, banded ------------------
+        # --- timed from the checkpoint: banded, take, take, banded ----------
         runs = {"banded": {"run_ms": [], "step_ms": [], "epoch_s": [],
                            "epoch3_loss": []},
                 "take": {"run_ms": [], "step_ms": [], "epoch_s": [],
@@ -1125,12 +1372,7 @@ def phase_trainer():
         for i, banded in enumerate((True, False, False, True)):
             name = "banded" if banded else "take"
             r = runs[name]
-            tr = Trainer(trainer_cfg(banded, resume=ckpt),
-                         trainer_workdir(root, f"resume{i}"), device=DEVICE)
-            require(tr.start_epoch == 3, f"resumed at {tr.start_epoch}")
-            times = timed_steps(tr)
-            tr.fit()
-            loss3 = tr.history[0]["train"]
+            tr, times, loss3 = resumed_epoch(root, f"resume{i}", banded, ckpt)
             r["run_ms"].append(float(np.median(times)))
             r["step_ms"] += times
             r["epoch_s"].append(tr.history[0]["sec"])
@@ -1139,20 +1381,15 @@ def phase_trainer():
                 f"(uninterrupted {losses[2]:.7f}), {r['run_ms'][-1]:.3f} "
                 f"ms/step median of {len(times)}, epoch "
                 f"{tr.history[0]['sec']:.3f} s with val")
-            if banded:
-                np.testing.assert_allclose(loss3, losses[2], rtol=1e-4)
-            else:
-                # the two routes gather the same values; the gradients'
-                # f32 sums run in another order through 16 Adam steps
-                np.testing.assert_allclose(loss3, losses[2], rtol=1e-3)
+            np.testing.assert_allclose(loss3, losses[2], rtol=1e-2)
+            if i < 2:
+                r.update(profile_epoch(tr))
             if i == 0:
                 _p, _z, _zk, _tx, l1, mm = tr.evaluate()
                 require(np.isfinite(l1) and np.isfinite(mm),
                         f"evaluate: l1 {l1} mm {mm}")
                 log(f"[trainer] evaluate: l1 {l1:.6f}, {mm:.3f} mm")
                 out.update(eval_l1=l1, eval_mm=mm)
-            if i < 2:
-                r.update(profile_epoch(tr))
             del tr
         for name, r in runs.items():
             ms = float(np.median(r["step_ms"]))
@@ -1164,6 +1401,31 @@ def phase_trainer():
                 f"{TRAINER_B / ms * 1e3:.1f} meshes/s, idle share "
                 f"{r.get('idle_share', 'not measured')}")
         out["routes"] = runs
+
+        # --- the exact gate, under deterministic algorithms: a fit, then
+        # its epoch 3 repeated from its epoch-2 checkpoint ---------------------
+        with deterministic_torch():
+            tr = Trainer(trainer_cfg(), trainer_workdir(root, "held_fit"),
+                         device=DEVICE)
+            tr.fit()
+            held = [h["train"] for h in tr.history]
+            held_ckpt = os.path.join(tr.workdir, "checkpoints")
+            out.update(deterministic_epoch_losses=held,
+                       deterministic_epoch_s=[h["sec"] for h in tr.history])
+            del tr
+            for banded in (True, False):
+                name = "banded" if banded else "take"
+                tr, _times, loss3 = resumed_epoch(root, f"held_{name}",
+                                                  banded, held_ckpt)
+                log(f"[trainer] resumed {name}, deterministic: epoch 3 loss "
+                    f"{loss3:.9f} (uninterrupted {held[2]:.9f})")
+                # take: the two routes gather the same values; the
+                # gradients' f32 sums run in another order through 16
+                # Adam steps
+                np.testing.assert_allclose(loss3, held[2],
+                                           rtol=1e-4 if banded else 1e-3)
+                out[f"resumed_{name}_loss"] = loss3
+                del tr
     return out
 
 
@@ -1224,6 +1486,17 @@ def main() -> int:
     params = model.init(0)
     require(len(conv_layers(model)) == 9, "expected 9 convs per forward")
 
+    if "--conv-backward" in sys.argv[1:]:
+        # the conv-backward phase alone, for tuning its kernels: prints
+        # the per-conv lines and the sums, and no result line
+        bwd32 = [r for r in phase_conv_backward(model, profile=True)
+                 if r["dtype"] == "float32"]
+        log(json.dumps({k: sum(r[k] for r in bwd32) for k in (
+            "ms", "fused_ms", "unfused_ms", "dw_ms", "dw_unfused_ms",
+            "dx_ms", "dx_unfused_ms", "bound_ms")}))
+        log(card)
+        return 0
+
     rows, max_err = phase_kernels(model)
     serve, serve_take, timing, timing_take = phase_serving(
         model, model_take, params, human)
@@ -1239,6 +1512,7 @@ def main() -> int:
     csr_rows = phase_csr_reduce(model)
     pd_rows = phase_part_dist(human)
     banded_rows = phase_banded_kernels(model)
+    conv_bwd_trainer = phase_conv_backward_trainer(model)
     torch.cuda.empty_cache()
     train = phase_train(human, hier)
     step_counts = train.pop("counts")
@@ -1258,10 +1532,13 @@ def main() -> int:
     step_csr = csr_rows[1:]
     bwd32 = [r for r in conv_bwd if r["dtype"] == "float32"]
     bwd_sum = {k: sum(r[k] for r in bwd32)
-               for k in ("ms", "plain_ms", "bound_ms")}
-    log(f"[conv-bwd] nine float32 convs at batch {TRUNK_B}: kernel route "
-        f"{bwd_sum['ms']:.3f} ms, plain {bwd_sum['plain_ms']:.3f} ms, bound "
-        f"{bwd_sum['bound_ms']:.3f} ms")
+               for k in ("ms", "fused_ms", "unfused_ms", "plain_ms",
+                         "bound_ms", "ops_ms", "bytes_ms", "dw_ms",
+                         "dw_unfused_ms", "dx_ms", "dx_unfused_ms")}
+    log(f"[conv-bwd] nine float32 convs at batch {TRUNK_B}: dispatched "
+        f"{bwd_sum['ms']:.3f} ms, all fused {bwd_sum['fused_ms']:.3f} ms, "
+        f"all unfused {bwd_sum['unfused_ms']:.3f} ms, plain "
+        f"{bwd_sum['plain_ms']:.3f} ms, bound {bwd_sum['bound_ms']:.3f} ms")
     pd = {(r["w_mode"], r["mode"]): r for r in pd_rows}
     pallas = "semantichuman_tpu/ops/pallas/part_dist_pallas.py"
     kernels = [{
@@ -1282,6 +1559,41 @@ def main() -> int:
         "forward_ms": {"banded": timing, "take": timing_take},
         "layers": rows,
     }]
+    kernels.append({
+        "name": "spiral_conv_bwd",
+        "row": "1 bwd",
+        "route": "cuda",
+        "source": "semantichuman_torch/csrc/spiral_conv_bwd.cu",
+        # the kernel's backward: XLA's autodiff of spiral_conv_take
+        "replaces": "semantichuman_tpu/ops/pallas/spiral_conv_pallas.py:78",
+        "launches": sum(c["spiral_conv_bwd_dw"] + c["spiral_conv_bwd_dx"]
+                        for c in paths.values()),
+        "launches_by_path": {p: {"dw": c["spiral_conv_bwd_dw"],
+                                 "dx": c["spiral_conv_bwd_dx"]}
+                             for p, c in paths.items()},
+        "max_abs_err": max(
+            [max(r["dw_kernel_max_abs_err"], r["dx_kernel_max_abs_err"])
+             for r in conv_bwd]
+            + [max(r["dw_max_abs_err"], r["dx_max_abs_err"])
+               for r in conv_bwd_trainer]),
+        # the nine float32 convs' backward at batch 384, summed: as the
+        # dispatch table routes it, and on the unfused route
+        "ms": bwd_sum["ms"],
+        "fused_ms": bwd_sum["fused_ms"],
+        "unfused_ms": bwd_sum["unfused_ms"],
+        "plain_ms": bwd_sum["plain_ms"],
+        # the sum of the layers' bounds, two of which (3 channels in or
+        # out) are bound by bytes
+        "bound_ms": bwd_sum["bound_ms"],
+        "bound_by": ("operations" if bwd_sum["ops_ms"] >= bwd_sum["bytes_ms"]
+                     else "bytes"),
+        "library_ms": None,
+        "halves_ms": {k: bwd_sum[k] for k in ("dw_ms", "dw_unfused_ms",
+                                              "dx_ms", "dx_unfused_ms")},
+        "layers": conv_bwd,
+        # each kernel against its plain version at trunk batch 12
+        "trainer_layers": conv_bwd_trainer,
+    })
     for row, (mode, line) in enumerate((("fwd", 330), ("fwd_grad", 356),
                                         ("bwd", 413)), start=2):
         r = pd[("threshold", mode)]
@@ -1346,10 +1658,15 @@ def main() -> int:
         "conv_backward_f32_sum": bwd_sum,
         "conv_backward": conv_bwd,
     })
+    # the two fused backward kernels are asked for where every conv takes
+    # the take route, the B = 128 step; at trunk batch 12 the Trainer
+    # reaches them at its four coarse convs only
     for k in KERNEL_COUNTS:
-        require(paths["trainer"][k] > 0 or k in ("part_dist_fwd",
-                                                 "part_dist_bwd"),
-                f"{k}: no launch on the trainer path")
+        path = ("train_step" if k.startswith("spiral_conv_bwd")
+                else "trainer")
+        require(paths[path][k] > 0 or k in ("part_dist_fwd",
+                                            "part_dist_bwd"),
+                f"{k}: no launch on the {path} path")
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"train": train}))
     log(card)

@@ -51,6 +51,14 @@ SIGNATURES = {
                                  _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
+    "spiral_conv_bwd": {
+        "sh_spiral_conv_bwd_dw": ([_VOIDP] * 5 + [_INT] * 7 + [_VOIDP],
+                                  _INT),
+        "sh_spiral_conv_bwd_dw_chunks": ([_INT] * 5, _INT),
+        "sh_spiral_conv_bwd_dx": ([_VOIDP] * 10 + [_INT] * 9 + [_VOIDP],
+                                  _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
     "row_gather": {
         "sh_row_gather": ([_VOIDP] * 3 + [_INT] * 3 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),

@@ -17,9 +17,14 @@ every other call takes the take route through `SpiralConvFn`, an autograd
 Function whose forward is the hand-written kernel (`csrc/spiral_conv.cu`,
 counted in `spiral_conv.launches`) for a CUDA tensor and
 `spiral_conv_plain` for a CPU tensor.  Its backward takes the activation's
-derivative from the output, dW and db as plain matmul and sum, and dx as
-the CSR reduce over the inverse spiral table (`ops/csr_reduce.py`, a
-kernel on CUDA).  The JAX package's one-hot form is a TPU gather-engine
+derivative from the output and db as a plain sum; dW and dx come from the
+two fused kernels of `csrc/spiral_conv_bwd.cu` (`spiral_conv_bwd_dw`,
+`spiral_conv_bwd_dx`, counted in their `.launches`), which gather on chip
+and write nothing of width S*C to device memory.  The earlier card route,
+torch matmuls around the gathered buffers and the CSR reduce
+(`ops/csr_reduce.py`), stays as `spiral_conv_bwd_unfused`: a table keyed
+by the conv's static shape sends a shape there where the fused kernel
+measured slower.  The JAX package's one-hot form is a TPU gather-engine
 workaround with the take route's values and is not ported.
 """
 
@@ -29,7 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .banded_gather import BandedGatherFn, BandTable
-from .csr_reduce import csr_reduce
+from .csr_reduce import LONG_ROW, CSRTable, csr_reduce, csr_reduce_plain
 from .kernels import build
 from .row_gather import RowGatherFn
 
@@ -65,6 +70,22 @@ def _act_grad(y: torch.Tensor, activation: str) -> torch.Tensor:
     if activation == "identity":
         return torch.ones_like(y)
     raise ValueError(f"unknown activation {activation!r}")
+
+
+def _dy_prime(dy: torch.Tensor, y: torch.Tensor,
+              activation: str) -> torch.Tensor:
+    """dy * act'(y) with a zero dummy row, a new row-major tensor whatever
+    layout dy arrives in.  The values of `dy * _act_grad(y, activation)`
+    in fewer passes over device memory for elu (act' = min(y, 0) + 1) and
+    identity."""
+    if activation == "identity":
+        out = dy.clone(memory_format=torch.contiguous_format)
+    elif activation == "elu":
+        out = torch.clamp(y, max=0.0).add_(1.0).mul_(dy)
+    else:
+        out = _act_grad(y, activation).mul_(dy)
+    out[:, -1] = 0.0
+    return out
 
 
 # the banded route's batch gate: the JAX dispatch's _BANDED_MAX_B, adopted
@@ -158,6 +179,229 @@ def _forward(x, spiral_idx, w, bias, activation) -> torch.Tensor:
     return y
 
 
+# --- the backward: dW and dx -------------------------------------------------
+
+def spiral_conv_bwd_dw_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
+                             dy: torch.Tensor) -> torch.Tensor:
+    """The plain PyTorch version of dW: gather x's rows into [B*V1, S*C],
+    one matmul with dy.  x [B, V1, C] f32 or bf16, spiral_idx [V1, S],
+    dy [B, V1, Co] f32 (already times act', dummy row zero) -> [S*C, Co]
+    float32."""
+    b, v1, c = x.shape
+    s = spiral_idx.shape[1]
+    g = x.index_select(1, spiral_idx.reshape(-1).long())
+    g = g.reshape(b * v1, s * c).float()
+    return torch.matmul(g.t(), dy.reshape(b * v1, dy.shape[2]))
+
+
+def spiral_conv_bwd_dx_plain(dy: torch.Tensor, w: torch.Tensor,
+                             csr: CSRTable, spiral_shape) -> torch.Tensor:
+    """The plain PyTorch version of dx: dy @ W^T as [B, V1*S, C], then the
+    plain CSR reduce over the inverse spiral table.  dy [B, V1, Co] f32,
+    w [S*C, Co] f32 or bf16, spiral_shape (V1, S) -> [B, V1, C] float32."""
+    v1, s = spiral_shape
+    b = dy.shape[0]
+    c = w.shape[0] // s
+    dg = torch.matmul(dy, w.float().t())                  # [B, V1, S*C]
+    return csr_reduce_plain(dg.reshape(b, v1 * s, c), csr)
+
+
+def spiral_conv_bwd_unfused(x, w, dy, spiral_idx, csr, need_x=True,
+                            need_w=True):
+    """The unfused card route, the yardstick of the fused kernels: the
+    gathered [B*V1, S*C] buffer and a matmul for dW, dy @ W^T and the
+    csr_reduce kernel (its plain version on the CPU) for dx.  Returns
+    (dx or None, dW or None), float32."""
+    b, v1, c = x.shape
+    s = spiral_idx.shape[1]
+    dx = dw = None
+    if need_w:
+        dw = spiral_conv_bwd_dw_plain(x, spiral_idx, dy)
+    if need_x:
+        dg = torch.matmul(dy, w.float().t())              # [B, V1, S*C]
+        dx = csr_reduce(dg.reshape(b, v1 * s, c), csr)
+    return dx, dw
+
+
+def _check_common(dy, other, name) -> None:
+    if dy.dim() != 3 or dy.dtype != torch.float32:
+        raise TypeError("dy must be float32 [B, V1, Co], got "
+                        f"{tuple(dy.shape)} {dy.dtype}")
+    if other.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} must be float32 or bfloat16, got "
+                        f"{other.dtype}")
+    if dy.shape[0] > 65535:
+        raise ValueError(f"batch {dy.shape[0]} exceeds the grid limit 65535")
+
+
+def _check_bwd_dw(x, spiral_idx, dy) -> None:
+    """Raise on anything the dW kernel does not take."""
+    _check_common(dy, x, "x")
+    if x.dim() != 3 or spiral_idx.dim() != 2:
+        raise ValueError("spiral_conv_bwd_dw expects x [B, V1, C], "
+                         "spiral_idx [V1, S], dy [B, V1, Co]")
+    if x.shape[:2] != dy.shape[:2] or spiral_idx.shape[0] != x.shape[1]:
+        raise ValueError(f"shape mismatch: x {tuple(x.shape)}, spiral_idx "
+                         f"{tuple(spiral_idx.shape)}, dy {tuple(dy.shape)}")
+    if spiral_idx.dtype != torch.int32:
+        raise TypeError("spiral_idx must be int32")
+    for name, t in (("x", x), ("spiral_idx", spiral_idx), ("dy", dy)):
+        if t.device != dy.device:
+            raise ValueError(f"{name} is on {t.device}, dy on {dy.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def spiral_conv_bwd_dw(x: torch.Tensor, spiral_idx: torch.Tensor,
+                       dy: torch.Tensor) -> torch.Tensor:
+    """dW[s*C + c, n] = sum_{b, v} x[b, spiral[v, s], c] * dy[b, v, n].
+    x [B, V1, C] f32 or bf16, spiral_idx [V1, S] int32, dy [B, V1, Co] f32
+    -> [S*C, Co] float32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (per-chunk partial sums into scratch, added
+    in chunk order: no atomics) or raise."""
+    if dy.device.type == "cpu":
+        return spiral_conv_bwd_dw_plain(x, spiral_idx, dy)
+    if dy.device.type != "cuda":
+        raise ValueError(f"spiral_conv_bwd_dw runs on cpu or cuda, not "
+                         f"{dy.device}")
+    _check_bwd_dw(x, spiral_idx, dy)
+    b, v1, c = x.shape
+    s = spiral_idx.shape[1]
+    co = dy.shape[2]
+    dw = torch.empty((s * c, co), dtype=torch.float32, device=dy.device)
+    if dw.numel() == 0:
+        return dw
+    if b * v1 == 0:
+        return dw.zero_()
+    lib = build.load("spiral_conv_bwd")
+    n_chunks = lib.sh_spiral_conv_bwd_dw_chunks(b, v1, c, s, co)
+    partial = torch.empty((n_chunks, s * c, co), dtype=torch.float32,
+                          device=dy.device)
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sh_spiral_conv_bwd_dw(
+            x.data_ptr(), spiral_idx.data_ptr(), dy.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), b, v1, c, s, co,
+            int(x.dtype == torch.bfloat16), n_chunks, stream)
+    build.check(lib, rc, "spiral_conv_bwd_dw kernel launch")
+    spiral_conv_bwd_dw.launches += 1
+    return dw
+
+
+spiral_conv_bwd_dw.launches = 0
+
+# the dx kernel's long-row path holds S*Co floats, and S floats per thread,
+# in shared memory
+_DX_MAX_S_CO = 6000
+_DX_MAX_S = 128
+
+
+def _check_bwd_dx(dy, w, csr, spiral_shape) -> None:
+    """Raise on anything the dx kernel does not take."""
+    _check_common(dy, w, "w")
+    v1, s = spiral_shape
+    if w.dim() != 2 or w.shape[1] != dy.shape[2] or s <= 0 \
+            or w.shape[0] % s != 0:
+        raise ValueError(f"shape mismatch: dy {tuple(dy.shape)}, w "
+                         f"{tuple(w.shape)}, spiral shape ({v1}, {s})")
+    if dy.shape[1] != v1 or csr.n_rows != v1 or csr.n_src != v1 * s:
+        raise ValueError(
+            f"the inverse table has {csr.n_rows} rows over {csr.n_src} "
+            f"entries, dy {tuple(dy.shape)} and the spiral shape "
+            f"({v1}, {s}) need {v1} over {v1 * s}")
+    if s * dy.shape[2] > _DX_MAX_S_CO or s > _DX_MAX_S:
+        raise ValueError(f"S = {s}, S*Co = {s * dy.shape[2]} exceed the "
+                         f"kernel's long-row scratch ({_DX_MAX_S}, "
+                         f"{_DX_MAX_S_CO})")
+    if dy.shape[2] <= 4 and 16 * s * (w.shape[0] // s + 1) > 200 * 1024:
+        raise ValueError(f"w {tuple(w.shape)} exceeds the narrow-output "
+                         "kernel's shared memory")
+    for name, t in (("w", w), ("table", csr.offs), ("dy", dy)):
+        if t.device != dy.device:
+            raise ValueError(f"{name} is on {t.device}, dy on {dy.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def spiral_conv_bwd_dx(dy: torch.Tensor, w: torch.Tensor, csr: CSRTable,
+                       spiral_shape) -> torch.Tensor:
+    """dx[b, u, c] = sum over the entries j = v*S + s of row u of the
+    inverse table `csr` of sum_n dy[b, v, n] * W[s*C + c, n].
+    dy [B, V1, Co] f32, w [S*C, Co] f32 or bf16, spiral_shape (V1, S)
+    -> [B, V1, C] float32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (every sum in a fixed order, no atomics) or
+    raise."""
+    if dy.device.type == "cpu":
+        return spiral_conv_bwd_dx_plain(dy, w, csr, spiral_shape)
+    if dy.device.type != "cuda":
+        raise ValueError(f"spiral_conv_bwd_dx runs on cpu or cuda, not "
+                         f"{dy.device}")
+    _check_bwd_dx(dy, w, csr, spiral_shape)
+    v1, s = spiral_shape
+    b, _, co = dy.shape
+    c = w.shape[0] // s
+    dx = torch.empty((b, v1, c), dtype=torch.float32, device=dy.device)
+    if dx.numel() == 0:
+        return dx
+    if co == 0:
+        return dx.zero_()
+    n_chunks = csr.chunk_lo.shape[0]
+    partial = torch.empty((max(n_chunks, 1), b, s * co),
+                          dtype=torch.float32, device=dy.device)
+    lib = build.load("spiral_conv_bwd")
+    with torch.cuda.device(dy.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sh_spiral_conv_bwd_dx(
+            dy.data_ptr(), w.data_ptr(), csr.offs.data_ptr(),
+            csr.cols.data_ptr(), csr.chunk_lo.data_ptr(),
+            csr.chunk_hi.data_ptr(), csr.long_rows.data_ptr(),
+            csr.chunk_offs.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+            b, v1, c, s, co, LONG_ROW, csr.long_rows.shape[0], n_chunks,
+            int(w.dtype == torch.bfloat16), stream)
+    build.check(lib, rc, "spiral_conv_bwd_dx kernel launch")
+    spiral_conv_bwd_dx.launches += 1
+    return dx
+
+
+spiral_conv_bwd_dx.launches = 0
+
+# Static conv shapes (C, Co, S) whose backward, or one half of it, takes
+# the unfused route on the card: the halves named here ("dx", "dw")
+# measured slower fused than unfused at trunk batch 384 (chip_smoke.py's
+# conv-backward phase; the per-shape times are in PERF.md, section 6).
+# Every shape not named here runs both fused kernels.  The one dx half
+# below is the 64 -> 128 conv's at level 3, where each warp reloads a 32 KB
+# weight slab per entry: the only conv whose backward, as the training
+# step runs it, measured slower all fused than unfused.
+_UNFUSED = {
+    (64, 128, 8): ("dx",),
+}
+
+
+def _unfused_halves(x, w, spiral_idx) -> tuple:
+    """The halves of this conv's backward that take the unfused route:
+    none on the CPU (the plain versions run there), else what `_UNFUSED`
+    names for the static shape (C, Co, S)."""
+    if x.device.type == "cpu":
+        return ()
+    return _UNFUSED.get((x.shape[2], w.shape[1], spiral_idx.shape[1]), ())
+
+
+def _conv_backward(x, w, dy, spiral_idx, csr, need_x, need_w, unfused=()):
+    """(dx, dW) in float32 for dy already times act' with a zero dummy
+    row: the halves named in `unfused` ("dx", "dw") through
+    `spiral_conv_bwd_unfused`, the others through the fused wrappers
+    (kernels on the card, their plain versions on the CPU)."""
+    dx, dw = spiral_conv_bwd_unfused(
+        x, w, dy, spiral_idx, csr, need_x and "dx" in unfused,
+        need_w and "dw" in unfused)
+    if need_w and dw is None:
+        dw = spiral_conv_bwd_dw(x, spiral_idx, dy)
+    if need_x and dx is None:
+        dx = spiral_conv_bwd_dx(dy, w, csr, tuple(spiral_idx.shape))
+    return dx, dw
+
+
 class SpiralConvFn(torch.autograd.Function):
     """y = act(gather(x) @ W + bias), dummy row 0, with the backward
 
@@ -179,21 +423,14 @@ class SpiralConvFn(torch.autograd.Function):
     def backward(ctx, dy):
         x, w, y = ctx.saved_tensors
         need_x, need_w, need_b = ctx.needs_input_grad[:3]
-        dy = dy * _act_grad(y, ctx.activation)
-        dy[:, -1] = 0.0
-        b, v1, c = x.shape
-        s = ctx.spiral_idx.shape[1]
-        co = w.shape[1]
-        dx = dw = db = None
-        if need_b:
-            db = dy.sum(dim=(0, 1))
-        if need_w:
-            g = x.index_select(1, ctx.spiral_idx.reshape(-1).long())
-            g = g.reshape(b * v1, s * c).float()
-            dw = torch.matmul(g.t(), dy.reshape(b * v1, co)).to(w.dtype)
-        if need_x:
-            dg = torch.matmul(dy, w.float().t())          # [B, V1, S*C]
-            dx = csr_reduce(dg.reshape(b, v1 * s, c), ctx.csr).to(x.dtype)
+        dy = _dy_prime(dy, y, ctx.activation)
+        db = dy.sum(dim=(0, 1)) if need_b else None
+        dx, dw = _conv_backward(x, w, dy, ctx.spiral_idx, ctx.csr, need_x,
+                                need_w, _unfused_halves(x, w, ctx.spiral_idx))
+        if dx is not None:
+            dx = dx.to(x.dtype)
+        if dw is not None:
+            dw = dw.to(w.dtype)
         return dx, dw, db, None, None, None
 
 

@@ -513,3 +513,165 @@ def test_training_kernels_reject_bad_input(cuda):
     with pytest.raises(ValueError):
         TP.part_dist_call("fwd", vp, rp[:, :4].contiguous(), bone, a, n_real,
                           allone, "threshold", 0.8, True)
+
+
+# --- the fused conv backward (spiral_conv_bwd_dw, spiral_conv_bwd_dx) --------
+
+# (level, C, Co) of the default model's nine convs, in forward order
+MODEL_CONVS = [(0, 3, 16), (1, 16, 32), (2, 32, 64), (3, 64, 128),
+               (3, 128, 64), (2, 64, 32), (1, 32, 32), (0, 32, 16),
+               (0, 16, 3)]
+# (v1, s, c, co) random tables off every tile size, with a long dummy row
+RAGGED = [(501, 9, 5, 7), (333, 7, 24, 40), (130, 6, 132, 12)]
+
+
+@pytest.fixture(scope="module")
+def full_tables():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from semantichuman_torch.models.tables import device_tables
+    from semantichuman_torch.topology import MeshHierarchy
+    return device_tables(MeshHierarchy.load(TOPOLOGY), "cuda")
+
+
+def _bwd_inputs(b, v1, s, c, co, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, v1, c), generator=gen, device=device)
+    x[:, -1] = 0.0
+    w = torch.randn((s * c, co), generator=gen, device=device) / (s * c) ** 0.5
+    dy = torch.randn((b, v1, co), generator=gen, device=device)
+    dy[:, -1] = 0.0
+    return x.to(dtype), w.to(dtype), dy
+
+
+def _bwd_cases(full_tables, cuda):
+    """(label, batch, spiral table, inverse table, C, Co)."""
+    cases = []
+    for lvl, c, co in MODEL_CONVS:
+        batches = (3, 37) if lvl >= 2 else (3,)
+        for b in batches:
+            cases.append((f"L{lvl} {c}->{co} B={b}", b,
+                          full_tables.spirals[lvl],
+                          full_tables.spiral_csr[lvl], c, co))
+    for b in (1, 5):
+        for lvl, c, co in ((1, 32, 32), (0, 16, 3)):
+            cases.append((f"L{lvl} {c}->{co} B={b}", b,
+                          full_tables.spirals[lvl],
+                          full_tables.spiral_csr[lvl], c, co))
+    rng = np.random.default_rng(11)
+    for v1, s, c, co in RAGGED:
+        idx = _spiral_with_pads(v1, s, rng)
+        for b in (1, 5):
+            cases.append((f"ragged {v1}x{s} {c}->{co} B={b}", b,
+                          torch.from_numpy(idx).to(cuda), _csr(idx, cuda),
+                          c, co))
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_bwd_dw_matches_plain(cuda, full_tables, dtype):
+    """The dW kernel against its plain version at the nine full-width conv
+    shapes and at ragged sizes: the same products (bf16 inputs are exact
+    in f32), f32 sums in another order, max |err| <= 1e-4 of the largest
+    entry; two runs bit-equal; one counted launch a call."""
+    for i, (label, b, spiral, _csr_t, c, co) in enumerate(
+            _bwd_cases(full_tables, cuda)):
+        v1, s = spiral.shape
+        x, _w, dy = _bwd_inputs(b, v1, s, c, co, dtype, cuda, i)
+        before = TC.spiral_conv_bwd_dw.launches
+        got = TC.spiral_conv_bwd_dw(x, spiral, dy)
+        again = TC.spiral_conv_bwd_dw(x, spiral, dy)
+        ref = TC.spiral_conv_bwd_dw_plain(x, spiral, dy)
+        torch.cuda.synchronize()
+        assert TC.spiral_conv_bwd_dw.launches == before + 2
+        assert got.dtype == torch.float32 and got.shape == (s * c, co)
+        assert torch.equal(got, again), label
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()),
+                                   msg=lambda m: f"{label}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_bwd_dx_matches_plain(cuda, full_tables, dtype):
+    """The dx kernel against its plain version, dummy row included, at the
+    same shapes: max |err| <= 1e-4 of the largest entry (the dummy row
+    sums 34,041 entries at level 0); two runs bit-equal; one counted
+    launch a call."""
+    for i, (label, b, spiral, csr_t, c, co) in enumerate(
+            _bwd_cases(full_tables, cuda)):
+        v1, s = spiral.shape
+        _x, w, dy = _bwd_inputs(b, v1, s, c, co, dtype, cuda, 100 + i)
+        before = TC.spiral_conv_bwd_dx.launches
+        got = TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        again = TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        ref = TC.spiral_conv_bwd_dx_plain(dy, w, csr_t, (v1, s))
+        torch.cuda.synchronize()
+        assert TC.spiral_conv_bwd_dx.launches == before + 2
+        assert got.dtype == torch.float32 and got.shape == (b, v1, c)
+        assert torch.equal(got, again), label
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()),
+                                   msg=lambda m: f"{label}: {m}")
+        real = ref[:, :-1].abs().max()
+        torch.testing.assert_close(got[:, :-1], ref[:, :-1], rtol=0,
+                                   atol=1e-4 * float(real),
+                                   msg=lambda m: f"{label} real rows: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_fused_backward_through_autograd(cuda, full_tables, dtype,
+                                                     monkeypatch):
+    """spiral_conv on the card carries a grad_fn whose backward launches
+    both fused kernels for a shape the dispatch table does not name, and
+    its x, W and bias gradients equal autograd of the plain conv (f32 to
+    1e-4 of the largest entry, bf16 one rounding more)."""
+    monkeypatch.setattr(TC, "_UNFUSED", {})
+    lvl, c, co = 1, 32, 32
+    spiral, csr_t = full_tables.spirals[lvl], full_tables.spiral_csr[lvl]
+    v1, s = spiral.shape
+    x, w, dy = _bwd_inputs(4, v1, s, c, co, torch.float32, cuda, 5)
+    bias = torch.linspace(-0.1, 0.1, co, device=cuda)
+    cd = None if dtype == torch.float32 else dtype
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, bias)]
+    before = (TC.spiral_conv_bwd_dx.launches, TC.spiral_conv_bwd_dw.launches)
+    y = TC.spiral_conv(leaves[0], spiral, leaves[1], leaves[2], "elu",
+                       compute_dtype=cd, csr=csr_t)
+    assert y.grad_fn is not None
+    got = torch.autograd.grad(y, leaves, dy)
+    assert (TC.spiral_conv_bwd_dx.launches,
+            TC.spiral_conv_bwd_dw.launches) == (before[0] + 1, before[1] + 1)
+    ref_in = [x.to(dtype).float().requires_grad_(True),
+              w.to(dtype).float().requires_grad_(True),
+              bias.clone().requires_grad_(True)]
+    y_ref = TC.spiral_conv_plain(ref_in[0], spiral, ref_in[1], ref_in[2],
+                                 "elu")
+    ref = torch.autograd.grad(y_ref, ref_in, dy)
+    torch.cuda.synchronize()
+    for i, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == torch.float32
+        bf16 = cd is not None and i < 2
+        torch.testing.assert_close(
+            g, r.to(cd).float() if bf16 else r, rtol=2 ** -7 if bf16 else 0,
+            atol=1e-4 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+def test_spiral_conv_bwd_kernels_reject_bad_input(cuda, full_tables):
+    spiral, csr_t = full_tables.spirals[3], full_tables.spiral_csr[3]
+    v1, s = spiral.shape
+    x, w, dy = _bwd_inputs(2, v1, s, 8, 16, torch.float32, cuda, 0)
+    with pytest.raises(TypeError):
+        TC.spiral_conv_bwd_dw(x.double(), spiral, dy)
+    with pytest.raises(ValueError):
+        TC.spiral_conv_bwd_dw(x.cpu(), spiral, dy)
+    with pytest.raises(ValueError):
+        TC.spiral_conv_bwd_dw(x, spiral[:-1].contiguous(), dy)
+    with pytest.raises(TypeError):
+        TC.spiral_conv_bwd_dx(dy, w.half(), csr_t, (v1, s))
+    with pytest.raises(ValueError):
+        TC.spiral_conv_bwd_dx(dy, w.cpu(), csr_t, (v1, s))
+    with pytest.raises(ValueError):
+        TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s + 1))
