@@ -7,13 +7,19 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, six sources, in parallel) and print the
+   csrc/` (one nvcc per source, seven sources, in parallel) and print the
    card.
-2. kernels: at each of the nine full-width conv shapes of the serving path
-   (B=64, the bundled 6892-vertex topology's spiral tables), in float32 and
-   bfloat16 inputs, hold the spiral-conv kernel against its plain PyTorch
-   version (rtol 1e-4, atol 1e-5: the only difference is the order of f32
-   sums over K <= 1920), require an exactly zero dummy row, and time both.
+2. the conv forward: at each of the nine full-width conv shapes (the
+   bundled 6892-vertex topology's spiral tables), in float32 and bfloat16
+   inputs, at B = 1, 12, 16, 64 and 384, hold the forward kernel
+   (`csrc/spiral_conv_fwd.cu`, as `spiral_conv` dispatches it) against its
+   plain PyTorch version and against the port's first kernel
+   (`spiral_conv_fwd_v1`, `csrc/spiral_conv.cu`, the yardstick): rtol
+   1e-4, atol 1e-5 (the only difference is the order of f32 sums over
+   K <= 480), an exactly zero dummy row, two runs bit-equal.  At B = 64
+   and 384 time the kernel, v1, the plain version and cuBLAS's SGEMM alone
+   on the pre-gathered [B*V1, S*C] buffer in turns; the nine float32 convs
+   must be faster through the kernel than through v1 at both.
 3. serving: build the full-width PartAE from the default ModelConfig (seed
    0, banded_conv on), export a bundle, load it on the card, answer forward
    at B = 1, 16, 64 and encode -> decode at B = 64 with the launch counts
@@ -74,9 +80,11 @@ run:
    before fit(): finite falling epoch losses and per step (TRAIN_LAUNCHES)
    9 banded-gather forwards, 8 backwards, 8 row gathers, 4 spiral-conv
    forwards, 2 part_dist fwd_grad, and for the four coarse convs on the
-   take route (enc L2, enc L3, dec L3, dec L2) 4 dW and 3 dx launches, and
-   8 csr_reduce (the 7 fix-up gathers' backwards and the 64 -> 128 conv's
-   unfused dx); plus 9/8/4 forward launches per validation pass.
+   take route (enc L2, enc L3, dec L3, dec L2) 4 dW launches and 0 dx (at
+   batch <= 16 every dx half takes the unfused route), and 11 csr_reduce
+   (the 7 fix-up gathers' backwards and the 4 unfused dx); plus 9/8/4
+   forward launches per validation pass.  The v1 forward kernel launches
+   on no main path.
    fit() runs as a user's does, with torch's default algorithms.  Four
    runs resumed from its epoch-2 checkpoint, banded_conv on, off, off, on,
    repeat epoch 3: its train loss to rtol 1e-2 (atomics make the
@@ -90,9 +98,10 @@ run:
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
-before printing any result.  `python3 chip_smoke.py --conv-backward` runs
-phase 1 and phase 4's conv backward alone with a per-kernel profile, for
-tuning those kernels: it prints no result line and is no gate.
+before printing any result.  `python3 chip_smoke.py --conv-forward` runs
+phase 1 and phase 2 alone, `--conv-backward` phase 1 and phase 4's conv
+backward alone, each with a per-kernel profile, for tuning those kernels:
+they print no result line and are no gate.
 """
 
 from __future__ import annotations
@@ -101,6 +110,7 @@ import contextlib
 import copy
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -115,14 +125,19 @@ ROOT = Path(__file__).resolve().parent
 TOPOLOGY = ROOT / "assets" / "topology_synth_full_2222.npz"
 BATCH = 64
 SERVE_BATCHES = (1, 16, 64)
+# phase 2: every batch at which a main path runs the forward kernel --
+# serving (1, 16, 64), the Trainer's trunk (12) and validation batch (16),
+# the step's trunk (384)
+FWD_BATCHES = (1, 12, 16, 64, 384)
+FWD_TIMED = (64, 384)
 TRAIN_B = 128                  # per segment, as bench.py
 TRUNK_B = 3 * TRAIN_B          # the three segments share the trunk
 TRAIN_STEPS = 10
 TRAINER_B = 4                  # the paper recipe's batch_train/batch_interp
 TRAINER_TRUNK_B = 3 * TRAINER_B
 DEVICE = "cuda"
-KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_bwd_dw",
-                 "spiral_conv_bwd_dx", "csr_reduce", "part_dist_fwd",
+KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_fwd_v1",
+                 "spiral_conv_bwd_dw", "spiral_conv_bwd_dx", "csr_reduce", "part_dist_fwd",
                  "part_dist_fwd_grad", "part_dist_bwd", "banded_gather_fwd",
                  "banded_gather_bwd", "row_gather")
 # launches per forward of the default model, by route: at B <= 16 the
@@ -138,11 +153,11 @@ SERVE_LAUNCHES = {
 # above; backward through 8 banded calls (all but the first conv, whose
 # input is data) and their 7 fix-up gathers' backward through csr_reduce;
 # the loss's two part_dist fwd_grad calls; the 4 take-route convs' backward
-# (enc L2, enc L3, dec L3, dec L2) launches 4 dW and 3 dx, and the 64 -> 128
-# conv's unfused dx one csr_reduce more.
+# (enc L2, enc L3, dec L3, dec L2) launches 4 dW, and their 4 dx halves take
+# the unfused route at batch <= 16: 4 csr_reduce more.
 TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
-                  "spiral_conv_bwd_dx": 3, "banded_gather_fwd": 9,
-                  "banded_gather_bwd": 8, "row_gather": 8, "csr_reduce": 8,
+                  "spiral_conv_bwd_dx": 0, "banded_gather_fwd": 9,
+                  "banded_gather_bwd": 8, "row_gather": 8, "csr_reduce": 11,
                   "part_dist_fwd_grad": 2}
 # launches per B = 128 training step (trunk batch 384, no banded route):
 # nine convs forward and their dW; dx for all but the first, whose input
@@ -161,7 +176,8 @@ PEAK_SFU = 16 * 132 * 1.98e9
 
 
 # kernel families of the step's profile, by a substring of the kernel name
-PROFILE_GROUPS = {"conv_fwd": "spiral_conv_fwd_kernel",
+PROFILE_GROUPS = {"conv_fwd": "sc_fwd_",
+                  "conv_fwd_v1": "spiral_conv_fwd_kernel",
                   "conv_bwd_dw": "dw_partial_kernel",
                   "conv_bwd_dw_finish": "dw_finish_kernel",
                   "conv_bwd_dx_short": "dx_short_kernel",
@@ -238,9 +254,13 @@ def phase_build() -> str:
         log(f"[build] {name}: {path.relative_to(ROOT)}")
         ptxas = path.with_suffix(".log")
         if ptxas.exists():
+            entry = ""
             for line in ptxas.read_text().splitlines():
+                found = re.search(r"Compiling entry function '(\w+)'", line)
+                if found:
+                    entry = found.group(1)
                 if "registers" in line or "spill" in line:
-                    log(f"[build]   {line.strip()}")
+                    log(f"[build]   {entry} {line.strip()}")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -273,47 +293,129 @@ def bound(b, v1, s, cin, cout, dtype):
     return flops / PEAK_FLOPS[dtype] * 1e3, nbytes / PEAK_BYTES * 1e3
 
 
-def phase_kernels(model):
-    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
-                                                     spiral_conv_plain)
+def in_turns(fns: dict, iters: int = 3, warmup: int = 1) -> dict:
+    """Each fn timed twice (time_ms), the routes in turns a, b, ..., b, a;
+    {name: [first reading, second reading]}."""
+    order = list(fns.items())
+    runs = {k: [] for k in fns}
+    for k, fn in order + order[::-1]:
+        runs[k].append(time_ms(fn, iters=iters, warmup=warmup))
+    return runs
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+
+def phase_kernels(model, profile: bool = False):
+    """The spiral conv's forward kernel at the nine conv shapes, in float32
+    and bfloat16, at B = 1, 12, 16, 64 and 384 (FWD_BATCHES): the dispatched
+    kernel (`spiral_conv`'s take route) against the plain version (rtol
+    1e-4, atol 1e-5: the same products, f32 sums over K <= 480 in another
+    order) and against the v1 kernel (`spiral_conv_fwd_v1`, the same
+    tolerance), an exactly zero dummy row, two runs bit-equal, one counted
+    launch a call.  At B = 64 and 384 (FWD_TIMED) the routes are timed in
+    turns with both readings kept (`*_runs`): the kernel (`ms`), v1
+    (`v1_ms`) and, in float32, the plain version (`plain_ms`) and cuBLAS's
+    SGEMM alone on the pre-gathered [B*V1, S*C] buffer (`gemm_ms`: the
+    yardstick of a library GEMM of the same M x K x N, which computes no
+    conv and which the port never calls).  `profile` adds the device time
+    by kernel of each float32 conv at B = 384."""
+    from semantichuman_torch.ops import spiral_conv as SC
+
+    require(not torch.backends.cuda.matmul.allow_tf32,
+            "the plain and GEMM routes must run in full f32")
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     rows, max_err = [], 0.0
-    for label, v1, s, cin, cout, act, spiral, _ in conv_layers(model):
-        x = torch.randn((BATCH, v1, cin), generator=gen, device="cuda")
-        x[:, -1] = 0.0
-        w = torch.randn((s * cin, cout), generator=gen, device="cuda")
-        w /= (s * cin) ** 0.5
-        bias = torch.randn((cout,), generator=gen, device="cuda") * 0.1
-        for dtype in (torch.float32, torch.bfloat16):
-            cd = None if dtype == torch.float32 else dtype
-            got = spiral_conv(x, spiral, w, bias, act, compute_dtype=cd)
-            ref = spiral_conv_plain(x, spiral, w, bias, act, compute_dtype=cd)
-            torch.cuda.synchronize()
-            err = float((got - ref).abs().max())
-            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
-                                       msg=lambda m: f"{label} {dtype}: {m}")
-            require(torch.count_nonzero(got[:, -1]) == 0,
-                    f"{label} {dtype}: dummy row not zero")
-            # the timed calls take inputs already in the compute type, as
-            # the kernel sees them
-            xc, wc = x.to(dtype), w.to(dtype)
-            k_ms = time_ms(lambda: spiral_conv(xc, spiral, wc, bias, act))
-            p_ms = time_ms(lambda: spiral_conv_plain(xc, spiral, wc, bias,
-                                                     act))
-            ops_ms, bytes_ms = bound(BATCH, v1, s, cin, cout, dtype)
-            b_ms = max(ops_ms, bytes_ms)
-            b_by = "operations" if ops_ms >= bytes_ms else "bytes"
-            max_err = max(max_err, err)
-            rows.append({"layer": label, "dtype": str(dtype).split(".")[-1],
-                         "v1": v1, "s": s, "c_in": cin, "c_out": cout,
-                         "max_abs_err": err, "ms": k_ms, "plain_ms": p_ms,
-                         "bound_ms": b_ms, "bound_by": b_by,
-                         "ops_ms": ops_ms, "bytes_ms": bytes_ms})
-            log(f"[kernel] {label:18s} {rows[-1]['dtype']:8s} err={err:.3e} "
-                f"kernel={k_ms:.4f} ms plain={p_ms:.4f} ms "
-                f"bound={b_ms:.4f} ms ({b_by})")
+    for b in FWD_BATCHES:
+        for label, v1, s, cin, cout, act, spiral, _ in conv_layers(model):
+            x = torch.randn((b, v1, cin), generator=gen, device=DEVICE)
+            x[:, -1] = 0.0
+            w = torch.randn((s * cin, cout), generator=gen, device=DEVICE)
+            w /= (s * cin) ** 0.5
+            bias = torch.randn((cout,), generator=gen, device=DEVICE) * 0.1
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = f"{label} B={b} {str(dtype).split('.')[-1]}"
+                xc, wc = x.to(dtype), w.to(dtype)
+                before = read_counts()
+
+                def kernel():
+                    return SC.spiral_conv(xc, spiral, wc, bias, act)
+
+                def yardstick():
+                    return SC.spiral_conv_fwd_v1(xc, spiral, wc, bias, act)
+
+                def plain():
+                    return SC.spiral_conv_plain(xc, spiral, wc, bias, act)
+
+                got, again, v1_out, ref = kernel(), kernel(), yardstick(), \
+                    plain()
+                sync()
+                got_counts = counts_diff(read_counts(), before)
+                require(got_counts["spiral_conv_fwd"] == 2
+                        and got_counts["spiral_conv_fwd_v1"] == 1,
+                        f"{tag}: launches {got_counts}")
+                require(torch.equal(got, again), f"{tag}: two runs differ")
+                require(torch.count_nonzero(got[:, -1]) == 0,
+                        f"{tag}: dummy row not zero")
+                torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
+                                           msg=lambda m: f"{tag}: {m}")
+                torch.testing.assert_close(got, v1_out, rtol=1e-4, atol=1e-5,
+                                           msg=lambda m: f"{tag} v1: {m}")
+                err = float((got - ref).abs().max())
+                max_err = max(max_err, err)
+                plan = SC._fwd_plan(b, v1, cin, s, cout, dtype)
+                row = {"layer": label, "batch": b,
+                       "dtype": str(dtype).split(".")[-1], "v1": v1, "s": s,
+                       "c_in": cin, "c_out": cout, "tile": plan["tile"],
+                       "max_abs_err": err,
+                       "v1_max_abs_err": float((v1_out - ref).abs().max())}
+                del got, again, v1_out, ref
+                if b in FWD_TIMED:
+                    fns = {"ms": kernel, "v1_ms": yardstick}
+                    g = None
+                    if dtype == torch.float32:
+                        g = xc.index_select(1, spiral.reshape(-1).long()) \
+                            .reshape(b * v1, s * cin)
+                        fns.update(plain_ms=plain,
+                                   gemm_ms=lambda: torch.matmul(g, wc))
+                    iters = 20 if b <= BATCH else 5
+                    runs = in_turns(fns, iters=iters, warmup=2)
+                    for k, v in runs.items():
+                        row[k], row[f"{k}_runs"] = float(np.mean(v)), v
+                    ops_ms, bytes_ms = bound(b, v1, s, cin, cout, dtype)
+                    row.update(bound_ms=max(ops_ms, bytes_ms),
+                               bound_by="operations" if ops_ms >= bytes_ms
+                               else "bytes", ops_ms=ops_ms, bytes_ms=bytes_ms)
+                    log(f"[kernel] {tag:30s} tile {plan['tile']} err={err:.3e}"
+                        f" ms kernel {row['ms']:.4f} v1 {row['v1_ms']:.4f}"
+                        + (f" plain {row['plain_ms']:.4f} gemm "
+                           f"{row['gemm_ms']:.4f}" if g is not None else "")
+                        + f" bound {row['bound_ms']:.4f} ({row['bound_by']})"
+                        f" | runs {np.round(runs['ms'], 4).tolist()} v1 "
+                        f"{np.round(runs['v1_ms'], 4).tolist()}")
+                    if profile and b == max(FWD_TIMED) and g is not None:
+                        log(f"[profile] {tag} forward as dispatched")
+                        profile_steps(kernel, row["ms"])
+                    del g
+                else:
+                    log(f"[kernel] {tag:30s} tile {plan['tile']} "
+                        f"err={err:.3e} v1 err={row['v1_max_abs_err']:.3e}")
+                rows.append(row)
+            del x, w, bias, xc, wc
+        torch.cuda.empty_cache()
     return rows, max_err
+
+
+def fwd_sums(rows, b: int) -> dict:
+    """The nine float32 convs at batch b, summed."""
+    f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == b]
+    keys = ("ms", "v1_ms", "plain_ms", "gemm_ms", "bound_ms", "ops_ms",
+            "bytes_ms")
+    out = {k: sum(r[k] for r in f32) for k in keys}
+    for k in ("ms", "v1_ms", "plain_ms", "gemm_ms"):
+        out[f"{k}_runs"] = [sum(r[f"{k}_runs"][i] for r in f32)
+                            for i in range(2)]
+    bf16 = [r for r in rows if r["dtype"] == "bfloat16" and r["batch"] == b]
+    out["bf16_ms"] = sum(r["ms"] for r in bf16)
+    out["bf16_v1_ms"] = sum(r["v1_ms"] for r in bf16)
+    return out
 
 
 def serve_route(b: int) -> str:
@@ -513,13 +615,6 @@ def phase_conv_backward(model, profile: bool = False):
     unfused; and the plain conv's autograd (`plain_ms`).  `profile` adds
     the dispatched float32 backward's device time by kernel name."""
     from semantichuman_torch.ops import spiral_conv as SC
-
-    def in_turns(fns: dict) -> dict:
-        order = list(fns.items())
-        runs = {k: [] for k in fns}
-        for k, fn in order + order[::-1]:
-            runs[k].append(time_ms(fn, iters=3, warmup=1))
-        return runs
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = []
@@ -839,10 +934,11 @@ def reset_counts():
     from semantichuman_torch.ops.row_gather import row_gather
     from semantichuman_torch.ops.spiral_conv import (spiral_conv,
                                                      spiral_conv_bwd_dw,
-                                                     spiral_conv_bwd_dx)
+                                                     spiral_conv_bwd_dx,
+                                                     spiral_conv_fwd_v1)
 
-    for fn in (spiral_conv, spiral_conv_bwd_dw, spiral_conv_bwd_dx,
-               csr_reduce, banded_gather_fwd, banded_gather_bwd, row_gather):
+    for fn in (spiral_conv, spiral_conv_fwd_v1, spiral_conv_bwd_dw,
+               spiral_conv_bwd_dx, csr_reduce, banded_gather_fwd, banded_gather_bwd, row_gather):
         fn.launches = 0
     for mode in part_dist_sums.launches:
         part_dist_sums.launches[mode] = 0
@@ -856,9 +952,11 @@ def read_counts() -> dict:
     from semantichuman_torch.ops.row_gather import row_gather
     from semantichuman_torch.ops.spiral_conv import (spiral_conv,
                                                      spiral_conv_bwd_dw,
-                                                     spiral_conv_bwd_dx)
+                                                     spiral_conv_bwd_dx,
+                                                     spiral_conv_fwd_v1)
 
     return {"spiral_conv_fwd": spiral_conv.launches,
+            "spiral_conv_fwd_v1": spiral_conv_fwd_v1.launches,
             "spiral_conv_bwd_dw": spiral_conv_bwd_dw.launches,
             "spiral_conv_bwd_dx": spiral_conv_bwd_dx.launches,
             "csr_reduce": csr_reduce.launches,
@@ -1460,7 +1558,24 @@ def profile_epoch(tr) -> dict:
             "top_kernels": [[nm[:90], t] for nm, t in top]}
 
 
-def main() -> int:
+def parse_args(argv):
+    """No argument: every phase, the gates and the result line.  The two
+    tuning modes run phase 1 and one kernel's phase alone, with a profile
+    per conv; they are no gate and print no result line."""
+    import argparse
+
+    p = argparse.ArgumentParser(description="On-card smoke test of the "
+                                "PyTorch/CUDA port.")
+    mode = p.add_mutually_exclusive_group()
+    mode.add_argument("--conv-forward", action="store_true",
+                      help="phase 1 and the conv forward's phase 2 alone")
+    mode.add_argument("--conv-backward", action="store_true",
+                      help="phase 1 and the conv backward's phase alone")
+    return p.parse_args(argv)
+
+
+def main(argv=None) -> int:
+    args = parse_args(sys.argv[1:] if argv is None else argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs "
               "an NVIDIA card", file=sys.stderr)
@@ -1486,7 +1601,14 @@ def main() -> int:
     params = model.init(0)
     require(len(conv_layers(model)) == 9, "expected 9 convs per forward")
 
-    if "--conv-backward" in sys.argv[1:]:
+    if args.conv_forward:
+        # the conv-forward phase alone, for tuning its kernel: prints the
+        # per-conv lines and the sums, and no result line
+        rows, _err = phase_kernels(model, profile=True)
+        log(json.dumps({f"B={b}": fwd_sums(rows, b) for b in FWD_TIMED}))
+        log(card)
+        return 0
+    if args.conv_backward:
         # the conv-backward phase alone, for tuning its kernels: prints
         # the per-conv lines and the sums, and no result line
         bwd32 = [r for r in phase_conv_backward(model, profile=True)
@@ -1502,8 +1624,17 @@ def main() -> int:
         model, model_take, params, human)
     del model_take
 
-    f32 = [r for r in rows if r["dtype"] == "float32"]
-    kernel_ms = sum(r["ms"] for r in f32)
+    fwd = {b: fwd_sums(rows, b) for b in FWD_TIMED}
+    for b, f in fwd.items():
+        log(f"[kernel] nine float32 convs at B={b}: kernel {f['ms']:.3f} ms "
+            f"(runs {np.round(f['ms_runs'], 3).tolist()}), v1 "
+            f"{f['v1_ms']:.3f} ({np.round(f['v1_ms_runs'], 3).tolist()}), "
+            f"plain {f['plain_ms']:.3f}, gemm alone {f['gemm_ms']:.3f}, bound "
+            f"{f['bound_ms']:.3f} ms ({100 * f['bound_ms'] / f['ms']:.1f} % "
+            f"of it); bf16 kernel {f['bf16_ms']:.3f} v1 {f['bf16_v1_ms']:.3f}")
+        require(f["ms"] < f["v1_ms"], f"B={b}: the kernel's nine convs "
+                f"({f['ms']:.3f} ms) not faster than v1 ({f['v1_ms']:.3f})")
+    kernel_ms = fwd[BATCH]["ms"]
     log(f"[serve] B={BATCH}: spiral_conv kernels {kernel_ms:.3f} ms of "
         f"{timing[BATCH]:.3f} ms per forward "
         f"({100 * kernel_ms / timing[BATCH]:.1f} %)")
@@ -1541,21 +1672,31 @@ def main() -> int:
         f"{bwd_sum['plain_ms']:.3f} ms, bound {bwd_sum['bound_ms']:.3f} ms")
     pd = {(r["w_mode"], r["mode"]): r for r in pd_rows}
     pallas = "semantichuman_tpu/ops/pallas/part_dist_pallas.py"
+    f64, f384 = fwd[BATCH], fwd[TRUNK_B]
     kernels = [{
         "name": "spiral_conv_fwd",
         "row": 1,
         "route": "cuda",
-        "source": "semantichuman_torch/csrc/spiral_conv.cu",
+        "source": "semantichuman_torch/csrc/spiral_conv_fwd.cu",
         "replaces": "semantichuman_tpu/ops/pallas/spiral_conv_pallas.py:78",
         **launches("spiral_conv_fwd"),
         "max_abs_err": max_err,
-        # the nine float32 convs of one B=64 forward, summed
-        "ms": kernel_ms,
-        "plain_ms": sum(r["plain_ms"] for r in f32),
-        "bound_ms": sum(r["bound_ms"] for r in f32),
-        "bound_by": ("operations" if sum(r["ops_ms"] for r in f32)
-                     >= sum(r["bytes_ms"] for r in f32) else "bytes"),
+        # the nine float32 convs of one B=64 forward, summed; the same at
+        # the step's trunk batch 384 below
+        "ms": f64["ms"],
+        "plain_ms": f64["plain_ms"],
+        "bound_ms": f64["bound_ms"],
+        "bound_by": ("operations" if f64["ops_ms"] >= f64["bytes_ms"]
+                     else "bytes"),
         "library_ms": None,
+        # the yardsticks: the port's first kernel (csrc/spiral_conv.cu), and
+        # cuBLAS's SGEMM alone on the pre-gathered buffer
+        "v1_ms": f64["v1_ms"],
+        "gemm_ms": f64["gemm_ms"],
+        "v1_launches_by_path": launches("spiral_conv_fwd_v1")[
+            "launches_by_path"],
+        "b384": f384,
+        "b64": f64,
         "forward_ms": {"banded": timing, "take": timing_take},
         "layers": rows,
     }]
@@ -1662,6 +1803,11 @@ def main() -> int:
     # the take route, the B = 128 step; at trunk batch 12 the Trainer
     # reaches them at its four coarse convs only
     for k in KERNEL_COUNTS:
+        if k == "spiral_conv_fwd_v1":
+            # the yardstick: no main path reaches it
+            require(all(c[k] == 0 for c in paths.values()),
+                    f"{k} launched on a main path: {launches(k)}")
+            continue
         path = ("train_step" if k.startswith("spiral_conv_bwd")
                 else "trainer")
         require(paths[path][k] > 0 or k in ("part_dist_fwd",

@@ -36,6 +36,11 @@ SIGNATURES = {
         "sh_spiral_conv_fwd": ([_VOIDP] * 5 + [_INT] * 7 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
+    "spiral_conv_fwd": {
+        "sh_spiral_conv_fwd_tiled": ([_VOIDP] * 5 + [_INT] * 15 + [_VOIDP],
+                                     _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
     "csr_reduce": {
         "sh_csr_reduce": ([_VOIDP] * 9 + [_INT] * 7 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),

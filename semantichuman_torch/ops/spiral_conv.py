@@ -14,9 +14,13 @@ BEFORE the gather; products and sums stay float32 and so does the output.
 TPU's place: a level whose tables carry a band (`models/tables.py`) takes
 the banded route `spiral_conv_banded` for a CUDA tensor at batch <= 16;
 every other call takes the take route through `SpiralConvFn`, an autograd
-Function whose forward is the hand-written kernel (`csrc/spiral_conv.cu`,
+Function whose forward is the hand-written kernel (`csrc/spiral_conv_fwd.cu`,
 counted in `spiral_conv.launches`) for a CUDA tensor and
-`spiral_conv_plain` for a CPU tensor.  Its backward takes the activation's
+`spiral_conv_plain` for a CPU tensor.  The wrapper picks the kernel's tile
+from the shape (`_fwd_plan`).  The port's first forward kernel
+(`csrc/spiral_conv.cu`) stays as the yardstick, `spiral_conv_fwd_v1`, which
+a table keyed by the conv's static shape (`_FWD_V1`, empty) would send a
+shape to where the new kernel measured slower.  Its backward takes the activation's
 derivative from the output and db as a plain sum; dW and dx come from the
 two fused kernels of `csrc/spiral_conv_bwd.cu` (`spiral_conv_bwd_dw`,
 `spiral_conv_bwd_dx`, counted in their `.launches`), which gather on chip
@@ -24,7 +28,7 @@ and write nothing of width S*C to device memory.  The earlier card route,
 torch matmuls around the gathered buffers and the CSR reduce
 (`ops/csr_reduce.py`), stays as `spiral_conv_bwd_unfused`: a table keyed
 by the conv's static shape sends a shape there where the fused kernel
-measured slower.  The JAX package's one-hot form is a TPU gather-engine
+measured slower, and dx at batch <= 16 takes it too.  The JAX package's one-hot form is a TPU gather-engine
 workaround with the take route's values and is not ported.
 """
 
@@ -49,7 +53,7 @@ ACTIVATIONS = {
     "identity": lambda v: v,
 }
 
-# activation codes of csrc/spiral_conv.cu
+# activation codes of csrc/spiral_conv.cu and csrc/spiral_conv_fwd.cu
 _ACT_CODES = {"identity": 0, "elu": 1, "relu": 2, "leaky_relu": 3,
               "sigmoid": 4, "tanh": 5}
 
@@ -131,7 +135,7 @@ def _check(x, spiral_idx, w, bias) -> None:
             or bias.dim() != 1:
         raise ValueError("spiral_conv expects x [B, V1, C], spiral_idx "
                          "[V1, S], w [S*C, Co], bias [Co]")
-    b, v1, c = x.shape
+    _b, v1, c = x.shape
     s = spiral_idx.shape[1]
     co = w.shape[1]
     if spiral_idx.shape[0] != v1 or w.shape[0] != s * c \
@@ -151,19 +155,24 @@ def _check(x, spiral_idx, w, bias) -> None:
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernel's grid limit 65535")
 
 
-def _forward(x, spiral_idx, w, bias, activation) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor, the plain version on a CPU one;
-    x and w arrive in the compute type."""
+def spiral_conv_fwd_v1(x: torch.Tensor, spiral_idx: torch.Tensor,
+                       w: torch.Tensor, bias: torch.Tensor,
+                       activation: str = "elu") -> torch.Tensor:
+    """The port's first forward kernel (`csrc/spiral_conv.cu`: one batch
+    element per block, 4 x 4 register tiles), kept as the yardstick of
+    the current one and counted in `spiral_conv_fwd_v1.launches`.  x and w
+    in the compute type; the plain version for a CPU tensor."""
     if x.device.type == "cpu":
         return spiral_conv_plain(x, spiral_idx, w, bias, activation)
     _check(x, spiral_idx, w, bias)
     b, v1, c = x.shape
     s = spiral_idx.shape[1]
     co = w.shape[1]
+    if b > 65535:
+        raise ValueError(f"batch {b} exceeds the v1 kernel's grid limit "
+                         "65535")
     y = torch.empty((b, v1, co), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
         return y
@@ -174,6 +183,153 @@ def _forward(x, spiral_idx, w, bias, activation) -> torch.Tensor:
             x.data_ptr(), spiral_idx.data_ptr(), w.data_ptr(),
             bias.data_ptr(), y.data_ptr(), b, v1, c, s, co,
             _ACT_CODES[activation], int(x.dtype == torch.bfloat16), stream)
+    build.check(lib, rc, "spiral_conv v1 kernel launch")
+    spiral_conv_fwd_v1.launches += 1
+    return y
+
+
+spiral_conv_fwd_v1.launches = 0
+
+# Tiles of csrc/spiral_conv_fwd.cu: id -> (BM rows of B*V1, BN output
+# channels, threads, blocks an SM its registers allow).  Per output width
+# (and, at 64 outputs, input width) the candidates run from the largest
+# tile down; the plan takes the first whose grid fills the card's resident
+# blocks one and a half times over, else the one with the most blocks.
+# Outputs of at most four channels, and of at most 16 where x's rows cannot
+# go in 16-byte pieces (C = 3), take the narrow kernel: one thread per row,
+# 128 a block, id -> output channels it holds.
+_FWD_TILES = {0: (128, 128, 256, 2), 1: (128, 64, 128, 3),
+              2: (64, 64, 256, 2), 3: (128, 32, 128, 4),
+              4: (64, 32, 128, 4), 5: (128, 16, 128, 4),
+              6: (64, 16, 64, 8)}
+_FWD_NARROW = {7: 4, 8: 16}
+_FWD_NARROW_ROWS = 128
+_SMS = 132
+_FWD_BK = 32
+_FWD_STAGES = 2
+_FWD_MAX_SMEM = 232448
+_GRID_Y_MAX = 65535
+_GRID_X_MAX = 2 ** 31 - 1
+
+
+def _fwd_candidates(c: int, co: int) -> tuple:
+    if co > 64:
+        return (0, 1, 2)
+    if co > 32:
+        return (1, 2) if c > 32 else (2,)
+    if co > 16:
+        return (3, 4)
+    return (5, 6)
+
+
+# Static conv shapes (C, Co, S) whose forward takes the v1 kernel on the
+# card: only where the card measured the current kernel slower there.
+_FWD_V1 = frozenset()
+
+
+def _fwd_route(c: int, co: int, s: int) -> str:
+    """Which forward kernel a CUDA tensor of this static shape takes."""
+    return "v1" if (c, co, s) in _FWD_V1 else "tiled"
+
+
+def _fwd_plan(b: int, v1: int, c: int, s: int, co: int,
+              dtype: torch.dtype, tile=None) -> dict:
+    """The forward kernel's launch: tile id, its rows BM and channels BN,
+    its threads and the blocks an SM its registers are set for (0: not
+    set), the grid (row tiles, channel tiles) and the dynamic shared memory
+    in bytes, as csrc/spiral_conv_fwd.cu computes them; the library refuses
+    a plan that is not its instance's.  `tile` forces one (the card tests
+    run every instance)."""
+    m = b * v1
+    es = 2 if dtype == torch.bfloat16 else 4
+    if tile is None:
+        narrow = 7 if co <= 4 else 8 if co <= 16 and (c * es) % 16 else None
+        if narrow is not None and s * c * 4 * _FWD_NARROW[narrow] \
+                <= _FWD_MAX_SMEM:
+            tile = narrow
+    if tile in _FWD_NARROW:
+        bn = _FWD_NARROW[tile]
+        return {"tile": tile, "bm": _FWD_NARROW_ROWS, "bn": bn,
+                "threads": _FWD_NARROW_ROWS, "mb": 0,
+                "grid": (-(-m // _FWD_NARROW_ROWS), 1),
+                "smem": s * c * 4 * bn}
+    if tile is None:
+        cands = _fwd_candidates(c, co)
+
+        def blocks(t):
+            bm, bn, _nt, _mb = _FWD_TILES[t]
+            return -(-m // bm) * -(-co // bn)
+
+        tile = next((t for t in cands
+                     if 2 * blocks(t) >= 3 * _SMS * _FWD_TILES[t][3]),
+                    max(cands, key=blocks))
+    bm, bn, nt, mb = _FWD_TILES[tile]
+    stage = (bm * (_FWD_BK + 16 // es) + _FWD_BK * bn) * es
+    return {"tile": tile, "bm": bm, "bn": bn, "threads": nt, "mb": mb,
+            "grid": (-(-m // bm), -(-co // bn)),
+            "smem": _FWD_STAGES * stage + bm * s * 4}
+
+
+def _vector_ok(x, w) -> tuple:
+    """(vecx, vecw): whether x's rows and W's rows go in 16-byte pieces,
+    by the static shape: C, resp. Co, a multiple of 16 bytes' elements."""
+    epu = 16 // x.element_size()
+    return x.shape[2] % epu == 0, w.shape[1] % epu == 0
+
+
+def _check_fwd(x, spiral_idx, w, bias, tile=None) -> dict:
+    """Raise on anything the forward kernel does not take; returns its
+    plan (`tile` as in `_fwd_plan`)."""
+    _check(x, spiral_idx, w, bias)
+    b, v1, c = x.shape
+    s = spiral_idx.shape[1]
+    co = w.shape[1]
+    if x.numel() >= 2 ** 31 or b * v1 >= 2 ** 31:
+        raise ValueError(f"x {tuple(x.shape)} exceeds the kernel's 32-bit "
+                         "offsets")
+    for name, t, vec in zip(("x", "w"), (x, w), _vector_ok(x, w)):
+        if vec and t.data_ptr() % 16:
+            raise ValueError(f"{name} must be 16-byte aligned for the "
+                             "kernel's 16-byte loads")
+    plan = _fwd_plan(b, v1, c, s, co, x.dtype, tile)
+    if plan["bn"] < co and plan["tile"] in _FWD_NARROW:
+        raise ValueError(f"the narrow kernel {plan['tile']} holds "
+                         f"{plan['bn']} outputs, not {co}")
+    if plan["smem"] > _FWD_MAX_SMEM:
+        raise ValueError(f"S = {s}, C = {c} need {plan['smem']} bytes of "
+                         f"shared memory, more than {_FWD_MAX_SMEM}")
+    gx, gy = plan["grid"]
+    if gx > _GRID_X_MAX or gy > _GRID_Y_MAX:
+        raise ValueError(f"grid {plan['grid']} exceeds the card's limits")
+    return plan
+
+
+def _forward(x, spiral_idx, w, bias, activation, tile=None) -> torch.Tensor:
+    """The forward kernel on a CUDA tensor (the v1 kernel for a shape that
+    `_FWD_V1` names; `tile` forces one of the kernel's tiles), the plain
+    version on a CPU one; x and w arrive in the compute type."""
+    if x.device.type == "cpu":
+        return spiral_conv_plain(x, spiral_idx, w, bias, activation)
+    if tile is None and _fwd_route(x.shape[2], w.shape[1],
+                                   spiral_idx.shape[1]) == "v1":
+        return spiral_conv_fwd_v1(x, spiral_idx, w, bias, activation)
+    plan = _check_fwd(x, spiral_idx, w, bias, tile)
+    b, v1, c = x.shape
+    s = spiral_idx.shape[1]
+    co = w.shape[1]
+    y = torch.empty((b, v1, co), dtype=torch.float32, device=x.device)
+    if y.numel() == 0:
+        return y
+    vecx, vecw = _vector_ok(x, w)
+    lib = build.load("spiral_conv_fwd")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.sh_spiral_conv_fwd_tiled(
+            x.data_ptr(), spiral_idx.data_ptr(), w.data_ptr(),
+            bias.data_ptr(), y.data_ptr(), b, v1, c, s, co,
+            _ACT_CODES[activation], int(x.dtype == torch.bfloat16),
+            plan["tile"], plan["bm"], plan["bn"], plan["smem"],
+            plan["threads"], plan["mb"], int(vecx), int(vecw), stream)
     build.check(lib, rc, "spiral_conv kernel launch")
     spiral_conv.launches += 1
     return y
@@ -376,15 +532,23 @@ spiral_conv_bwd_dx.launches = 0
 _UNFUSED = {
     (64, 128, 8): ("dx",),
 }
+# At batch <= 16 the dx half takes the unfused route whatever the shape:
+# the fused dx kernel's warp tile spans 8 * (32 / NTC) batch elements, so
+# twelve leave most of it empty, and it measured slower than its plain
+# version at the Trainer's batch 12 (PERF.md, section 5).
+_DX_FUSED_MIN_B = 17
 
 
 def _unfused_halves(x, w, spiral_idx) -> tuple:
     """The halves of this conv's backward that take the unfused route:
     none on the CPU (the plain versions run there), else what `_UNFUSED`
-    names for the static shape (C, Co, S)."""
+    names for the static shape (C, Co, S), and dx at batch <= 16."""
     if x.device.type == "cpu":
         return ()
-    return _UNFUSED.get((x.shape[2], w.shape[1], spiral_idx.shape[1]), ())
+    halves = _UNFUSED.get((x.shape[2], w.shape[1], spiral_idx.shape[1]), ())
+    if x.shape[0] < _DX_FUSED_MIN_B and "dx" not in halves:
+        halves = ("dx",) + halves
+    return halves
 
 
 def _conv_backward(x, w, dy, spiral_idx, csr, need_x, need_w, unfused=()):

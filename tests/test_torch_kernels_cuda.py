@@ -625,10 +625,12 @@ def test_spiral_conv_bwd_dx_matches_plain(cuda, full_tables, dtype):
 def test_spiral_conv_fused_backward_through_autograd(cuda, full_tables, dtype,
                                                      monkeypatch):
     """spiral_conv on the card carries a grad_fn whose backward launches
-    both fused kernels for a shape the dispatch table does not name, and
+    both fused kernels for a shape the dispatch table does not name (the
+    batch rule for dx lowered to let batch 4 through), and
     its x, W and bias gradients equal autograd of the plain conv (f32 to
     1e-4 of the largest entry, bf16 one rounding more)."""
     monkeypatch.setattr(TC, "_UNFUSED", {})
+    monkeypatch.setattr(TC, "_DX_FUSED_MIN_B", 1)
     lvl, c, co = 1, 32, 32
     spiral, csr_t = full_tables.spirals[lvl], full_tables.spiral_csr[lvl]
     v1, s = spiral.shape
@@ -675,3 +677,132 @@ def test_spiral_conv_bwd_kernels_reject_bad_input(cuda, full_tables):
         TC.spiral_conv_bwd_dx(dy, w.cpu(), csr_t, (v1, s))
     with pytest.raises(ValueError):
         TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s + 1))
+
+
+# --- the forward kernel (csrc/spiral_conv_fwd.cu) and its yardstick -------
+
+# (v1, s, c, co) random tables off every chunk and tile size: C = 5 (K = 35,
+# element copies), C = 40 (a 32-channel slice and an 8-channel one), C = 12
+# (bf16 element by element), C = 3 into 16 and 3 outputs, 7 and 130 outputs
+FWD_RAGGED = [(501, 7, 5, 7), (333, 9, 40, 40), (130, 6, 12, 130),
+              (77, 3, 3, 16), (50, 9, 3, 3), (257, 5, 64, 3)]
+
+
+def _fwd_cases(full_tables, cuda):
+    """(label, batch, spiral table, C, Co)."""
+    cases = []
+    for lvl, c, co in MODEL_CONVS:
+        for b in (1, 5):
+            cases.append((f"L{lvl} {c}->{co} B={b}", b,
+                          full_tables.spirals[lvl], c, co))
+    rng = np.random.default_rng(12)
+    for v1, s, c, co in FWD_RAGGED:
+        idx = torch.from_numpy(_spiral_with_pads(v1, s, rng)).to(cuda)
+        for b in (1, 5):
+            cases.append((f"ragged {v1}x{s} {c}->{co} B={b}", b, idx, c, co))
+    return cases
+
+
+def _fwd_inputs(b, v1, s, c, co, dtype, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, v1, c), generator=gen, device=device)
+    x[:, -1] = 0.0
+    w = torch.randn((s * c, co), generator=gen, device=device) / (s * c) ** 0.5
+    bias = torch.randn((co,), generator=gen, device=device) * 0.1
+    return x.to(dtype), w.to(dtype), bias
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_fwd_matches_plain_and_v1(cuda, full_tables, dtype):
+    """The forward kernel against its plain version and the v1 kernel at
+    the nine full-width conv shapes and at ragged sizes, B = 1 and 5: the
+    same products, f32 sums in another order (rtol 1e-4, atol 1e-5); the
+    dummy row exactly zero; two runs bit-equal; one counted launch a call
+    on each wrapper."""
+    for i, (label, b, spiral, c, co) in enumerate(_fwd_cases(full_tables,
+                                                             cuda)):
+        v1, s = spiral.shape
+        x, w, bias = _fwd_inputs(b, v1, s, c, co, dtype, cuda, i)
+        before = (TC.spiral_conv.launches, TC.spiral_conv_fwd_v1.launches)
+        got = TC._forward(x, spiral, w, bias, "elu")
+        again = TC._forward(x, spiral, w, bias, "elu")
+        old = TC.spiral_conv_fwd_v1(x, spiral, w, bias, "elu")
+        ref = TC.spiral_conv_plain(x, spiral, w, bias, "elu")
+        torch.cuda.synchronize()
+        assert (TC.spiral_conv.launches,
+                TC.spiral_conv_fwd_v1.launches) == (before[0] + 2,
+                                                    before[1] + 1), label
+        assert got.dtype == torch.float32 and got.shape == (b, v1, co)
+        assert torch.equal(got, again), label
+        assert torch.count_nonzero(got[:, -1]) == 0, label
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{label}: {m}")
+        torch.testing.assert_close(got, old, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{label} v1: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("activation",
+                         ["elu", "relu", "leaky_relu", "sigmoid", "tanh",
+                          "identity"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_fwd_activations(cuda, dtype, activation):
+    """Every activation in the tile and the narrow kernels' epilogues."""
+    rng = np.random.default_rng(13)
+    for v1, s, c, co in ((333, 9, 40, 40), (50, 9, 3, 3), (77, 3, 3, 16)):
+        idx = torch.from_numpy(_spiral_with_pads(v1, s, rng)).to(cuda)
+        x, w, bias = _fwd_inputs(5, v1, s, c, co, dtype, cuda, v1)
+        got = TC._forward(x, idx, w, bias, activation)
+        ref = TC.spiral_conv_plain(x, idx, w, bias, activation)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+        assert torch.count_nonzero(got[:, -1]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tile", sorted(TC._FWD_TILES)
+                         + sorted(TC._FWD_NARROW))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_fwd_every_tile(cuda, tile, dtype):
+    """Each template instance, forced, on ragged shapes: 16-byte and
+    element copies, outputs not a multiple of the tile's."""
+    rng = np.random.default_rng(tile)
+    shapes = [(301, 7, 40, 72), (301, 7, 3, 16), (130, 6, 12, 13)]
+    if tile in TC._FWD_NARROW:
+        keep = TC._FWD_NARROW[tile]
+        shapes = [(301, 7, 40, min(keep, 3)), (301, 7, 3, keep),
+                  (130, 6, 16, keep)]
+    for v1, s, c, co in shapes:
+        idx = torch.from_numpy(_spiral_with_pads(v1, s, rng)).to(cuda)
+        x, w, bias = _fwd_inputs(3, v1, s, c, co, dtype, cuda, v1 + c)
+        got = TC._forward(x, idx, w, bias, "tanh", tile=tile)
+        again = TC._forward(x, idx, w, bias, "tanh", tile=tile)
+        ref = TC.spiral_conv_plain(x, idx, w, bias, "tanh")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
+                                   msg=lambda m: f"{(v1, s, c, co)}: {m}")
+        assert torch.count_nonzero(got[:, -1]) == 0
+
+
+@pytest.mark.cuda
+def test_spiral_conv_fwd_rejects_bad_input(cuda):
+    x, w, bias = _fwd_inputs(2, 40, 6, 8, 16, torch.float32, cuda, 0)
+    idx = torch.from_numpy(_spiral_with_pads(40, 6, np.random.default_rng(
+        0))).to(cuda)
+    shifted = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    shifted.copy_(x)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        TC._forward(shifted, idx, w, bias, "elu")
+    with pytest.raises(TypeError):
+        TC._forward(x, idx.long(), w, bias, "elu")
+    with pytest.raises(ValueError):
+        TC._forward(x, idx, w, bias.cpu(), "elu")
+    with pytest.raises(ValueError):
+        TC._forward(x, idx, w, bias, "elu", tile=7)    # 4 outputs held
+    wide = torch.from_numpy(_spiral_with_pads(40, 1000, np.random.default_rng(
+        1))).to(cuda)
+    xw, ww, bw = _fwd_inputs(2, 40, 1000, 8, 16, torch.float32, cuda, 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        TC._forward(xw, wide, ww, bw, "elu")

@@ -170,17 +170,21 @@ def test_backward_routes_agree(monkeypatch, halves):
 
 
 def test_dispatch_reads_the_table_by_static_shape(monkeypatch):
-    """`_unfused_halves` keys on (C, Co, S) alone, and names nothing for a
+    """`_unfused_halves` keys on (C, Co, S) alone above batch 16 (at batch
+    <= 16 dx goes unfused whatever the shape), and names nothing for a
     CPU tensor whatever the table says."""
     b, v1, s, c, co = SHAPES[0]
     x, idx, w, _bias, _ct = _case(SHAPES[0])
     xt, wt, it = (torch.from_numpy(a) for a in (x, w, idx))
-    monkeypatch.setattr(TC, "_UNFUSED", {(c, co, s): ("dx",)})
+    monkeypatch.setattr(TC, "_UNFUSED", {(c, co, s): ("dw",)})
     assert TC._unfused_halves(xt, wt, it) == ()
-    on_card = [t.to("meta") for t in (xt, wt, it)]
-    assert TC._unfused_halves(*on_card) == ("dx",)
-    assert TC._unfused_halves(on_card[0][:1, :7], on_card[1],
-                              on_card[2][:7]) == ("dx",)
+    big = TC._DX_FUSED_MIN_B
+    on_card = [torch.empty((big, v1, c), device="meta"), wt.to("meta"),
+               it.to("meta")]
+    assert TC._unfused_halves(*on_card) == ("dw",)
+    assert TC._unfused_halves(on_card[0][:, :7], on_card[1],
+                              on_card[2][:7]) == ("dw",)
+    assert TC._unfused_halves(on_card[0][:1], *on_card[1:]) == ("dx", "dw")
     monkeypatch.setattr(TC, "_UNFUSED", {(c + 1, co, s): ("dx", "dw")})
     assert TC._unfused_halves(*on_card) == ()
 
