@@ -7,7 +7,7 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, seven sources, in parallel) and print the
+   csrc/` (one nvcc per source, eight sources, in parallel) and print the
    card.
 2. the conv forward: at each of the nine full-width conv shapes (the
    bundled 6892-vertex topology's spiral tables), in float32 and bfloat16
@@ -41,10 +41,15 @@ run:
    beside the unfused route (torch matmuls around the [B, V1, S*C]
    buffers and csr_reduce), whole and half by half, the routes in turns
    (a, b, b, a) with both readings kept; csr_reduce
-   against its plain version and `index_add_`; the part_dist kernels
-   (rows fwd, fwd_grad, bwd) against their plain versions at 17 parts x
-   B = 128, for w_mode threshold and sin, relat on.  Errors, times and
-   bounds per kernel.
+   against its plain version and `index_add_`; the part_dist kernel
+   (`csrc/part_dist.cu`, modes fwd, fwd_grad, bwd) against its plain
+   versions and against the port's first part_dist kernel
+   (`part_dist_v1`, `csrc/part_dist_v1.cu`, the yardstick) at 17 parts x
+   B = 128, for w_mode threshold, sin and all_one, relat on: counts equal
+   exactly (v1's too), two runs bit-equal; the shares of ordered pairs in
+   the mask and of unordered pairs whose two Gram orders round otherwise
+   printed; kernel, v1 and plain timed in turns, and fwd_grad in
+   threshold mode must beat v1.  Errors, times and bounds per kernel.
 5. the training step: the full-width model from seed 0, `make_train_step`
    with StepFlags(), exc_variant 'ori', EditSampler(seed=0) at epoch 200
    and make_optimizer(1e-3, 5e-5, 0.99, steps_per_epoch=1), three segments
@@ -57,7 +62,11 @@ run:
    reduction is the csr_reduce launch) and 2 part_dist fwd_grad launches
    (0 fwd, 0 bwd).  Then ms/step, meshes/s
    (128 per step, as bench.py counts), the device idle share, the top
-   kernels (torch.profiler) and one bf16-trunk step (finite loss).
+   kernels (torch.profiler), and the step's part_dist device ms through
+   the kernel against the same steps with part_dist_v1 swapped in, in
+   turns (the kernel must be faster), with the share of the step's pairs
+   whose two Gram orders round otherwise; one bf16-trunk step (finite
+   loss).
    At trunk batch 384 no banded route engages: 0 banded launches.
 6. banded kernels, at the trainer's shapes (trunk batch 12 = three
    segments of B = 4, the bundled topology's band tables): every banded
@@ -73,7 +82,9 @@ run:
    take route there (enc L2, enc L3, dec L3, dec L2; batch 12 fills the
    dx kernel's batch tiles only partly), float32 and bfloat16: each
    within 1e-4 of the largest entry of its plain version, two runs
-   bit-equal.
+   bit-equal.  Then the part_dist kernel's three modes at the Trainer's
+   grid (17 parts x B = 4, each tile split over blocks) as in phase 4;
+   fwd_grad in threshold mode must beat v1 in device time there too.
 7. the Trainer: the paper recipe (Config() defaults: B = 4 per segment,
    lr 1e-3, banded_conv on) on synthetic SMPL-scale data (64 train, 16
    test meshes), full width, 3 epochs with the launch counts set to 0 just
@@ -83,8 +94,8 @@ run:
    take route (enc L2, enc L3, dec L3, dec L2) 4 dW launches and 0 dx (at
    batch <= 16 every dx half takes the unfused route), and 11 csr_reduce
    (the 7 fix-up gathers' backwards and the 4 unfused dx); plus 9/8/4
-   forward launches per validation pass.  The v1 forward kernel launches
-   on no main path.
+   forward launches per validation pass.  The v1 forward and part_dist
+   kernels launch on no main path.
    fit() runs as a user's does, with torch's default algorithms.  Four
    runs resumed from its epoch-2 checkpoint, banded_conv on, off, off, on,
    repeat epoch 3: its train loss to rtol 1e-2 (atomics make the
@@ -100,8 +111,9 @@ The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
 before printing any result.  `python3 chip_smoke.py --conv-forward` runs
 phase 1 and phase 2 alone, `--conv-backward` phase 1 and phase 4's conv
-backward alone, each with a per-kernel profile, for tuning those kernels:
-they print no result line and are no gate.
+backward alone, each with a per-kernel profile, `--part-dist` phase 1 and
+the part_dist checks of phases 4 and 6, for tuning those kernels: they
+print no result line and are no gate.
 """
 
 from __future__ import annotations
@@ -137,9 +149,12 @@ TRAINER_B = 4                  # the paper recipe's batch_train/batch_interp
 TRAINER_TRUNK_B = 3 * TRAINER_B
 DEVICE = "cuda"
 KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_fwd_v1",
-                 "spiral_conv_bwd_dw", "spiral_conv_bwd_dx", "csr_reduce", "part_dist_fwd",
-                 "part_dist_fwd_grad", "part_dist_bwd", "banded_gather_fwd",
-                 "banded_gather_bwd", "row_gather")
+                 "spiral_conv_bwd_dw", "spiral_conv_bwd_dx", "csr_reduce",
+                 "part_dist_fwd", "part_dist_fwd_grad", "part_dist_bwd",
+                 "part_dist_v1", "banded_gather_fwd", "banded_gather_bwd",
+                 "row_gather")
+# the yardsticks: counted, and 0 on every main path
+YARDSTICKS = ("spiral_conv_fwd_v1", "part_dist_v1")
 # launches per forward of the default model, by route: at B <= 16 the
 # convs at levels 0-1 (5 of 9) and the four unpools take the banded route;
 # every banded call but unpool 4->3 (no out-of-band taps) adds a fix-up
@@ -183,7 +198,8 @@ PROFILE_GROUPS = {"conv_fwd": "sc_fwd_",
                   "conv_bwd_dx_short": "dx_short_kernel",
                   "conv_bwd_dx_narrow": "dx_narrow_kernel",
                   "conv_bwd_dx_long": "dx_long_",
-                  "csr_reduce": "csr_", "part_dist": "part_dist_kernel",
+                  "csr_reduce": "csr_", "part_dist": "part_dist_rows_",
+                  "part_dist_v1": "part_dist_v1_",
                   "gemm": "gemm", "index_add": "indexFunc",
                   "index_select": "index_elementwise",
                   "scatter_gather": "_scatter_gather"}
@@ -787,9 +803,10 @@ def phase_csr_reduce(model):
     return rows
 
 
-def part_dist_case(human, w_mode):
-    """The step's interp-branch inputs of the part_dist kernels at B = 128:
-    one bucket of 17 parts (n_pad 408), as the loss stacks them."""
+def part_dist_case(human, w_mode, batch: int = TRAIN_B):
+    """The interp-branch inputs of the part_dist kernels at `batch` (the
+    step's 128 or the Trainer's 4): one bucket of 17 parts (n_pad 408), as
+    the loss stacks them."""
     from semantichuman_torch.ops.part_dist import (PartDistTables,
                                                    _stack_parts)
     from semantichuman_torch.train.edits import EditSampler
@@ -803,107 +820,210 @@ def part_dist_case(human, w_mode):
             "expected one part bucket of n_pad 408")
     bk = ptab.buckets[0]
     rng = np.random.default_rng(3)
-    tx = human.sample_meshes(TRAIN_B, seed=3).astype(np.float32)
+    tx = human.sample_meshes(batch, seed=3).astype(np.float32)
     rec = (tx + rng.normal(0, 0.01, tx.shape)).astype(np.float32)
     tx_t = torch.from_numpy(tx).to(DEVICE)
     rec_t = torch.from_numpy(rec).to(DEVICE)
     bones = part_bones(regress_kps(tx_t, tables.j_regressor))
     pc = bk["part_ids"].shape[0]
-    a_full = EditSampler(seed=0).sample_interp(200, TRAIN_B)["a_full"]
+    a_full = EditSampler(seed=0).sample_interp(200, batch)["a_full"]
     a = torch.from_numpy(a_full).to(DEVICE).index_select(
         1, bk["part_ids"]).t().contiguous()
     bone = bones.index_select(1, bk["part_ids"]).transpose(0, 1) \
-        .reshape(pc * TRAIN_B, 3).contiguous()
+        .reshape(pc * batch, 3).contiguous()
     return (_stack_parts(tx_t, bk["idx_flat"], pc, 408),
             _stack_parts(rec_t, bk["idx_flat"], pc, 408), bone, a,
             bk["n_real"], bk["allone"])
 
 
-def part_dist_bound(args, counts, mode):
+def part_dist_bound(args, counts, asym, mode, w_mode):
     """(ms for the f32 operations, ms for the special-function operations)
-    of one call on this run's data: every ordered pair j != k evaluates
-    its GT distance and weight (~20 f32 operations; a square root, a
-    divide and acos on the SFU, only the square root on a uniform-weight
-    part); each pair in the mask (the kernel's count) adds the
-    reconstruction distance, q and the sums (~16 f32 operations; a square
-    root and a divide), and with the gradient ~10 more and two divides."""
+    of one call on this run's data, counting the least work: one
+    evaluation per unordered pair j < k, plus one more for each pair whose
+    two Gram orders round otherwise (`asym`, per tile).  An evaluation
+    takes the GT Gram distance (a dot product, the Gram sum, relu: ~9 f32
+    operations and a square root), the cosine against the bone (a divide,
+    ~6 f32) and the weight (acos on the SFU where the threshold keeps the
+    pair, for every pair in linear mode, a square root in sin mode; none
+    on a uniform part), de and the mask (~5 f32).  Each evaluation in the
+    mask (the ordered count over two, scaled by evaluations / pairs) adds
+    the reconstruction's distance, q and the sums (~16 f32; a square root
+    and a divide), and with the gradient ~10 f32 and two divides (w / de,
+    g / de_r).  Both kernels evaluate every ordered pair, about twice this
+    least work."""
     _vp, _rp, _bone, _a, n_real, allone = args
     batch = _vp.shape[0] // n_real.shape[0]
-    n = n_real.double()
-    pairs = float((n * (n - 1)).sum()) * batch
-    uniform = float((n * (n - 1) * allone.double()).sum()) * batch
-    masked = float(counts.sum())
+    n = n_real.double().repeat_interleave(batch)
+    uniform = allone.double().repeat_interleave(batch)
+    if w_mode == "all_one":
+        uniform = torch.ones_like(uniform)
+    pairs = n * (n - 1) / 2
+    evals = pairs + asym.double()
+    masked = counts.double() / 2 * evals / pairs.clamp_min(1)
     grad = mode != "fwd"
-    flops = pairs * 20 + masked * (16 + (10 if grad else 0))
-    sfu = 3 * (pairs - uniform) + uniform + masked * (2 + (2 if grad else 0))
+    flops = float((evals * 20 + masked * (16 + (10 if grad else 0))).sum())
+    weight = {"threshold": masked, "linear": evals, "sin": evals,
+              "all_one": 0 * evals}[w_mode]
+    sfu = float((evals + (1 - uniform) * (evals + weight)
+                 + masked * (2 + (2 if grad else 0))).sum())
     return flops / PEAK_FLOPS[torch.float32] * 1e3, sfu / PEAK_SFU * 1e3
 
 
-def phase_part_dist(human):
-    """The three part_dist kernels against their plain versions at 17
-    parts x B = 128 (w_mode threshold and sin, relat on).  Both versions
-    round every per-pair value alike (the kernel's note), so they put
-    every pair on the same side of the mask, the threshold and q = 0:
-    counts equal exactly, term sums to rtol 1e-5 (f32 sums of ~165k pair
-    terms per tile in another order), g0 and drp to 1e-4 of the largest
-    entry (rows of ~400 terms of either sign, summed in another order)."""
+def part_dist_modes(args, consts, ct, tag: str, times: bool):
+    """The three modes of the kernel against their plain versions and v1
+    on one input: counts equal exactly (also v1's), term sums rtol 1e-5
+    (f32 sums of ~165k pair terms per tile in another order), g0 and drp
+    to 1e-4 of the largest entry (rows of ~400 terms of either sign,
+    summed in another order), two runs bit-equal.  With `times`, kernel,
+    v1 and plain in turns (kernel, v1, plain, plain, v1, kernel).  Returns
+    {mode: row}."""
     from semantichuman_torch.ops.part_dist import (part_dist_call,
-                                                   part_dist_plain)
+                                                   part_dist_plain,
+                                                   part_dist_v1)
+
+    out = {}
+    for mode in ("fwd", "fwd_grad", "bwd"):
+        kw = {"ct": ct} if mode == "bwd" else {}
+        got = part_dist_call(mode, *args, *consts, **kw)
+        again = part_dist_call(mode, *args, *consts, **kw)
+        ref = part_dist_plain(*args, *consts, mode=mode, **kw)
+        old = part_dist_v1(mode, *args, *consts, **kw)
+        sync()
+        where = f"part_dist {mode} {tag}"
+        require(all(torch.equal(x, y) for x, y in zip(
+            got if isinstance(got, tuple) else (got,),
+            again if isinstance(again, tuple) else (again,))),
+            f"{where}: two runs differ")
+        # fwd -> sums, fwd_grad -> (sums, g0), bwd -> drp
+        sums_got, grad_got = {"fwd": (got, None), "bwd": (None, got)
+                              }.get(mode, got)
+        sums_ref, grad_ref = {"fwd": (ref, None), "bwd": (None, ref)
+                              }.get(mode, ref)
+        sums_old = {"fwd": old, "fwd_grad": old[0] if mode == "fwd_grad"
+                    else None, "bwd": None}[mode]
+        err = {"max_abs": 0.0}
+        if sums_got is not None:
+            d = (sums_got[:, 0] - sums_ref[:, 0]).abs()
+            err["max_abs"] = float(d.max())
+            err["sums_rtol"] = float((d / sums_ref[:, 0].abs()
+                                      .clamp_min(1e-30)).max())
+            torch.testing.assert_close(
+                sums_got[:, 0], sums_ref[:, 0], rtol=1e-5, atol=0,
+                msg=lambda m: f"{where} sums: {m}")
+            require(torch.equal(sums_got[:, 1], sums_ref[:, 1]),
+                    f"{where}: counts differ from the plain version's")
+            require(torch.equal(sums_old[:, 1], sums_ref[:, 1]),
+                    f"{where}: v1's counts differ")
+        if grad_got is not None:
+            err["grad"] = rel_err(grad_got, grad_ref)
+            err["max_abs"] = max(err["max_abs"], float(
+                (grad_got - grad_ref).abs().max()))
+            torch.testing.assert_close(
+                grad_got, grad_ref, rtol=0,
+                atol=1e-4 * float(grad_ref.abs().max()),
+                msg=lambda m: f"{where} grad: {m}")
+        if sums_ref is None:
+            sums_ref = part_dist_plain(*args, *consts, mode="fwd")
+        row = {"mode": mode, "err": err, "counts": sums_ref[:, 1]}
+        del got, again, ref, old
+        if times:
+            runs = in_turns({
+                "ms": lambda: part_dist_call(mode, *args, *consts, **kw),
+                "v1_ms": lambda: part_dist_v1(mode, *args, *consts, **kw),
+                "plain_ms": lambda: part_dist_plain(*args, *consts,
+                                                    mode=mode, **kw)},
+                iters=5)
+            row.update({k: float(np.mean(v)) for k, v in runs.items()})
+            row.update({f"{k}_runs": v for k, v in runs.items()})
+        out[mode] = row
+    return out
+
+
+def phase_part_dist(human):
+    """The three part_dist modes against their plain versions and v1 at
+    17 parts x B = 128 (w_mode threshold, sin and all_one, relat on): see
+    part_dist_modes.  The shares of ordered pairs in the mask and of
+    unordered pairs whose two Gram orders round otherwise
+    (asymmetric_pairs) are printed.  fwd_grad in threshold mode, the
+    step's call, must be faster than v1."""
+    from semantichuman_torch.ops.part_dist import asymmetric_pairs
 
     rows = []
-    for w_mode in ("threshold", "sin"):
+    for w_mode in ("threshold", "sin", "all_one"):
         args = part_dist_case(human, w_mode)
         consts = (w_mode, 0.8, True)
         ct = torch.linspace(0.5, 1.5, args[0].shape[0], device=DEVICE)
-        for mode in ("fwd", "fwd_grad", "bwd"):
-            kw = {"ct": ct} if mode == "bwd" else {}
-            got = part_dist_call(mode, *args, *consts, **kw)
-            ref = part_dist_plain(*args, *consts, mode=mode, **kw)
-            sync()
-            # fwd -> sums, fwd_grad -> (sums, g0), bwd -> drp
-            sums_got, grad_got = {"fwd": (got, None), "bwd": (None, got)
-                                  }.get(mode, got)
-            sums_ref, grad_ref = {"fwd": (ref, None), "bwd": (None, ref)
-                                  }.get(mode, ref)
-            err = {"max_abs": 0.0}
-            if sums_got is not None:
-                d = (sums_got[:, 0] - sums_ref[:, 0]).abs()
-                err["max_abs"] = float(d.max())
-                err["sums_rtol"] = float((d / sums_ref[:, 0].abs()
-                                          .clamp_min(1e-30)).max())
-                torch.testing.assert_close(
-                    sums_got[:, 0], sums_ref[:, 0], rtol=1e-5, atol=0,
-                    msg=lambda m: f"part_dist {mode} {w_mode} sums: {m}")
-                require(torch.equal(sums_got[:, 1], sums_ref[:, 1]),
-                        f"part_dist {mode} {w_mode}: counts differ")
-            if grad_got is not None:
-                err["grad"] = rel_err(grad_got, grad_ref)
-                err["max_abs"] = max(err["max_abs"], float(
-                    (grad_got - grad_ref).abs().max()))
-                torch.testing.assert_close(
-                    grad_got, grad_ref, rtol=0,
-                    atol=1e-4 * float(grad_ref.abs().max()),
-                    msg=lambda m: f"part_dist {mode} {w_mode} grad: {m}")
-            if sums_ref is None:
-                sums_ref = part_dist_plain(*args, *consts, mode="fwd")
-            counts = sums_ref[:, 1]
-            k_ms = time_ms(lambda: part_dist_call(mode, *args, *consts, **kw),
-                           iters=10, warmup=2)
-            p_ms = time_ms(lambda: part_dist_plain(*args, *consts,
-                                                   mode=mode, **kw),
-                           iters=3, warmup=1)
-            ops_ms, sfu_ms = part_dist_bound(args, counts, mode)
-            row = {"w_mode": w_mode, "mode": mode, "err": err, "ms": k_ms,
-                   "plain_ms": p_ms, "bound_ms": max(ops_ms, sfu_ms),
-                   "bound_by": "operations", "flop_ms": ops_ms,
-                   "sfu_ms": sfu_ms,
-                   "masked_pairs": float(counts.sum())}
-            rows.append(row)
-            log(f"[part_dist] {w_mode:9s} {mode:8s} err={err} "
-                f"kernel={k_ms:.4f} ms plain={p_ms:.3f} ms "
-                f"bound={row['bound_ms']:.4f} ms (f32 {ops_ms:.4f}, "
-                f"sfu {sfu_ms:.4f}) masked pairs {row['masked_pairs']:.0f}")
-            del got, ref
+        asym = asymmetric_pairs(*args, *consts[:2])
+        n = args[4].double().repeat_interleave(TRAIN_B)
+        pairs = float((n * (n - 1) / 2).sum())
+        for mode, r in part_dist_modes(args, consts, ct, w_mode,
+                                       times=True).items():
+            counts = r.pop("counts")
+            ops_ms, sfu_ms = part_dist_bound(args, counts, asym, mode,
+                                             w_mode)
+            r.update({"w_mode": w_mode, "bound_ms": max(ops_ms, sfu_ms),
+                      "bound_by": "operations", "flop_ms": ops_ms,
+                      "sfu_ms": sfu_ms,
+                      "masked_pairs": float(counts.sum()),
+                      "masked_share": float(counts.sum()) / (2 * pairs),
+                      "asymmetric_pairs": float(asym.sum()),
+                      "asymmetric_share": float(asym.sum()) / pairs})
+            rows.append(r)
+            log(f"[part_dist] {w_mode:9s} {mode:8s} err={r['err']} "
+                f"kernel={r['ms']:.4f} ms "
+                f"{np.round(r['ms_runs'], 4).tolist()} v1={r['v1_ms']:.4f} "
+                f"{np.round(r['v1_ms_runs'], 4).tolist()} plain="
+                f"{r['plain_ms']:.3f} ms bound={r['bound_ms']:.4f} ms (f32 "
+                f"{ops_ms:.4f}, sfu {sfu_ms:.4f}) masked share "
+                f"{r['masked_share']:.4f} asymmetric share "
+                f"{r['asymmetric_share']:.4f}")
+    r = next(r for r in rows if (r["w_mode"], r["mode"])
+             == ("threshold", "fwd_grad"))
+    require(r["ms"] < r["v1_ms"], f"part_dist fwd_grad threshold: kernel "
+            f"{r['ms']:.4f} ms not faster than v1 {r['v1_ms']:.4f} ms")
+    return rows
+
+
+def phase_part_dist_trainer(human):
+    """The three part_dist modes at the Trainer's grid (17 parts x B = 4 =
+    68 tiles) against their plain
+    versions and v1, as part_dist_modes, for w_mode threshold, sin and
+    all_one; device times (profiler) of fwd_grad, the Trainer's call,
+    beside v1's in turns.  In threshold mode, the Trainer's, the kernel
+    must be faster than v1."""
+    from semantichuman_torch.ops.part_dist import (part_dist_call,
+                                                   part_dist_v1)
+
+    rows = []
+    for w_mode in ("threshold", "sin", "all_one"):
+        args = part_dist_case(human, w_mode, batch=TRAINER_B)
+        consts = (w_mode, 0.8, True)
+        ct = torch.linspace(0.5, 1.5, args[0].shape[0], device=DEVICE)
+        modes = part_dist_modes(args, consts, ct, f"{w_mode} B={TRAINER_B}",
+                                times=False)
+        fns = {"fwd_grad_ms": lambda: part_dist_call("fwd_grad", *args,
+                                                     *consts),
+               "fwd_grad_v1_ms": lambda: part_dist_v1("fwd_grad", *args,
+                                                      *consts)}
+        runs = {k: [] for k in fns}
+        for k in list(fns) + list(fns)[::-1]:       # in turns: a, b, b, a
+            runs[k].append(device_ms(fns[k]))
+        row = {"w_mode": w_mode, "tiles": args[0].shape[0],
+               "err": {m: r["err"] for m, r in modes.items()},
+               **{k: float(np.mean(v)) for k, v in runs.items()},
+               **{f"{k}_runs": v for k, v in runs.items()}}
+        rows.append(row)
+        log(f"[part_dist] Trainer grid {row['tiles']} tiles {w_mode:9s} "
+            f"fwd_grad device ms {row['fwd_grad_ms']:.4f}"
+            f" {np.round(runs['fwd_grad_ms'], 4).tolist()} v1 "
+            f"{row['fwd_grad_v1_ms']:.4f} "
+            f"{np.round(runs['fwd_grad_v1_ms'], 4).tolist()}; errors "
+            f"{row['err']}")
+    r = rows[0]
+    require(r["fwd_grad_ms"] < r["fwd_grad_v1_ms"],
+            f"part_dist fwd_grad threshold at the Trainer's {r['tiles']} "
+            f"tiles: kernel {r['fwd_grad_ms']:.4f} device ms not faster than "
+            f"v1 {r['fwd_grad_v1_ms']:.4f}")
     return rows
 
 
@@ -930,7 +1050,8 @@ def reset_counts():
     from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
                                                        banded_gather_fwd)
     from semantichuman_torch.ops.csr_reduce import csr_reduce
-    from semantichuman_torch.ops.part_dist import part_dist_sums
+    from semantichuman_torch.ops.part_dist import (part_dist_sums,
+                                                   part_dist_v1)
     from semantichuman_torch.ops.row_gather import row_gather
     from semantichuman_torch.ops.spiral_conv import (spiral_conv,
                                                      spiral_conv_bwd_dw,
@@ -938,7 +1059,8 @@ def reset_counts():
                                                      spiral_conv_fwd_v1)
 
     for fn in (spiral_conv, spiral_conv_fwd_v1, spiral_conv_bwd_dw,
-               spiral_conv_bwd_dx, csr_reduce, banded_gather_fwd, banded_gather_bwd, row_gather):
+               spiral_conv_bwd_dx, csr_reduce, part_dist_v1,
+               banded_gather_fwd, banded_gather_bwd, row_gather):
         fn.launches = 0
     for mode in part_dist_sums.launches:
         part_dist_sums.launches[mode] = 0
@@ -948,7 +1070,8 @@ def read_counts() -> dict:
     from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
                                                        banded_gather_fwd)
     from semantichuman_torch.ops.csr_reduce import csr_reduce
-    from semantichuman_torch.ops.part_dist import part_dist_sums
+    from semantichuman_torch.ops.part_dist import (part_dist_sums,
+                                                   part_dist_v1)
     from semantichuman_torch.ops.row_gather import row_gather
     from semantichuman_torch.ops.spiral_conv import (spiral_conv,
                                                      spiral_conv_bwd_dw,
@@ -961,6 +1084,7 @@ def read_counts() -> dict:
             "spiral_conv_bwd_dx": spiral_conv_bwd_dx.launches,
             "csr_reduce": csr_reduce.launches,
             **{f"part_dist_{m}": n for m, n in part_dist_sums.launches.items()},
+            "part_dist_v1": part_dist_v1.launches,
             "banded_gather_fwd": banded_gather_fwd.launches,
             "banded_gather_bwd": banded_gather_bwd.launches,
             "row_gather": row_gather.launches}
@@ -1065,6 +1189,8 @@ def phase_train(human, hier):
     log(f"[train] {ms:.3f} ms/step, {TRAIN_B / ms * 1e3:.1f} meshes/s "
         f"(B={TRAIN_B} per segment, trunk batch {TRUNK_B})")
     prof = profile_steps(lambda: step(p, state, *segs, spec), ms)
+    prof["part_dist_vs_v1"] = step_part_dist_vs_v1(
+        lambda: step(p, state, *segs, spec))
 
     # --- bf16 trunk, one step --------------------------------------------------
     model16 = build_model(ModelConfig(trunk_dtype="bfloat16"), hier,
@@ -1082,23 +1208,99 @@ def phase_train(human, hier):
             "kernel_peak_gib": kernel_peak, "bf16_loss": loss16, **prof}
 
 
-def profile_steps(run, wall_ms: float, reps: int = 3) -> dict:
-    """Device time per step by kernel name (torch.profiler), and the share
-    of the unprofiled step time with no kernel running."""
+def device_by_name(run, reps: int, attempts: int = 3) -> dict:
+    """Device ms per call of run() by kernel name (torch.profiler); a
+    window that records no device activity is taken again, as in
+    device_ms ({} if every one is empty)."""
     from torch.profiler import ProfilerActivity, profile
+
+    by_name = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                by_name[e.name] = (by_name.get(e.name, 0.0)
+                                   + e.time_range.elapsed_us() / 1e3 / reps)
+        if by_name:
+            break
+    return by_name
+
+
+def step_part_dist_vs_v1(run, reps: int = 3) -> dict:
+    """The step's part_dist device ms (its two fwd_grad calls, profiled)
+    and its wall ms, through the kernel and with part_dist_v1 swapped in,
+    in turns (kernel, v1, v1, kernel), on the same parameters and batch.
+    The kernel must be faster on the device.  Outside the counted steps:
+    the main path never runs v1.  First one step records, per call, the
+    share of unordered pairs whose two Gram orders round otherwise."""
+    from semantichuman_torch.ops import part_dist as TP
 
     if DEVICE != "cuda":
         return {}
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    by_name = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            by_name[e.name] = (by_name.get(e.name, 0.0)
-                               + e.time_range.elapsed_us() / 1e3 / reps)
+    kernel_launch = TP._launch
+
+    def v1_launch(mode, *args, ct=None):
+        return TP.part_dist_v1(mode, *args, ct=ct)
+
+    shares = []
+
+    def capture_launch(mode, *args, ct=None):
+        vp, _rp, _bone, _a, n_real = args[:5]
+        n = n_real.double().repeat_interleave(vp.shape[0] // n_real.shape[0])
+        shares.append(float(TP.asymmetric_pairs(*args[:-1]).sum())
+                      / float((n * (n - 1) / 2).sum()))
+        return kernel_launch(mode, *args, ct=ct)
+
+    TP._launch = capture_launch
+    try:
+        run()
+    finally:
+        TP._launch = kernel_launch
+    runs = {k: [] for k in ("ms", "v1_ms", "wall_ms", "v1_wall_ms")}
+    try:
+        for v1 in (False, True, True, False):
+            TP._launch = v1_launch if v1 else kernel_launch
+            by_name = device_by_name(run, reps)
+            require(bool(by_name), "the profiler saw no device kernels in "
+                    "the step")
+            key = PROFILE_GROUPS["part_dist_v1" if v1 else "part_dist"]
+            runs["v1_ms" if v1 else "ms"].append(
+                sum(t for n, t in by_name.items() if key in n))
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            sync()
+            runs["v1_wall_ms" if v1 else "wall_ms"].append(
+                (time.perf_counter() - t0) * 1e3 / reps)
+    finally:
+        TP._launch = kernel_launch
+    out = {k: float(np.mean(v)) for k, v in runs.items()}
+    out.update({f"{k}_runs": v for k, v in runs.items()})
+    out["asymmetric_shares"] = shares
+    log(f"[profile] train step part_dist: shares of pairs whose two Gram "
+        f"orders round otherwise {np.round(shares, 4).tolist()}")
+    log(f"[profile] train step part_dist device ms: kernel {out['ms']:.4f} "
+        f"{np.round(runs['ms'], 4).tolist()}, v1 {out['v1_ms']:.4f} "
+        f"{np.round(runs['v1_ms'], 4).tolist()}; step wall ms kernel "
+        f"{out['wall_ms']:.3f} {np.round(runs['wall_ms'], 3).tolist()}, v1 "
+        f"{out['v1_wall_ms']:.3f} {np.round(runs['v1_wall_ms'], 3).tolist()}")
+    require(out["ms"] < out["v1_ms"], f"the step's part_dist: kernel "
+            f"{out['ms']:.4f} device ms not faster than v1 "
+            f"{out['v1_ms']:.4f}")
+    return out
+
+
+def profile_steps(run, wall_ms: float, reps: int = 3) -> dict:
+    """Device time per step by kernel name (torch.profiler), and the share
+    of the unprofiled step time with no kernel running."""
+    if DEVICE != "cuda":
+        return {}
+    by_name = device_by_name(run, reps)
     if not by_name:
         log("[profile] train: the profiler saw no device kernels; device "
             "time not measured")
@@ -1571,6 +1773,9 @@ def parse_args(argv):
                       help="phase 1 and the conv forward's phase 2 alone")
     mode.add_argument("--conv-backward", action="store_true",
                       help="phase 1 and the conv backward's phase alone")
+    mode.add_argument("--part-dist", action="store_true",
+                      help="phase 1 and the part_dist kernel's checks and "
+                      "times alone (phase 4's and phase 6's)")
     return p.parse_args(argv)
 
 
@@ -1618,6 +1823,12 @@ def main(argv=None) -> int:
             "dx_ms", "dx_unfused_ms", "bound_ms")}))
         log(card)
         return 0
+    if args.part_dist:
+        # the part_dist checks alone, for tuning its kernel: no result line
+        phase_part_dist(human)
+        phase_part_dist_trainer(human)
+        log(card)
+        return 0
 
     rows, max_err = phase_kernels(model)
     serve, serve_take, timing, timing_take = phase_serving(
@@ -1644,6 +1855,7 @@ def main(argv=None) -> int:
     pd_rows = phase_part_dist(human)
     banded_rows = phase_banded_kernels(model)
     conv_bwd_trainer = phase_conv_backward_trainer(model)
+    pd_trainer = phase_part_dist_trainer(human)
     torch.cuda.empty_cache()
     train = phase_train(human, hier)
     step_counts = train.pop("counts")
@@ -1746,13 +1958,24 @@ def main(argv=None) -> int:
             "replaces": f"{pallas}:{line}",
             **launches(f"part_dist_{mode}"),
             "max_abs_err": r["err"]["max_abs"],
-            # one call at 17 parts x B = 128, w_mode threshold
+            # one call at 17 parts x B = 128, w_mode threshold; each time
+            # the mean of the two readings in *_runs
             "ms": r["ms"],
             "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"],
             "bound_by": "operations",
             "library_ms": None,
+            # the yardstick: the port's first kernel (csrc/part_dist_v1.cu)
+            "v1_ms": r["v1_ms"],
+            "v1_runs": r["v1_ms_runs"],
+            "ms_runs": r["ms_runs"],
+            "v1_launches_by_path": launches("part_dist_v1")[
+                "launches_by_path"],
+            "masked_share": r["masked_share"],
+            "asymmetric_share": r["asymmetric_share"],
             "sin": pd[("sin", mode)],
+            "all_one": pd[("all_one", mode)],
+            "trainer_grid": pd_trainer if mode == "fwd_grad" else None,
         })
     banded_pallas = "semantichuman_tpu/ops/pallas/banded_gather_pallas.py"
     for row, name, key, source, replaces in (
@@ -1803,7 +2026,7 @@ def main(argv=None) -> int:
     # the take route, the B = 128 step; at trunk batch 12 the Trainer
     # reaches them at its four coarse convs only
     for k in KERNEL_COUNTS:
-        if k == "spiral_conv_fwd_v1":
+        if k in YARDSTICKS:
             # the yardstick: no main path reaches it
             require(all(c[k] == 0 for c in paths.values()),
                     f"{k} launched on a main path: {launches(k)}")

@@ -7,12 +7,14 @@
 //   mode 1  _fwd_grad_call (_fwd_grad_kernel): the sums and the unscaled
 //           gradient g0 = d(term sum)/d(rp), the one-pass VJP
 //   mode 2  _vjp_bwd       (_bwd_kernel):      drp = g0 * ct, recomputed
+// The port's first kernel for the same function stays, as the yardstick,
+// in csrc/part_dist_v1.cu.
 //
 // One tile is one (part, batch element): vp, rp [n_pad, 3] (GT and
 // reconstructed vertices of the part, rows >= n_real are padding), the
 // part's bone vector, the edit factor a and the part's uniform-weight flag.
 // For every ordered pair j != k of real rows:
-//   de0 = sqrt(relu(|v_j|^2 - 2 v_j.v_k + |v_k|^2))        (Gram form)
+//   de0 = sqrt(relu((|v_j|^2 - 2 v_j.v_k) + |v_k|^2))      (Gram form)
 //   cos = |(v_j - v_k).bone| / (de0 |bone|), 1 where de0 |bone| = 0
 //   w   = 1 (all_one or a uniform part), acos(cos) 2/pi (linear),
 //         that or 0 below w_threshold (threshold), sqrt(1 - cos^2) (sin)
@@ -22,47 +24,64 @@
 //   g = sign(q) w / de (relat) or sign(q) w;  coef = g / de_r, 0 where
 //       de_r = 0 (the Pallas kernel's guard, PARITY #19)
 //   g0[j] = 2 (rp_j sum_k coef[j,k] - sum_k coef[j,k] rp_k)
-// The angle uses acosf, and the plain PyTorch version torch.acos, in every
-// mode; the Pallas kernel's arcsin-Taylor acos and its fast-acos gate were
-// workarounds for Mosaic, which has no acos.  acosf agrees with arccos to
-// about 1 ulp, so the weights that survive the threshold agree with the
-// JAX package's arccos to ~1e-7 (PARITY #27).
-//
-// Bound on an H100 SXM: operations.  Only O(G n) bytes are read (vp, rp,
-// bone, a: ~2.5 MB at the training step's 2176 tiles of n_pad = 408) and
-// O(G) or O(G n) written, while every tile does n^2 pair evaluations:
-// 357.6 M ordered pairs per call at 17 parts x B = 128.  Each pair costs
-// two Gram-form distances (2 square roots), a bone projection, a divide
-// for cos, acosf (a square root and a polynomial), a divide for q and one
-// for coef, and ~10 FMAs for the gradient sums.  chip_smoke.py counts the
-// bound from this run's pairs.
 //
 // Rounding: every per-pair value is computed with the plain version's
 // operations in its order, and multiplies and adds are never contracted
-// into FMAs (__fmul_rn, __fadd_rn, __fsub_rn; sqrtf, divides and acosf
-// are correctly rounded or the same libdevice routine as torch's).  The
-// Gram form loses ~11 of f32's 24 bits for a mesh's nearest pairs, and
-// the loss is discontinuous (the threshold, the sign of q), so rounding
-// that differed would send a few pairs to the other side; this way both
-// versions make the same decision for every pair and differ only in the
-// order of the sums.
+// into FMAs (__fmul_rn, __fadd_rn, __fsub_rn; sqrtf and divides correctly
+// rounded, acosf the same libdevice routine as torch's).  The Gram form
+// loses ~11 of f32's 24 bits for a mesh's nearest pairs and the loss is
+// discontinuous (the mask, the threshold, the sign of q), so rounding that
+// differed would send a few pairs to the other side.  The plain version
+// (part_dist_plain) stays the reference for every decision; the kernel
+// differs from it only in the order of the sums.
 //
-// Design: no n x n matrix is stored anywhere.  One block (8 warps) takes
-// 32 rows of one tile.  It stages the tile's real rows of vp and rp, their
-// squared norms and their bone projections in shared memory (36 bytes a
-// vertex: 14.7 KB at n_pad = 408).  Each warp owns one row j at a time, its
-// lanes stride over k, and a fixed xor-shuffle tree reduces the row's sums,
-// so the row's owner writes g0[j] with no atomics.  Per-block (term, count)
-// partials go to scratch, and a second kernel adds them per tile in row
-// block order, so every result is the same from run to run.
+// acos only where it can matter (threshold mode).  The weight is zeroed
+// when w = fl(fl(acosf(c)) fl(2/pi)) < t.  acosf's maximum error is 2 ulp
+// (CUDA C++ Programming Guide, single-precision mathematical functions);
+// with the two roundings of the product, the computed w is within
+// 4.2e-7 w (relative) of (2/pi) acos(c).  The host passes c_skip, cos of
+// (pi/2) t (1 - 1e-4) computed in double and rounded up to float
+// (`_acos_skip_cos` in ops/part_dist.py): for c > c_skip, acos(c) <
+// (pi/2) t (1 - 1e-4), so the computed w < t (1 - 1e-4)(1 + 4.2e-7) < t and
+// the plain version zeroes it too.  The band is ~240 times wider than the
+// error needs.  Pairs at or below c_skip call acosf as the plain version
+// calls acos.
+//
+// Bound on an H100 SXM: operations (f32 issue on the CUDA cores, and the
+// SFU for square roots, reciprocals and acos).  Only O(G n) bytes are read
+// and written while every tile does n (n - 1) pair evaluations.
+//
+// Design: no n x n matrix is stored anywhere.  One block (4 or 8 warps,
+// the host's choice) takes 32 rows of one tile and stages the tile's real
+// rows of vp and rp, their squared norms and bone projections in shared
+// memory (36 bytes a vertex: 14.7 KB at n_pad = 408).  A warp owns one
+// row j at a time and its lanes take 32 columns k a step, so the lanes
+// share row j and nearby columns: their decisions (the acos band, the
+// mask) mostly agree, and a step whose lanes all fall past the band or
+// outside the mask skips that work.  A
+// fixed xor-shuffle tree reduces the row's sums, so the row's owner writes
+// g0[j] with no atomics; per-block (term, count) partials go to scratch
+// and a second kernel adds them per tile in row-block order, so every
+// result is the same from run to run.
+//
+// What was measured and left out (PERF.md, section 6): evaluating each
+// unordered pair once, where both Gram orders round alike and the rest
+// apart, built three ways (rows on a circulant schedule, 32 x 32 block
+// pairs with column sums passed lane to lane, a warp a row with per-warp
+// column sums), and queueing the pairs in the mask so that the
+// reconstruction's half runs on full warps.  On the training step's data
+// every one was slower than this layout: there ~11 % of the pairs' two
+// Gram orders round otherwise, and the second orders, evaluated apart, run
+// on warps whose lanes disagree.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
+constexpr int kMaxWarps = 8;
 constexpr int kRowsPerBlock = 32;
 constexpr float kTwoOverPi = 0.636619772367581343f;
+constexpr unsigned kFull = 0xffffffffu;
 
 enum WMode { W_ALL_ONE = 0, W_LINEAR = 1, W_SIN = 2, W_THRESHOLD = 3 };
 enum Mode { MODE_FWD = 0, MODE_FWD_GRAD = 1, MODE_BWD = 2 };
@@ -70,7 +89,7 @@ enum Mode { MODE_FWD = 0, MODE_FWD_GRAD = 1, MODE_BWD = 2 };
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
+    v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
@@ -100,14 +119,17 @@ __device__ __forceinline__ float sign_of(float v) {
 }
 
 template <int MODE>
-__global__ void __launch_bounds__(32 * kWarps)
-part_dist_kernel(const float* __restrict__ vp, const float* __restrict__ rp,
-                 const float* __restrict__ bone, const float* __restrict__ a,
-                 const int* __restrict__ n_real,
-                 const int* __restrict__ allone,
-                 const float* __restrict__ ct, float* __restrict__ partial,
-                 float* __restrict__ grad, int B, int n_pad, int w_mode,
-                 float w_threshold, int relat) {
+__global__ void __launch_bounds__(32 * kMaxWarps)
+part_dist_rows_kernel(const float* __restrict__ vp,
+                      const float* __restrict__ rp,
+                      const float* __restrict__ bone,
+                      const float* __restrict__ a,
+                      const int* __restrict__ n_real,
+                      const int* __restrict__ allone,
+                      const float* __restrict__ ct,
+                      float* __restrict__ partial, float* __restrict__ grad,
+                      int B, int n_pad, int w_mode, float w_threshold,
+                      float c_skip, int relat) {
   extern __shared__ float smem[];
   const int tile = blockIdx.y;
   const int rb = blockIdx.x;
@@ -143,9 +165,10 @@ part_dist_kernel(const float* __restrict__ vp, const float* __restrict__ rp,
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
   float term_w = 0.f, count_w = 0.f;      // this warp's sums (all lanes)
   const int j_end = min((rb + 1) * kRowsPerBlock, n_pad);
-  for (int j = rb * kRowsPerBlock + warp; j < j_end; j += kWarps) {
+  for (int j = rb * kRowsPerBlock + warp; j < j_end; j += warps) {
     if (j >= n) {                          // padding row: zero gradient
       if (MODE != MODE_FWD && lane < 3)
         grad[((size_t)tile * n_pad + j) * 3 + lane] = 0.f;
@@ -168,6 +191,8 @@ part_dist_kernel(const float* __restrict__ vp, const float* __restrict__ rp,
         c = fminf(c, 1.f);
         if (w_mode == W_SIN) {
           w = sqrtf(fmaxf(sub(1.f, mul(c, c)), 0.f));
+        } else if (w_mode == W_THRESHOLD && c > c_skip) {
+          w = 0.f;                 // below the threshold, past the band
         } else {
           w = mul(acosf(c), kTwoOverPi);
           if (w_mode == W_THRESHOLD && w < w_threshold) w = 0.f;
@@ -216,7 +241,7 @@ part_dist_kernel(const float* __restrict__ vp, const float* __restrict__ rp,
   }
   if (MODE == MODE_BWD) return;
 
-  __shared__ float red[2][kWarps];
+  __shared__ float red[2][kMaxWarps];
   term_w = warp_sum(term_w);
   count_w = warp_sum(count_w);
   if (lane == 0) {
@@ -226,7 +251,7 @@ part_dist_kernel(const float* __restrict__ vp, const float* __restrict__ rp,
   __syncthreads();
   if (threadIdx.x == 0) {
     float t = 0.f, c = 0.f;
-    for (int i = 0; i < kWarps; ++i) {
+    for (int i = 0; i < warps; ++i) {
       t += red[0][i];
       c += red[1][i];
     }
@@ -235,9 +260,10 @@ part_dist_kernel(const float* __restrict__ vp, const float* __restrict__ rp,
   }
 }
 
-__global__ void part_dist_finish_kernel(const float* __restrict__ partial,
-                                        float* __restrict__ sums, int G,
-                                        int n_rb) {
+// sums[tile] = the tile's row-block partials (term, count) in order
+__global__ void part_dist_rows_finish_kernel(const float* __restrict__ partial,
+                                             float* __restrict__ sums, int G,
+                                             int n_rb) {
   const int tile = blockIdx.x * blockDim.x + threadIdx.x;
   if (tile >= G) return;
   float t = 0.f, c = 0.f;
@@ -253,21 +279,23 @@ template <int MODE>
 int launch(const void* vp, const void* rp, const void* bone, const void* a,
            const void* n_real, const void* allone, const void* ct,
            void* partial, void* sums, void* grad, int G, int B, int n_pad,
-           int w_mode, float w_threshold, int relat, cudaStream_t st) {
+           int w_mode, float w_threshold, float c_skip, int relat, int warps,
+           cudaStream_t st) {
   const size_t smem = (size_t)n_pad * 9 * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      part_dist_kernel<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      part_dist_rows_kernel<MODE>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int n_rb = (n_pad + kRowsPerBlock - 1) / kRowsPerBlock;
-  part_dist_kernel<MODE><<<dim3(n_rb, G), 32 * kWarps, smem, st>>>(
+  part_dist_rows_kernel<MODE><<<dim3(n_rb, G), 32 * warps, smem, st>>>(
       static_cast<const float*>(vp), static_cast<const float*>(rp),
       static_cast<const float*>(bone), static_cast<const float*>(a),
       static_cast<const int*>(n_real), static_cast<const int*>(allone),
       static_cast<const float*>(ct), static_cast<float*>(partial),
-      static_cast<float*>(grad), B, n_pad, w_mode, w_threshold, relat);
+      static_cast<float*>(grad), B, n_pad, w_mode, w_threshold, c_skip,
+      relat);
   if (MODE != MODE_BWD)
-    part_dist_finish_kernel<<<(G + 127) / 128, 128, 0, st>>>(
+    part_dist_rows_finish_kernel<<<(G + 127) / 128, 128, 0, st>>>(
         static_cast<const float*>(partial), static_cast<float*>(sums), G,
         n_rb);
   return static_cast<int>(cudaGetLastError());
@@ -279,29 +307,34 @@ extern "C" {
 
 // Launches on `stream` and returns a CUDA error code (0 on success).  The
 // caller has checked shapes, types and contiguity, G <= 65535, and that
-// n_pad * 36 bytes fit a block's shared memory.  vp, rp [G, n_pad, 3],
-// bone [G, 3], a [G] float32 with tile g = part * B + b; n_real, allone
-// [G / B] int32; ct [G] (mode 2); partial [G, ceil(n_pad / 32), 2]
-// scratch; sums [G, 2] (modes 0, 1); grad [G, n_pad, 3] (modes 1, 2).
+// the tile's n_pad * 36 bytes fit a block's shared memory.  vp, rp [G,
+// n_pad, 3], bone [G, 3], a [G] float32 with tile g = part * B + b;
+// n_real, allone [G / B] int32; ct [G] (mode 2); partial [G, ceil(n_pad /
+// 32), 2] scratch; sums [G, 2] (modes 0, 1); grad [G, n_pad, 3] (modes 1,
+// 2).  c_skip: threshold mode's acos band (`_acos_skip_cos`); warps: a
+// block's, 1 .. 8 (`_rows_warps`).
 int sh_part_dist(const void* vp, const void* rp, const void* bone,
                  const void* a, const void* n_real, const void* allone,
                  const void* ct, void* partial, void* sums, void* grad, int G,
-                 int B, int n_pad, int w_mode, float w_threshold, int relat,
-                 int mode, void* stream) {
+                 int B, int n_pad, int w_mode, float w_threshold,
+                 float c_skip, int relat, int mode, int warps,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (warps < 1 || warps > kMaxWarps)
+    return static_cast<int>(cudaErrorInvalidValue);
   switch (mode) {
     case MODE_FWD:
       return launch<MODE_FWD>(vp, rp, bone, a, n_real, allone, ct, partial,
                               sums, grad, G, B, n_pad, w_mode, w_threshold,
-                              relat, st);
+                              c_skip, relat, warps, st);
     case MODE_FWD_GRAD:
       return launch<MODE_FWD_GRAD>(vp, rp, bone, a, n_real, allone, ct,
                                    partial, sums, grad, G, B, n_pad, w_mode,
-                                   w_threshold, relat, st);
+                                   w_threshold, c_skip, relat, warps, st);
     case MODE_BWD:
       return launch<MODE_BWD>(vp, rp, bone, a, n_real, allone, ct, partial,
                               sums, grad, G, B, n_pad, w_mode, w_threshold,
-                              relat, st);
+                              c_skip, relat, warps, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -46,8 +46,13 @@ SIGNATURES = {
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "part_dist": {
-        "sh_part_dist": ([_VOIDP] * 10 + [_INT] * 4 + [ctypes.c_float]
-                         + [_INT] * 2 + [_VOIDP], _INT),
+        "sh_part_dist": ([_VOIDP] * 10 + [_INT] * 4 + [ctypes.c_float] * 2
+                         + [_INT] * 3 + [_VOIDP], _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "part_dist_v1": {
+        "sh_part_dist_v1": ([_VOIDP] * 10 + [_INT] * 4 + [ctypes.c_float]
+                            + [_INT] * 2 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "banded_gather": {

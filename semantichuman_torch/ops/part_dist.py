@@ -8,8 +8,8 @@ come from the angle between each GT pair and the part's bone.  The exact
 formulas are in the kernel's note, `csrc/part_dist.cu`, and in
 `part_dist_plain`, which computes them with batched tensors.
 
-`part_dist_sums` is an autograd Function around three kernels that share
-one tile computation:
+`part_dist_sums` is an autograd Function around the three modes of one
+kernel (`csrc/part_dist.cu`), which share one tile computation:
   * "fwd"       sums only (no gradient needed);
   * "fwd_grad"  sums and the unscaled gradient g0 = d(term sum)/d(rp): the
                 one-pass VJP, the default, whose backward is g0 * ct;
@@ -17,7 +17,12 @@ one tile computation:
                 two-kernel VJP, `one_pass=False`).
 A CUDA tensor launches the kernel (counted in `part_dist_sums.launches`
 per mode); a CPU tensor runs `part_dist_plain`.  Gradients flow to rp
-only: GT vertices, bones and edit factors are data.
+only: GT vertices, bones and edit factors are data.  In threshold mode the
+kernel skips acos past a guard band (`_acos_skip_cos`).  The port's first
+kernel (`csrc/part_dist_v1.cu`) stays as the yardstick `part_dist_v1`,
+which no main path calls.  `asymmetric_pairs` counts the pairs whose two
+Gram orders round otherwise: the share that decided against evaluating
+each unordered pair once (the kernel's note).
 
 `fused_part_sums` groups parts into equal-n_pad buckets (`PartDistTables`)
 and makes one call per bucket.  A tile never holds an n x n matrix, so any
@@ -36,8 +41,13 @@ from .kernels import build
 
 W_MODES = {"all_one": 0, "linear": 1, "sin": 2, "threshold": 3}
 _MODES = {"fwd": 0, "fwd_grad": 1, "bwd": 2}
-# a block stages 9 floats per vertex; 227 KB of shared memory a block
+# both kernels stage 9 floats per vertex; 227 KB of shared memory a block
 MAX_N = (232448 - 1024) // 36
+# blocks of a call from which the kernel runs 4 warps a block, not 8: 16
+# per SM of an H100 SXM (132)
+_ROWS_WARPS_4_BLOCKS = 16 * 132
+# the threshold's guard band: relative margin on the cut angle
+_ACOS_BAND = 1e-4
 # tiles per chunk of the plain version: ~10 [chunk, n, n] float32 buffers
 _PLAIN_CHUNK_ELEMS = 1 << 24
 
@@ -53,15 +63,21 @@ def _dot3(a, b):
             + a[..., 2] * b[..., 2])
 
 
+def _gram_sums(x: torch.Tensor) -> torch.Tensor:
+    """[g, n, 3] -> [g, n, n] Gram sums (r_j - 2<x_j, x_k>) + r_k, before
+    the relu, rounded as the CUDA kernel rounds them (no matmul, no FMA).
+    Entry [j, k] and [k, j] differ in the last bit for a few pairs."""
+    r = _dot3(x, x)
+    inner = _dot3(x[:, :, None, :], x[:, None, :, :])
+    return r[:, :, None] - 2.0 * inner + r[:, None, :]
+
+
 def _pair_dist(x: torch.Tensor) -> torch.Tensor:
     """[g, n, 3] -> [g, n, n] squared distances, the Gram form
     relu(r_j - 2<x_j, x_k> + r_k) of the Pallas kernel's _pair_dists,
-    rounded as the CUDA kernel rounds it (no matmul, no FMA), so that both
-    versions put every pair on the same side of the threshold and of
-    q = 0."""
-    r = _dot3(x, x)
-    inner = _dot3(x[:, :, None, :], x[:, None, :, :])
-    return torch.relu(r[:, :, None] - 2.0 * inner + r[:, None, :])
+    rounded as the CUDA kernel rounds it, so that both versions put every
+    pair on the same side of the threshold and of q = 0."""
+    return torch.relu(_gram_sums(x))
 
 
 def _weights(vp, bone, n_real, allone, w_mode: str,
@@ -213,10 +229,62 @@ def _check(vp, rp, bone, a, n_real, allone, w_mode, ct) -> None:
         raise ValueError(f"{g} tiles exceed the kernel's grid limit 65535")
 
 
-def _launch(mode: str, vp, rp, bone, a, n_real, allone, w_mode: str,
-            w_threshold: float, relat: bool, ct=None):
-    """One kernel call; returns sums, (sums, g0) or drp like
-    part_dist_plain."""
+def _acos_skip_cos(w_threshold: float) -> float:
+    """The cosine above which threshold mode zeroes a weight without acos:
+    cos((pi/2) t (1 - _ACOS_BAND)) in double, rounded up to float32.  Any
+    c above it has acos(c) 2/pi below t by far more than acosf's 2 ulp and
+    the product's two roundings (the kernel's note), so the kernel and the
+    plain version agree that its weight is 0.  2 (never) where no weight
+    can fall below t; -1 (always) where every weight does."""
+    t = float(w_threshold)
+    if not t > 0.0:                    # t <= 0 or NaN: w < t never holds
+        return 2.0
+    angle = 0.5 * math.pi * t * (1.0 - _ACOS_BAND)
+    if angle >= 0.5 * math.pi:         # w <= 1 (1 + 4.2e-7) < t everywhere
+        return -1.0
+    c = np.float32(math.cos(angle))
+    if float(c) < math.cos(angle):
+        c = np.nextafter(c, np.float32(2.0))
+    return float(c)
+
+
+def asymmetric_pairs(vp, rp, bone, a, n_real, allone, w_mode: str,
+                     w_threshold: float) -> torch.Tensor:
+    """Per tile, the unordered pairs whose two orders round otherwise: the
+    Gram sums of vp differ, or the pair is in the mask and those of rp
+    differ.  [G] float32.  One evaluation cannot serve both orders of such
+    a pair; chip_smoke.py reports their share."""
+    g_all, n, _ = vp.shape
+    a_e, n_real_e, allone_e = _expand(a, n_real, allone, g_all)
+    out = vp.new_zeros(g_all)
+    idx = torch.arange(n, device=vp.device)
+    upper = idx[:, None] < idx[None, :]
+    for lo, hi in _chunks(g_all, n):
+        w, de0 = _weights(vp[lo:hi], bone[lo:hi], n_real_e[lo:hi],
+                          allone_e[lo:hi], w_mode, w_threshold)
+        mask = (w * (de0 * a_e[lo:hi, None, None])) != 0.0
+        sv, sr = _gram_sums(vp[lo:hi]), _gram_sums(rp[lo:hi])
+        apart = (sv != sv.transpose(1, 2)) \
+            | (mask & (sr != sr.transpose(1, 2)))
+        real = idx[None, :] < n_real_e[lo:hi, None]
+        live = upper[None] & real[:, :, None] & real[:, None, :]
+        out[lo:hi] = (apart & live).sum(dim=(1, 2)).float()
+    return out
+
+
+def _rows_warps(g: int, n_pad: int) -> int:
+    """Warps a block of the kernel (32 rows a block): 4 where the grid has
+    blocks enough to refill the card many times (the step's 17 x 128
+    tiles: more, smaller blocks share the SMs better), else 8 (the
+    Trainer's 17 x 4: fewer blocks, each finished sooner)."""
+    return 4 if g * -(-n_pad // 32) >= _ROWS_WARPS_4_BLOCKS else 8
+
+
+def _run(name: str, mode: str, vp, rp, bone, a, n_real, allone,
+         w_mode: str, w_threshold: float, relat: bool, ct=None):
+    """One call of the kernel `csrc/<name>.cu` (part_dist or part_dist_v1,
+    which take the same arguments but the acos band): (sums, (sums, g0)
+    or drp like part_dist_plain, whether a kernel was launched)."""
     if (ct is None) != (mode != "bwd"):
         raise ValueError("mode 'bwd' and only it takes the cotangent ct")
     _check(vp, rp, bone, a, n_real, allone, w_mode, ct)
@@ -225,8 +293,8 @@ def _launch(mode: str, vp, rp, bone, a, n_real, allone, w_mode: str,
         raise ValueError(f"tiles of {n_pad} rows exceed the kernel's "
                          f"shared-memory tile ({MAX_N})")
     dev = vp.device
-    n_rb = -(-n_pad // 32)
-    partial = torch.empty((g, n_rb, 2), dtype=torch.float32, device=dev)
+    partial = torch.empty((g, -(-n_pad // 32), 2), dtype=torch.float32,
+                          device=dev)
     sums = torch.empty((g, 2), dtype=torch.float32, device=dev)
     grad = (torch.empty((g, n_pad, 3), dtype=torch.float32, device=dev)
             if mode != "fwd" else sums)
@@ -236,19 +304,44 @@ def _launch(mode: str, vp, rp, bone, a, n_real, allone, w_mode: str,
     if partial.numel() == 0:               # no tiles or no rows: no pairs
         sums.zero_()
         grad.zero_()
-        return result
-    lib = build.load("part_dist")
+        return result, False
+    band = (_acos_skip_cos(w_threshold),) if name == "part_dist" else ()
+    warps = (_rows_warps(g, n_pad),) if name == "part_dist" else ()
+    lib = build.load(name)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sh_part_dist(
+        rc = getattr(lib, f"sh_{name}")(
             vp.data_ptr(), rp.data_ptr(), bone.data_ptr(), a.data_ptr(),
             n_real.data_ptr(), allone.data_ptr(), ct.data_ptr(),
             partial.data_ptr(), sums.data_ptr(), grad.data_ptr(), g,
             g // n_real.shape[0], n_pad, W_MODES[w_mode],
-            float(w_threshold), int(relat), _MODES[mode], stream)
-    build.check(lib, rc, f"part_dist {mode} kernel launch")
-    part_dist_sums.launches[mode] += 1
+            float(w_threshold), *band, int(relat), _MODES[mode], *warps,
+            stream)
+    build.check(lib, rc, f"{name} {mode} kernel launch")
+    return result, True
+
+
+def _launch(mode: str, *args, ct=None):
+    """One kernel call, counted; arguments and results as
+    part_dist_plain's."""
+    result, launched = _run("part_dist", mode, *args, ct=ct)
+    part_dist_sums.launches[mode] += int(launched)
     return result
+
+
+def part_dist_v1(mode: str, *args, ct=None):
+    """The port's first part_dist kernel (`csrc/part_dist_v1.cu`: no acos
+    band), the yardstick of the current one and counted in
+    `part_dist_v1.launches`; no main path calls it.  Arguments and results
+    as part_dist_call; a CPU tensor runs part_dist_plain."""
+    if args[0].device.type == "cpu":
+        return part_dist_plain(*args, mode=mode, ct=ct)
+    result, launched = _run("part_dist_v1", mode, *args, ct=ct)
+    part_dist_v1.launches += int(launched)
+    return result
+
+
+part_dist_v1.launches = 0
 
 
 def part_dist_call(mode: str, *args, ct=None):

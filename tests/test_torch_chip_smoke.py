@@ -15,18 +15,21 @@ CSRC = Path(__file__).resolve().parents[1] / "semantichuman_torch" / "csrc"
 def _kernels(source):
     """The __global__ functions of a CUDA source, by name."""
     chunks = (CSRC / source).read_text().split("__global__")[1:]
-    return [re.search(r"\n(\w+)\(", c).group(1) for c in chunks]
+    return [re.search(r"(\w+)\(", re.sub(r"__launch_bounds__\([^)]*\)",
+                                         "", c)).group(1) for c in chunks]
 
 
 @pytest.mark.parametrize("argv,mode", [
-    ([], (False, False)), (["--conv-forward"], (True, False)),
-    (["--conv-backward"], (False, True))])
+    ([], (False, False, False)), (["--conv-forward"], (True, False, False)),
+    (["--conv-backward"], (False, True, False)),
+    (["--part-dist"], (False, False, True))])
 def test_modes_parse(argv, mode):
     args = CS.parse_args(argv)
-    assert (args.conv_forward, args.conv_backward) == mode
+    assert (args.conv_forward, args.conv_backward, args.part_dist) == mode
 
 
 @pytest.mark.parametrize("argv", [["--conv-forward", "--conv-backward"],
+                                  ["--part-dist", "--conv-forward"],
                                   ["--conv"], ["extra"]])
 def test_modes_refuse_the_rest(argv):
     with pytest.raises(SystemExit):
@@ -48,6 +51,22 @@ def test_profile_groups_split_the_two_forward_kernels():
         assert [g for g, key in groups.items() if key in label] == [family]
 
 
+def test_profile_groups_split_the_two_part_dist_kernels():
+    """Every kernel of csrc/part_dist.cu falls in `part_dist` alone, and
+    every kernel of csrc/part_dist_v1.cu in `part_dist_v1` alone."""
+    new = _kernels("part_dist.cu")
+    old = _kernels("part_dist_v1.cu")
+    assert sorted(new) == ["part_dist_rows_finish_kernel",
+                           "part_dist_rows_kernel"]
+    assert sorted(old) == ["part_dist_v1_finish_kernel",
+                           "part_dist_v1_kernel"]
+    groups = CS.PROFILE_GROUPS
+    for name, family in [(n, "part_dist") for n in new] + \
+            [(n, "part_dist_v1") for n in old]:
+        label = f"void (anonymous namespace)::{name}<1>(float const*)"
+        assert [g for g, key in groups.items() if key in label] == [family]
+
+
 def test_launch_literals():
     """The conv forward's count per path is the new kernel's; v1 is
     counted and expected at 0 everywhere; at the Trainer's batch 12 every
@@ -60,9 +79,14 @@ def test_launch_literals():
     assert CS.TRAIN_LAUNCHES["spiral_conv_fwd"] == 4
     assert CS.TRAIN_LAUNCHES["spiral_conv_bwd_dx"] == 0
     assert CS.TRAIN_LAUNCHES["csr_reduce"] == 7 + 4
+    assert set(CS.YARDSTICKS) == {"spiral_conv_fwd_v1", "part_dist_v1"}
+    assert set(CS.YARDSTICKS) <= set(CS.KERNEL_COUNTS)
+    assert CS.STEP_LAUNCHES["part_dist_fwd_grad"] == 2
+    assert CS.TRAIN_LAUNCHES["part_dist_fwd_grad"] == 2
     for table in (CS.STEP_LAUNCHES, CS.TRAIN_LAUNCHES,
                   *CS.SERVE_LAUNCHES.values()):
-        assert CS.expect(table)["spiral_conv_fwd_v1"] == 0
+        for k in CS.YARDSTICKS:
+            assert CS.expect(table)[k] == 0
 
 
 def _trainer_batches():

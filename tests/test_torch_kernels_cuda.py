@@ -152,11 +152,16 @@ def test_spiral_conv_backward_matches_plain(cuda, shape, dtype, activation):
                                        atol=1e-5 * float(r.abs().max()))
 
 
-def _part_case(n_reals, n_pad, batch, device, seed=0):
+def _part_case(n_reals, n_pad, batch, device, seed=0, spread=False):
+    """Random tiles; with `spread` the reconstruction sits away from the
+    origin, as early training's does, where its Gram sums cancel more."""
     rng = np.random.default_rng(seed)
     p = len(n_reals)
     vp = rng.uniform(-0.5, 0.5, (p * batch, n_pad, 3)).astype(np.float32)
     rp = (vp + rng.normal(0, 0.02, vp.shape)).astype(np.float32)
+    if spread:
+        rp = (0.2 * vp + rng.normal(0, 0.05, vp.shape) + 0.4).astype(
+            np.float32)
     bone = rng.normal(0, 0.3, (p * batch, 3)).astype(np.float32)
     a = rng.uniform(0.8, 1.2, (p, batch)).astype(np.float32)
     n_real = np.asarray(n_reals, np.int32)
@@ -165,38 +170,75 @@ def _part_case(n_reals, n_pad, batch, device, seed=0):
             for t in (vp, rp, bone, a, n_real, allone)]
 
 
+# (n_reals, n_pad, batch, spread): ragged parts; the step's bucket, also
+# with a spread reconstruction (many pairs' two Gram orders round
+# otherwise); a tile of 1100 rows; one tile (G = 1); n_real 1, 2, odd and
+# even; the Trainer's grid (17 parts x B = 4 = 68); 192 tiles of 408 rows
+# (a grid large enough for 4 warps a block, `_rows_warps`)
+PART_CASES = [((40, 33, 17), 40, 3, False), ((406, 405), 408, 4, False),
+              ((406, 405), 408, 96, False),
+              ((406, 405), 408, 4, True), ((1100,), 1104, 1, False),
+              ((408,), 408, 1, False), ((1, 2, 7, 8), 8, 2, False),
+              ((406, 405, 408) * 5 + (405, 406), 408, 4, False)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w_mode,relat", [("threshold", True),
                                           ("linear", False), ("sin", True),
                                           ("all_one", True)])
-@pytest.mark.parametrize("n_reals,n_pad,batch", [((40, 33, 17), 40, 3),
-                                                 ((406, 405), 408, 4),
-                                                 ((800,), 800, 1)])
-def test_part_dist_kernels_match_plain(cuda, n_reals, n_pad, batch, w_mode,
-                                       relat):
+@pytest.mark.parametrize("n_reals,n_pad,batch,spread", PART_CASES)
+def test_part_dist_kernels_match_plain(cuda, n_reals, n_pad, batch, spread,
+                                       w_mode, relat):
     """The three part_dist kernels (fwd, fwd_grad, bwd) against their
     plain versions, which round every per-pair value alike: counts equal,
     term sums rtol 1e-5 and gradients to 1e-4 of the largest entry (sums
-    in another order).  One counted launch each."""
+    in another order).  One counted launch each; two runs bit-equal; the
+    v1 kernel counts alike."""
     from semantichuman_torch.ops import part_dist as TP
-    args = _part_case(n_reals, n_pad, batch, cuda) + [w_mode, 0.8, relat]
+    args = _part_case(n_reals, n_pad, batch, cuda, spread=spread) \
+        + [w_mode, 0.8, relat]
     ct = torch.linspace(0.5, 1.5, args[0].shape[0], device=cuda)
     before = dict(TP.part_dist_sums.launches)
-    sums = TP.part_dist_call("fwd", *args)
+    sums = TP._launch("fwd", *args)
     sums2, g0 = TP.part_dist_call("fwd_grad", *args)
     drp = TP.part_dist_call("bwd", *args, ct=ct)
+    again = TP.part_dist_call("fwd_grad", *args)
     ref_sums, ref_g0 = TP.part_dist_plain(*args, mode="fwd_grad")
     ref_drp = TP.part_dist_plain(*args, mode="bwd", ct=ct)
+    v1_before = TP.part_dist_v1.launches
+    v1_sums = TP.part_dist_v1("fwd", *args)
     torch.cuda.synchronize()
-    for mode in ("fwd", "fwd_grad", "bwd"):
-        assert TP.part_dist_sums.launches[mode] == before[mode] + 1
+    for mode, extra in (("fwd", 1), ("fwd_grad", 2), ("bwd", 1)):
+        assert TP.part_dist_sums.launches[mode] == before[mode] + extra
+    assert TP.part_dist_v1.launches == v1_before + 1
     for s in (sums, sums2):
         torch.testing.assert_close(s[:, 0], ref_sums[:, 0], rtol=1e-5,
                                    atol=0)
         assert torch.equal(s[:, 1], ref_sums[:, 1])
+    assert torch.equal(v1_sums[:, 1], ref_sums[:, 1])
     for g, r in ((g0, ref_g0), (drp, ref_drp)):
         torch.testing.assert_close(g, r, rtol=0,
                                    atol=1e-4 * float(r.abs().max()))
+    assert torch.equal(again[0], sums2) and torch.equal(again[1], g0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("thr", [0.05, 0.3, 0.5, 0.95])
+def test_part_dist_band_keeps_the_counts(cuda, thr):
+    """Threshold mode at other thresholds than the step's: the kernel's
+    acos band zeroes exactly the weights the plain version zeroes (counts
+    equal), and its sums and gradient agree as in
+    test_part_dist_kernels_match_plain."""
+    from semantichuman_torch.ops import part_dist as TP
+    args = _part_case((406, 405), 408, 4, cuda, seed=1) \
+        + ["threshold", thr, True]
+    sums, g0 = TP.part_dist_call("fwd_grad", *args)
+    ref_sums, ref_g0 = TP.part_dist_plain(*args, mode="fwd_grad")
+    torch.cuda.synchronize()
+    assert torch.equal(sums[:, 1], ref_sums[:, 1])
+    torch.testing.assert_close(sums[:, 0], ref_sums[:, 0], rtol=1e-5, atol=0)
+    torch.testing.assert_close(g0, ref_g0, rtol=0,
+                               atol=1e-4 * float(ref_g0.abs().max()))
 
 
 @pytest.mark.cuda
