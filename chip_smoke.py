@@ -26,11 +26,13 @@ run:
    set to 0 just before; require per forward, by route (SERVE_LAUNCHES):
    at B <= 16 five banded convs and four banded unpools (9 banded-gather
    forwards, 8 fix-up row gathers) and 4 spiral-conv launches, at B = 64
-   nine spiral-conv launches and the four banded unpools (3 row gathers);
+   nine spiral-conv launches and the four banded unpools (3 row gathers),
+   and at every batch the encode's 6 row gathers (4 pools, 2 heads);
    finite outputs, exactly zero dummy rows, and agreement (atol 1e-4) with
    the same model run through the plain conv on the card and with the
-   same params exported with banded_conv off (9 spiral-conv launches).
-   Then time both bundles.
+   same params exported with banded_conv off (9 spiral-conv launches, 10
+   row gathers: the unpools' weighted taps too).  Then time both
+   bundles.
 
 4. training kernels, at the training step's full-width shapes (trunk
    batch 384 = three segments of B = 128): the spiral conv's backward
@@ -41,7 +43,14 @@ run:
    beside the unfused route (torch matmuls around the [B, V1, S*C]
    buffers and csr_reduce), whole and half by half, the routes in turns
    (a, b, b, a) with both readings kept; csr_reduce
-   against its plain version and `index_add_`; the part_dist kernel
+   against its plain version and `index_add_`; the row gather
+   (`csrc/row_gather.cu`, row 7) at the step's gathers (the four unpools
+   and pool L0 at 384, the face gather at 128; float32 and bfloat16)
+   against its plain version (copies bit-equal, weighted sums within 2e-6
+   of the largest entry, two runs bit-equal) beside index_select or
+   embedding_bag and its byte bound, and csr_reduce weighted at the
+   unpools' backward shapes (1e-5 of the largest entry) beside
+   `index_add_`; the part_dist kernel
    (`csrc/part_dist.cu`, modes fwd, fwd_grad, bwd) against its plain
    versions and against the port's first part_dist kernel
    (`part_dist_v1`, `csrc/part_dist_v1.cu`, the yardstick) at 17 parts x
@@ -57,16 +66,20 @@ run:
    plain versions (plain conv, autograd of the plain distance sums) must
    agree; then 10 steps with the launch counts set to 0 just before:
    finite losses and, per step (STEP_LAUNCHES), 9 conv forward, 9 dW, 7
-   dx and 1 csr_reduce launches (the first conv's input is data, so 8
-   convs ask for dx; the 64 -> 128 conv's takes the unfused route, whose
-   reduction is the csr_reduce launch) and 2 part_dist fwd_grad launches
-   (0 fwd, 0 bwd).  Then ms/step, meshes/s
+   dx launches (the first conv's input is data, so 8 convs ask for dx;
+   the 64 -> 128 conv's takes the unfused route, whose reduction is one
+   csr_reduce), 21 row gathers (encode 6, the take route's 4 unpools, the
+   loss's 11) and a csr_reduce for each of the 16 with a gradient, and 2
+   part_dist fwd_grad launches (0 fwd, 0 bwd).  Then ms/step, meshes/s
    (128 per step, as bench.py counts), the device idle share, the top
-   kernels (torch.profiler), and the step's part_dist device ms through
+   kernels and the device ms by family (torch.profiler: the index_add_
+   family must be 0), the step's part_dist device ms through
    the kernel against the same steps with part_dist_v1 swapped in, in
    turns (the kernel must be faster), with the share of the step's pairs
-   whose two Gram orders round otherwise; one bf16-trunk step (finite
-   loss).
+   whose two Gram orders round otherwise; the step with its gathers
+   swapped back to index_select and autograd against the kernels, in
+   turns (ms/step and device ms by family, no gate); one bf16-trunk step
+   (finite loss).
    At trunk batch 384 no banded route engages: 0 banded launches.
 6. banded kernels, at the trainer's shapes (trunk batch 12 = three
    segments of B = 4, the bundled topology's band tables): every banded
@@ -89,31 +102,36 @@ run:
    lr 1e-3, banded_conv on) on synthetic SMPL-scale data (64 train, 16
    test meshes), full width, 3 epochs with the launch counts set to 0 just
    before fit(): finite falling epoch losses and per step (TRAIN_LAUNCHES)
-   9 banded-gather forwards, 8 backwards, 8 row gathers, 4 spiral-conv
-   forwards, 2 part_dist fwd_grad, and for the four coarse convs on the
-   take route (enc L2, enc L3, dec L3, dec L2) 4 dW launches and 0 dx (at
-   batch <= 16 every dx half takes the unfused route), and 11 csr_reduce
-   (the 7 fix-up gathers' backwards and the 4 unfused dx); plus 9/8/4
-   forward launches per validation pass.  The v1 forward and part_dist
-   kernels launch on no main path.
-   fit() runs as a user's does, with torch's default algorithms.  Four
-   runs resumed from its epoch-2 checkpoint, banded_conv on, off, off, on,
-   repeat epoch 3: its train loss to rtol 1e-2 (atomics make the
-   comparison chaotic, see phase_trainer), and per route ms/step (the
-   median of both runs' epoch-3 steps, a synchronize after each step),
-   meshes/s (4 a step), s/epoch, the idle share and top kernels; evaluate
-   once (finite l1 and mm).  The exact gate runs under torch's
-   deterministic algorithms: a second fit() there, and two runs resumed
-   from its epoch-2 checkpoint, banded_conv on and off, held to its epoch
-   3 (train loss to rtol 1e-4 banded, 1e-3 take).
+   9 banded-gather forwards, 8 backwards, 25 row gathers (8 fix-ups, the
+   encode's 6, the loss's 11), 4 spiral-conv forwards, 2 part_dist
+   fwd_grad, and for the four coarse convs on the take route (enc L2, enc
+   L3, dec L3, dec L2) 4 dW launches and 0 dx (at batch <= 16 every dx
+   half takes the unfused route), and 23 csr_reduce (the 7 fix-up
+   gathers' backwards, the 4 unfused dx, the 12 other gathers with a
+   gradient), one row gather and one csr_reduce fewer on a step whose
+   skeleton exchange drew 'm' (no volume term); plus 9/8/4 forward
+   launches and 15 row gathers per validation pass.  The v1 forward and part_dist kernels launch on no
+   main path.  fit() runs as a user's does, with torch's default
+   algorithms, and a second fit() from the same seed must give its epoch
+   losses and final parameters bit for bit.  Four runs resumed from its
+   epoch-2 checkpoint, banded_conv on, off, off, on, repeat epoch 3: its
+   train loss to rtol 1e-4 (banded) and 1e-3 (take), and per route
+   ms/step (the median of both runs' epoch-3 steps, a synchronize after
+   each step), meshes/s (4 a step), s/epoch, the idle share, top kernels
+   and families (the index_add_ family must be 0); evaluate once (finite
+   l1 and mm).  The same resume gate runs again under torch's
+   deterministic algorithms: a fit() there, and two runs resumed from its
+   epoch-2 checkpoint, banded_conv on and off (rtol 1e-4 banded, 1e-3
+   take).
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
 before printing any result.  `python3 chip_smoke.py --conv-forward` runs
 phase 1 and phase 2 alone, `--conv-backward` phase 1 and phase 4's conv
 backward alone, each with a per-kernel profile, `--part-dist` phase 1 and
-the part_dist checks of phases 4 and 6, for tuning those kernels: they
-print no result line and are no gate.
+the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
+row gather's and weighted csr_reduce's checks of phase 4, for tuning
+those kernels: they print no result line and are no gate.
 """
 
 from __future__ import annotations
@@ -155,30 +173,63 @@ KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_fwd_v1",
                  "row_gather")
 # the yardsticks: counted, and 0 on every main path
 YARDSTICKS = ("spiral_conv_fwd_v1", "part_dist_v1")
+# row gathers (`ops/row_gather.py:gather_rows`, the row_gather kernel) of
+# one encode: the 4 pools and the part and keypoint heads; all but the
+# keypoint head's (its input is data) take a gradient, whose backward is
+# one csr_reduce each.  Unpool adds 4 on the take route; on the banded
+# route it adds its fix-up gathers instead.
+ENCODE_GATHERS, ENCODE_GATHER_GRADS = 6, 5
+UNPOOL_GATHERS = 4
+# the loss's row gathers per step: the keypoint targets of the rec and
+# interp segments (2, data), the faces of edgereg and volume (2), the
+# non-leaf |z| (1), the two keypoint-consistency terms (2) and the part
+# buckets of GT and reconstruction in the distance loss's two calls (4);
+# the 7 on the reconstruction or z take a gradient
+LOSS_GATHERS, LOSS_GATHER_GRADS = 11, 7
 # launches per forward of the default model, by route: at B <= 16 the
 # convs at levels 0-1 (5 of 9) and the four unpools take the banded route;
 # every banded call but unpool 4->3 (no out-of-band taps) adds a fix-up
-# row gather.  At 16 < B <= 128 only the unpools do.
+# row gather (8).  At 16 < B <= 128 only the unpools do (3).
 SERVE_LAUNCHES = {
-    "small": {"spiral_conv_fwd": 4, "banded_gather_fwd": 9, "row_gather": 8},
-    "large": {"spiral_conv_fwd": 9, "banded_gather_fwd": 4, "row_gather": 3},
-    "take": {"spiral_conv_fwd": 9},
+    "small": {"spiral_conv_fwd": 4, "banded_gather_fwd": 9,
+              "row_gather": ENCODE_GATHERS + 8},
+    "large": {"spiral_conv_fwd": 9, "banded_gather_fwd": 4,
+              "row_gather": ENCODE_GATHERS + 3},
+    "take": {"spiral_conv_fwd": 9,
+             "row_gather": ENCODE_GATHERS + UNPOOL_GATHERS},
 }
+# a Trainer step whose skeleton exchange draws 'm' (exc_mode 'ori_or_m'
+# draws 'ori' or 'm' each step) has no volume term: one face gather and
+# its backward fewer than TRAIN_LAUNCHES counts
+M_VARIANT_FEWER = {"row_gather": 1, "csr_reduce": 1}
+# a Trainer validation batch (16 meshes): the "small" forward and the eval
+# step's keypoint gather
+VAL_LAUNCHES = dict(SERVE_LAUNCHES["small"],
+                    row_gather=SERVE_LAUNCHES["small"]["row_gather"] + 1)
 # launches per Trainer step at trunk batch 12: the forward as "small"
-# above; backward through 8 banded calls (all but the first conv, whose
-# input is data) and their 7 fix-up gathers' backward through csr_reduce;
-# the loss's two part_dist fwd_grad calls; the 4 take-route convs' backward
-# (enc L2, enc L3, dec L3, dec L2) launches 4 dW, and their 4 dx halves take
-# the unfused route at batch <= 16: 4 csr_reduce more.
+# above plus the loss's gathers; backward through 8 banded calls (all but
+# the first conv, whose input is data) and their 7 fix-up gathers'
+# backward through csr_reduce; the loss's two part_dist fwd_grad calls;
+# the 4 take-route convs' backward (enc L2, enc L3, dec L3, dec L2)
+# launches 4 dW, and their 4 dx halves take the unfused route at batch
+# <= 16: 4 csr_reduce more; and one csr_reduce per gather with a gradient.
 TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
                   "spiral_conv_bwd_dx": 0, "banded_gather_fwd": 9,
-                  "banded_gather_bwd": 8, "row_gather": 8, "csr_reduce": 11,
+                  "banded_gather_bwd": 8,
+                  "row_gather": ENCODE_GATHERS + 8 + LOSS_GATHERS,
+                  "csr_reduce": 7 + 4 + ENCODE_GATHER_GRADS
+                  + LOSS_GATHER_GRADS,
                   "part_dist_fwd_grad": 2}
 # launches per B = 128 training step (trunk batch 384, no banded route):
 # nine convs forward and their dW; dx for all but the first, whose input
-# is data, the 64 -> 128 conv's on the unfused route (one csr_reduce)
+# is data, the 64 -> 128 conv's on the unfused route (one csr_reduce); the
+# encode's, the four take-route unpools' and the loss's row gathers, and
+# one csr_reduce per gather with a gradient
 STEP_LAUNCHES = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
-                 "spiral_conv_bwd_dx": 7, "csr_reduce": 1,
+                 "spiral_conv_bwd_dx": 7,
+                 "row_gather": ENCODE_GATHERS + UNPOOL_GATHERS + LOSS_GATHERS,
+                 "csr_reduce": 1 + ENCODE_GATHER_GRADS + UNPOOL_GATHERS
+                 + LOSS_GATHER_GRADS,
                  "part_dist_fwd_grad": 2}
 # H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
@@ -200,8 +251,11 @@ PROFILE_GROUPS = {"conv_fwd": "sc_fwd_",
                   "conv_bwd_dx_long": "dx_long_",
                   "csr_reduce": "csr_", "part_dist": "part_dist_rows_",
                   "part_dist_v1": "part_dist_v1_",
+                  "row_gather": "gather_copy_kernel",
+                  "row_gather_sum": "gather_sum_kernel",
                   "gemm": "gemm", "index_add": "indexFunc",
-                  "index_select": "index_elementwise",
+                  "index_select": "indexSelect",
+                  "index_elementwise": "index_elementwise",
                   "scatter_gather": "_scatter_gather"}
 
 
@@ -232,13 +286,14 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
+def device_ms(fn, iters: int = 20, attempts: int = 5) -> float:
     """Device time per call of fn(): the summed durations of every kernel
     and copy that `iters` calls ran (torch.profiler), over iters.  Unlike
     time_ms it leaves out the host: back-to-back calls of a kernel of a
     few microseconds are paced by the host's launch rate, not the card.
-    A profiling window that records no device activity (seen once in
-    some thirty windows on the chip machine) is taken again."""
+    A profiling window that records no device activity (seen now and then
+    on the chip machine, once three in a row) is taken again, with twice
+    the calls each time."""
     from torch.profiler import ProfilerActivity, profile
 
     if DEVICE != "cuda":
@@ -255,6 +310,7 @@ def device_ms(fn, iters: int = 20, attempts: int = 3) -> float:
                  if e.device_type == torch.autograd.DeviceType.CUDA)
         if us > 0:
             return us / 1e3 / iters
+        iters *= 2
     raise SmokeFailure(f"the profiler saw no device time in {attempts} "
                        "windows")
 
@@ -803,6 +859,157 @@ def phase_csr_reduce(model):
     return rows
 
 
+def gather_calls(model, tables):
+    """(label, batch, source rows, gather table, C) of row 7's main-path
+    calls at the training step's shapes: the four take-route unpools at
+    trunk batch 384 (T = 3, weighted; the width entering each level), the
+    level-0 pool at 384 (C = 16) and the edgereg face gather on B = 128
+    reconstructions (C = 3)."""
+    t = model.tables
+    calls = []
+    for lvl in range(t.n_levels - 2, -1, -1):
+        c = next(cin for lv, cin, _co, _a in model.dec_plan if lv == lvl)
+        calls.append((f"unpool {lvl + 1}->{lvl}", TRUNK_B,
+                      t.sizes[lvl + 1] + 1, t.unpool_gather[lvl], c))
+    c0 = [co for lv, _ci, co, _a in model.enc_plan if lv == 0][-1]
+    calls.append(("pool 0->1", TRUNK_B, t.sizes[0] + 1, t.pool_gather[0],
+                  c0))
+    calls.append(("faces", TRAIN_B, t.sizes[0], tables.faces, 3))
+    return calls
+
+
+def gather_bound_ms(table, b: int, c: int, es: int) -> float:
+    """Row 7's byte bound: each distinct source row read once, each output
+    written once, and the index and weights read once."""
+    n_read = int(torch.unique(table.idx).numel())
+    taps = table.taps
+    nbytes = (b * (n_read + table.n_rows) * c * es
+              + table.n_rows * taps * 4 * (2 if table.w is not None else 1))
+    return nbytes / PEAK_BYTES * 1e3
+
+
+def gather_library(x, table):
+    """One PyTorch call of the same function, its inputs prepared before:
+    index_select at T = 1; at T = 3 embedding_bag (mode sum with the taps'
+    weights as per-sample weights) over x viewed as [B*N, C], with the
+    index offset per batch element."""
+    b, n, c = x.shape
+    if table.taps == 1 and table.w is None:
+        idx = table.idx.long()
+        return lambda: x.index_select(1, idx)
+    if table.taps == 1:
+        return None
+    off = (torch.arange(b, device=x.device) * n)[:, None, None]
+    bags = (table.idx.long()[None] + off).reshape(-1, table.taps)
+    psw = table.w.repeat(b, 1)
+    flat = x.reshape(b * n, c)
+    return lambda: torch.nn.functional.embedding_bag(
+        bags, flat, per_sample_weights=psw, mode="sum")
+
+
+def phase_gather_rows(model, tables):
+    """Row 7 at the step's shapes (gather_calls), float32 and bfloat16:
+    the kernel against its plain version, copies bit-equal and weighted
+    sums within 2e-6 of the plain version's largest entry (both round each
+    product and sum in tap order), two runs bit-equal.  Device times
+    (device_ms) of the kernel, the plain version and, in float32, the
+    library call (gather_library), beside the byte bound.  Then row 8
+    weighted at the unpools' backward shapes (the transposes of their
+    taps, [384, V_f+1, C] float32 cotangents) against its plain version
+    (1e-5 of the largest entry, two runs bit-equal), timed beside
+    `index_add_` of the pre-weighted taps."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    from semantichuman_torch.ops import row_gather as RG
+
+    gen = torch.Generator(device=DEVICE).manual_seed(6)
+    rows, bwd_rows = [], []
+    for label, b, n, table, c in gather_calls(model, tables):
+        x32 = torch.randn((b, n, c), generator=gen, device=DEVICE)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = x32.to(dtype)
+            tag = f"{label} B={b} C={c} {str(dtype).split('.')[-1]}"
+
+            def kernel():
+                return RG.gather_rows_fwd(x, table.idx, table.w)
+
+            def plain():
+                return RG.gather_rows_plain(x, table.idx, table.w)
+
+            got, again, ref = kernel(), kernel(), plain()
+            sync()
+            require(torch.equal(got, again), f"gather {tag}: runs differ")
+            weighted = table.w is not None or table.taps > 1
+            if weighted:
+                torch.testing.assert_close(
+                    got.float(), ref.float(), rtol=2e-6,
+                    atol=2e-6 * float(ref.float().abs().max()),
+                    msg=lambda m: f"gather {tag}: {m}")
+            else:
+                require(torch.equal(got, ref), f"gather {tag}: not equal")
+            row = {"call": label, "batch": b, "c": c, "taps": table.taps,
+                   "weighted": table.w is not None,
+                   "dtype": str(dtype).split(".")[-1],
+                   "max_abs_err": float((got.float() - ref.float())
+                                        .abs().max()),
+                   "ms": device_ms(kernel), "plain_ms": device_ms(plain),
+                   "bound_ms": gather_bound_ms(table, b, c,
+                                               x.element_size()),
+                   "bound_by": "bytes", "library_ms": None}
+            lib = gather_library(x, table) if dtype == torch.float32 \
+                else None
+            if lib is not None:
+                torch.testing.assert_close(
+                    lib().reshape(got.shape), ref, rtol=1e-5,
+                    atol=1e-5 * float(ref.abs().max()))
+                row["library_ms"] = device_ms(lib)
+            rows.append(row)
+            log(f"[gather] {tag:34s} err={row['max_abs_err']:.3e} device ms"
+                f" kernel {row['ms']:.4f} plain {row['plain_ms']:.4f} "
+                f"library {row['library_ms']} bound {row['bound_ms']:.4f} "
+                f"({100 * row['bound_ms'] / row['ms']:.0f} % of it)")
+            del got, again, ref, x
+        if table.w is not None:
+            # row 8 weighted: the transpose of the taps
+            g = torch.randn((b, table.n_rows, c), generator=gen,
+                            device=DEVICE)
+
+            def reduce():
+                return TR.csr_reduce(g, table.inverse, table.inv_w)
+
+            got, again = reduce(), reduce()
+            ref = TR.csr_reduce_plain(g, table.inverse, table.inv_w)
+            sync()
+            require(torch.equal(got, again), f"csr weighted {label}: runs "
+                    "differ")
+            torch.testing.assert_close(
+                got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()),
+                msg=lambda m: f"csr weighted {label}: {m}")
+            flat = table.idx.reshape(-1).long()
+            gw = g.repeat_interleave(table.taps, dim=1) \
+                * table.w.reshape(-1)[None, :, None]
+            nnz = flat.numel()
+            nbytes = (g.numel() * 4 + b * n * c * 4
+                      + (n + 1 + 2 * nnz) * 4)
+            brow = {"call": label, "batch": b, "c": c,
+                    "max_abs_err": float((got - ref).abs().max()),
+                    "ms": device_ms(reduce),
+                    "plain_ms": device_ms(lambda: TR.csr_reduce_plain(
+                        g, table.inverse, table.inv_w)),
+                    "library_ms": device_ms(lambda: torch.zeros(
+                        (b, n, c), device=DEVICE).index_add_(1, flat, gw)),
+                    "bound_ms": nbytes / PEAK_BYTES * 1e3,
+                    "bound_by": "bytes"}
+            bwd_rows.append(brow)
+            log(f"[csr] weighted {label} [{b}, {table.n_rows}, {c}] "
+                f"err={brow['max_abs_err']:.3e} device ms kernel "
+                f"{brow['ms']:.4f} plain {brow['plain_ms']:.4f} index_add_ "
+                f"{brow['library_ms']:.4f} bound {brow['bound_ms']:.4f}")
+            del g, got, again, ref, gw
+        del x32
+    torch.cuda.empty_cache()
+    return rows, bwd_rows
+
+
 def part_dist_case(human, w_mode, batch: int = TRAIN_B):
     """The interp-branch inputs of the part_dist kernels at `batch` (the
     step's 128 or the Trainer's 4): one bucket of 17 parts (n_pad 408), as
@@ -831,8 +1038,8 @@ def part_dist_case(human, w_mode, batch: int = TRAIN_B):
         1, bk["part_ids"]).t().contiguous()
     bone = bones.index_select(1, bk["part_ids"]).transpose(0, 1) \
         .reshape(pc * batch, 3).contiguous()
-    return (_stack_parts(tx_t, bk["idx_flat"], pc, 408),
-            _stack_parts(rec_t, bk["idx_flat"], pc, 408), bone, a,
+    return (_stack_parts(tx_t, bk["gather"], pc, 408),
+            _stack_parts(rec_t, bk["gather"], pc, 408), bone, a,
             bk["n_real"], bk["allone"])
 
 
@@ -1189,7 +1396,14 @@ def phase_train(human, hier):
     log(f"[train] {ms:.3f} ms/step, {TRAIN_B / ms * 1e3:.1f} meshes/s "
         f"(B={TRAIN_B} per segment, trunk batch {TRUNK_B})")
     prof = profile_steps(lambda: step(p, state, *segs, spec), ms)
+    if prof:
+        fam = prof["kernel_families_ms"]
+        require(fam["index_add"] == 0, f"the step ran index_add_ kernels "
+                f"({fam['index_add']:.4f} ms a step): a gather's backward "
+                "added with atomics")
     prof["part_dist_vs_v1"] = step_part_dist_vs_v1(
+        lambda: step(p, state, *segs, spec))
+    prof["gathers_vs_index_select"] = step_gathers_vs_index_select(
         lambda: step(p, state, *segs, spec))
 
     # --- bf16 trunk, one step --------------------------------------------------
@@ -1208,7 +1422,7 @@ def phase_train(human, hier):
             "kernel_peak_gib": kernel_peak, "bf16_loss": loss16, **prof}
 
 
-def device_by_name(run, reps: int, attempts: int = 3) -> dict:
+def device_by_name(run, reps: int, attempts: int = 5) -> dict:
     """Device ms per call of run() by kernel name (torch.profiler); a
     window that records no device activity is taken again, as in
     device_ms ({} if every one is empty)."""
@@ -1292,6 +1506,75 @@ def step_part_dist_vs_v1(run, reps: int = 3) -> dict:
     require(out["ms"] < out["v1_ms"], f"the step's part_dist: kernel "
             f"{out['ms']:.4f} device ms not faster than v1 "
             f"{out['v1_ms']:.4f}")
+    return out
+
+
+def step_gathers_vs_index_select(run, reps: int = 3) -> dict:
+    """The yardstick of row 7's redesign: the step with every gather of
+    `gather_rows` swapped back to index_select and autograd as before
+    (IndexSelectFn: its backward is index_add_ with atomics), and
+    through GatherRowsFn (the row 7 kernel forward, the row 8 kernel
+    backward), in turns (yardstick, kernels, kernels, yardstick), on the
+    same parameters and batch: wall ms per step and device ms by kernel
+    family.  Outside the counted steps; the swap lives here only."""
+    from semantichuman_torch.ops import row_gather as RG
+
+    if DEVICE != "cuda":
+        return {}
+    kernel_fn = RG.GatherRowsFn
+
+    class IndexSelectFn:
+        """The gathers as the port ran them before row 7 took them:
+        index_select, and unpool's taps weighted and summed over a
+        [B, V_f, 3, C] buffer (autograd: index_add_ backward)."""
+
+        @staticmethod
+        def apply(x, table):
+            b, _, c = x.shape
+            g = x.index_select(1, table.idx.reshape(-1).long())
+            if table.taps == 1:
+                return g if table.w is None else g * table.w[None, :, None]
+            g = g.reshape(b, table.n_rows, table.taps, c)
+            return (g * table.w.to(x.dtype)[None, :, :, None]).sum(dim=2)
+
+    runs = {k: [] for k in ("wall_ms", "yardstick_wall_ms", "device_ms",
+                            "yardstick_device_ms")}
+    families = {"kernels": [], "yardstick": []}
+    try:
+        for swapped in (True, False, False, True):
+            RG.GatherRowsFn = IndexSelectFn if swapped else kernel_fn
+            run()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+            by_name = device_by_name(run, reps)
+            require(bool(by_name), "the profiler saw no device kernels in "
+                    "the step")
+            pre = "yardstick_" if swapped else ""
+            runs[pre + "wall_ms"].append(wall)
+            runs[pre + "device_ms"].append(sum(by_name.values()))
+            families["yardstick" if swapped else "kernels"].append(
+                {label: sum(t for n, t in by_name.items() if key in n)
+                 for label, key in PROFILE_GROUPS.items()})
+    finally:
+        RG.GatherRowsFn = kernel_fn
+    out = {k: float(np.mean(v)) for k, v in runs.items()}
+    out.update({f"{k}_runs": v for k, v in runs.items()})
+    out["families_ms"] = {
+        name: {k: float(np.mean([f[k] for f in fs])) for k in fs[0]}
+        for name, fs in families.items()}
+    log(f"[profile] train step, gathers through the kernels: "
+        f"{out['wall_ms']:.3f} ms/step {np.round(runs['wall_ms'], 3).tolist()}"
+        f", device {out['device_ms']:.3f} ms; swapped to index_select and "
+        f"autograd: {out['yardstick_wall_ms']:.3f} ms/step "
+        f"{np.round(runs['yardstick_wall_ms'], 3).tolist()}, device "
+        f"{out['yardstick_device_ms']:.3f} ms")
+    for name, fam in out["families_ms"].items():
+        log(f"[profile]   {name} by family, ms per step: "
+            f"{ {k: round(v, 4) for k, v in fam.items()} }")
     return out
 
 
@@ -1575,11 +1858,10 @@ def timed_steps(trainer) -> list:
 
 @contextlib.contextmanager
 def deterministic_torch():
-    """torch's deterministic algorithms on for the block: `index_add_` and
-    the scatters of the pool, unpool and head backward then add in a fixed
-    order instead of with atomics (the port's own kernels always do), so
-    two runs of the Trainer give the same bits.  Ops without a
-    deterministic form only warn."""
+    """torch's deterministic algorithms on for the block: any torch op that
+    would add with atomics takes its fixed-order form (the port's own
+    kernels always sum in a fixed order).  Ops without a deterministic
+    form only warn."""
     was = torch.are_deterministic_algorithms_enabled()
     warn_only = torch.is_deterministic_algorithms_warn_only_enabled()
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1603,20 +1885,23 @@ def resumed_epoch(root: Path, name: str, banded: bool, ckpt: str):
 
 
 def phase_trainer():
-    """The Trainer's main path (fit with counts), resume, evaluate, and
-    the banded and take routes timed from the same checkpoint.
+    """The Trainer's main path (fit with counts), a second fit, resume,
+    evaluate, and the banded and take routes timed from the same
+    checkpoint.
 
-    The counted fit() and the four timed resumed runs use torch's default
-    algorithms, as a user's training does.  There the order of the
-    `index_add_` sums (atomics) changes from run to run, Adam amplifies
-    that through the 16 steps of an epoch, and a resumed epoch misses the
-    uninterrupted one's loss by up to 4.8e-3 in a third of all runs (19
-    runs of this phase on one H100), so those runs are held to rtol 1e-2,
-    twice the largest miss seen.  The exact gate runs under torch's
-    deterministic algorithms, where the resumed banded epoch repeats the
-    uninterrupted one bit for bit: a second fit() and two runs resumed
-    from its epoch-2 checkpoint (rtol 1e-4 banded, 1e-3 take)."""
+    Everything but the last block uses torch's default algorithms, as a
+    user's training does.  No kernel of the path adds with atomics (every
+    gather's backward is the fixed-order CSR reduce; the profiles hold the
+    index_add_ family at 0), so a second fit() from the same seed must give
+    the same epoch losses and final parameters bit for bit, and the four
+    timed runs resumed from the epoch-2 checkpoint (banded, take, take,
+    banded) must repeat epoch 3's loss to rtol 1e-4 (banded) and 1e-3
+    (take: another order of the gradients' f32 sums through 16 Adam
+    steps).  The last block repeats the resume under torch's deterministic
+    algorithms: a fit() and two runs resumed from its epoch-2 checkpoint,
+    held to the same tolerances."""
     from semantichuman_torch.train.loop import Trainer
+    from semantichuman_torch.utils.params import tree_leaves
 
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
@@ -1634,7 +1919,15 @@ def phase_trainer():
         n_val = len(tr.val_loader) * 3
         require(n_val == 3, "expected one validation batch per epoch")
 
-        # --- the main path: counts from 0, read right after -------------
+        # --- the main path: counts from 0, read right after; the
+        # exchange variant of each step recorded -------------------------
+        variants, get = [], tr._get_step
+
+        def get_step(epoch, variant):
+            variants.append(variant)
+            return get(epoch, variant)
+
+        tr._get_step = get_step
         sync()
         reset_counts()
         t0 = time.perf_counter()
@@ -1642,12 +1935,17 @@ def phase_trainer():
         sync()
         out["fit_s"] = time.perf_counter() - t0
         counts = read_counts()
+        tr._get_step = get
+        require(len(variants) == n_steps
+                and set(variants) <= {"ori", "m"},
+                f"exchange variants {variants}")
+        n_m = variants.count("m")
         # a validation batch of 16 is one forward on the B <= 16 routes
-        val = SERVE_LAUNCHES["small"]
         want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps
-                + val.get(k, 0) * n_val for k in KERNEL_COUNTS}
-        log(f"[trainer] fit: {n_steps} steps, {n_val} val batches, "
-            f"launches {counts}")
+                + VAL_LAUNCHES.get(k, 0) * n_val
+                - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
+        log(f"[trainer] fit: {n_steps} steps ({n_m} with the 'm' exchange), "
+            f"{n_val} val batches, launches {counts}")
         require(counts == want, f"trainer launches {counts}, want {want}")
         hist = tr.history
         losses = [h["train"] for h in hist]
@@ -1662,7 +1960,24 @@ def phase_trainer():
         ckpt = os.path.join(tr.workdir, "checkpoints")
         require(os.path.isdir(os.path.join(ckpt, "2")),
                 "no epoch-2 checkpoint")
+        final = [p.detach().clone() for p in tree_leaves(tr.params)]
         del tr
+
+        # --- a second fit from the same seed, default algorithms: the
+        # same bits (no kernel of the path adds with atomics) ---------------
+        tr = Trainer(trainer_cfg(), trainer_workdir(root, "refit"),
+                     device=DEVICE)
+        tr.fit()
+        again = [h["train"] for h in tr.history]
+        same = [torch.equal(a, b) for a, b in
+                zip(final, tree_leaves(tr.params))]
+        log(f"[trainer] second fit, default algorithms: epoch losses "
+            f"{again} (first {losses}); {sum(same)} of {len(same)} "
+            "parameter tensors bit-equal")
+        require(again == losses and all(same) and len(same) == len(final),
+                "two default-mode fits from one seed differ")
+        out["refit_epoch_losses"] = again
+        del tr, final
 
         # --- timed from the checkpoint: banded, take, take, banded ----------
         runs = {"banded": {"run_ms": [], "step_ms": [], "epoch_s": [],
@@ -1677,11 +1992,15 @@ def phase_trainer():
             r["step_ms"] += times
             r["epoch_s"].append(tr.history[0]["sec"])
             r["epoch3_loss"].append(loss3)
-            log(f"[trainer] resumed {name}: epoch 3 loss {loss3:.7f} "
-                f"(uninterrupted {losses[2]:.7f}), {r['run_ms'][-1]:.3f} "
+            log(f"[trainer] resumed {name}: epoch 3 loss {loss3!r} "
+                f"(uninterrupted {losses[2]!r}, bit-equal "
+                f"{loss3 == losses[2]}), {r['run_ms'][-1]:.3f} "
                 f"ms/step median of {len(times)}, epoch "
                 f"{tr.history[0]['sec']:.3f} s with val")
-            np.testing.assert_allclose(loss3, losses[2], rtol=1e-2)
+            # take: the two routes gather the same values; the gradients'
+            # f32 sums run in another order through 16 Adam steps
+            np.testing.assert_allclose(loss3, losses[2],
+                                       rtol=1e-4 if banded else 1e-3)
             if i < 2:
                 r.update(profile_epoch(tr))
             if i == 0:
@@ -1756,8 +2075,15 @@ def profile_epoch(tr) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     for name, t in top:
         log(f"[profile]   {t:8.4f} ms  {name[:90]}")
+    groups = {label: sum(t for nm, t in by_name.items() if key in nm)
+              for label, key in PROFILE_GROUPS.items()}
+    log(f"[profile] trainer by kernel family, ms per step: "
+        f"{ {k: round(v, 4) for k, v in groups.items()} }")
+    require(groups["index_add"] == 0, f"the Trainer's epoch ran index_add_ "
+            f"kernels ({groups['index_add']:.4f} ms a step)")
     return {"device_busy_ms": busy,
-            "top_kernels": [[nm[:90], t] for nm, t in top]}
+            "top_kernels": [[nm[:90], t] for nm, t in top],
+            "kernel_families_ms": groups}
 
 
 def parse_args(argv):
@@ -1776,6 +2102,9 @@ def parse_args(argv):
     mode.add_argument("--part-dist", action="store_true",
                       help="phase 1 and the part_dist kernel's checks and "
                       "times alone (phase 4's and phase 6's)")
+    mode.add_argument("--gather-rows", action="store_true",
+                      help="phase 1 and the row gather's and the weighted "
+                      "csr_reduce's checks and times alone (phase 4's)")
     return p.parse_args(argv)
 
 
@@ -1789,6 +2118,7 @@ def main(argv=None) -> int:
     from semantichuman_torch.data.synthetic import SyntheticHuman
     from semantichuman_torch.models import build_model
     from semantichuman_torch.topology import MeshHierarchy
+    from semantichuman_torch.train.losses import build_loss_tables
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1829,6 +2159,13 @@ def main(argv=None) -> int:
         phase_part_dist_trainer(human)
         log(card)
         return 0
+    loss_tables = build_loss_tables(human.template_faces, human.J_regressor,
+                                    human.part_dict, device=DEVICE)
+    if args.gather_rows:
+        # the row gather's checks alone, for tuning its kernel
+        phase_gather_rows(model, loss_tables)
+        log(card)
+        return 0
 
     rows, max_err = phase_kernels(model)
     serve, serve_take, timing, timing_take = phase_serving(
@@ -1852,6 +2189,7 @@ def main(argv=None) -> int:
 
     conv_bwd = phase_conv_backward(model)
     csr_rows = phase_csr_reduce(model)
+    gather_shapes, csr_weighted = phase_gather_rows(model, loss_tables)
     pd_rows = phase_part_dist(human)
     banded_rows = phase_banded_kernels(model)
     conv_bwd_trainer = phase_conv_backward_trainer(model)
@@ -1982,9 +2320,7 @@ def main(argv=None) -> int:
             (5, "banded_gather_fwd", "fwd", "banded_gather.cu",
              f"{banded_pallas}:187"),
             (6, "banded_gather_bwd", "bwd", "banded_gather.cu",
-             f"{banded_pallas}:237"),
-            (7, "row_gather", "row_gather", "row_gather.cu",
-             "benchmarks/pallas_dma_gather_probe.py:83")):
+             f"{banded_pallas}:237")):
         # every call of it in one Trainer step (trunk batch 12), summed
         summary = banded_summary(banded_rows, key)
         kernels.append({
@@ -2004,6 +2340,28 @@ def main(argv=None) -> int:
             "calls": [{"call": r["call"], "m": r["m"], **r[key]}
                       for r in banded_rows if key in r],
         })
+    # row 7: the step's gathers at their main-path shapes, float32, summed
+    # (gather_calls); the Trainer step's banded fix-ups beside them
+    g32 = [r for r in gather_shapes if r["dtype"] == "float32"]
+    fixups = banded_summary(banded_rows, "row_gather")
+    kernels.append({
+        "name": "row_gather",
+        "row": 7,
+        "route": "cuda",
+        "source": "semantichuman_torch/csrc/row_gather.cu",
+        "replaces": "benchmarks/pallas_dma_gather_probe.py:83",
+        **launches("row_gather"),
+        "max_abs_err": max(max(r["max_abs_err"] for r in gather_shapes),
+                           fixups["max_abs_err"]),
+        **{k: sum(r[k] for r in g32) for k in ("ms", "plain_ms",
+                                               "bound_ms", "library_ms")},
+        "bound_by": "bytes",
+        "shapes": gather_shapes,
+        "trainer_fixups": fixups,
+        "trainer_fixup_calls": [{"call": r["call"], "m": r["m"],
+                                 **r["row_gather"]}
+                                for r in banded_rows if "row_gather" in r],
+    })
     kernels.append({
         "name": "csr_reduce",
         "row": 8,
@@ -2019,6 +2377,11 @@ def main(argv=None) -> int:
         "bound_by": "bytes",
         "library_ms": sum(r["library_ms"] for r in step_csr),
         "layers": csr_rows,
+        # weighted, at the four unpools' backward shapes (B = 384)
+        "weighted": csr_weighted,
+        "weighted_ms": sum(r["ms"] for r in csr_weighted),
+        "weighted_bound_ms": sum(r["bound_ms"] for r in csr_weighted),
+        "weighted_library_ms": sum(r["library_ms"] for r in csr_weighted),
         "conv_backward_f32_sum": bwd_sum,
         "conv_backward": conv_bwd,
     })

@@ -3,14 +3,19 @@
 // Replaces the TPU kernel benchmarks/pallas_dma_gather_probe.py:
 // dma_csr_reduce (kernel _csr_reduce_kernel).  It computes
 //
-//   out[b, u, c] = sum_{j in [offs[u], offs[u+1])} g[b, cols[j], c]
+//   out[b, u, c] = sum_{j in [offs[u], offs[u+1])} wt[j] * g[b, cols[j], c]
 //
-// g [B, M, C] float32, offs [V1+1] and cols [nnz] int32, out [B, V1, C]
+// g [B, M, C] float32, offs [V1+1] and cols [nnz] int32, wt [nnz] float32
+// in CSR order or null (every weight 1: no multiply), out [B, V1, C]
 // float32.  In the port it is the spiral conv's input gradient: g is the
 // gathered-row gradient dy' @ W^T viewed as [B, V1*S, C], and (offs, cols)
 // is the inverse spiral table, so `out` is the transpose of the gather
-// x[b, spiral[v, s]] without a scatter.  Every sum runs in a fixed order
-// (no atomics), so the result is the same from run to run.
+// x[b, spiral[v, s]] without a scatter.  It is also the backward of every
+// row gather of the training path (ops/row_gather.py:GatherRowsFn), where
+// the weighted form is the transpose of unpool's barycentric taps.  Every
+// sum runs in a fixed order (no atomics), so the result is the same from
+// run to run; a weighted term is rounded before it is added (__fmul_rn,
+// no FMA), as the plain version computes it.
 //
 // Bound on an H100 SXM: bytes.  Each element of g is read once and each
 // output written once, one add per 4 bytes read; at the training step's
@@ -41,9 +46,20 @@ constexpr int kWarps = 8;
 constexpr int kPerLane = 4;                 // channels per lane in a slice
 constexpr int kSlice = 32 * kPerLane;       // channels per grid.z slice
 
+// the term of entry j: g's value, times wt[j] in the weighted instance
+// (a template parameter, so the unweighted loop is the plain sum)
+template <bool W>
+__device__ __forceinline__ float term(const float* __restrict__ wt, int j,
+                                      float v) {
+  if constexpr (W) return __fmul_rn(__ldg(wt + j), v);
+  return v;
+}
+
+template <bool W>
 __global__ void csr_short_kernel(const float* __restrict__ g,
                                  const int* __restrict__ offs,
                                  const int* __restrict__ cols,
+                                 const float* __restrict__ wt,
                                  float* __restrict__ out, int M, int V1,
                                  int C, int long_thresh) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
@@ -56,13 +72,16 @@ __global__ void csr_short_kernel(const float* __restrict__ g,
   if (hi - lo > long_thresh) return;        // written by the long-row path
   const float* gb = g + (size_t)b * M * C + c;
   float acc = 0.f;
-  for (int j = lo; j < hi; ++j) acc += gb[(size_t)cols[j] * C];
+  for (int j = lo; j < hi; ++j)
+    acc += term<W>(wt, j, gb[(size_t)cols[j] * C]);
   out[((size_t)b * V1 + u) * C + c] = acc;
 }
 
+template <bool W>
 __global__ void __launch_bounds__(32 * kWarps)
 csr_long_partial_kernel(const float* __restrict__ g,
                         const int* __restrict__ cols,
+                        const float* __restrict__ wt,
                         const int* __restrict__ chunk_lo,
                         const int* __restrict__ chunk_hi,
                         float* __restrict__ partial, int B, int M, int C) {
@@ -82,7 +101,7 @@ csr_long_partial_kernel(const float* __restrict__ g,
 #pragma unroll
     for (int i = 0; i < kPerLane; ++i) {
       const int c = c0 + lane + 32 * i;
-      if (c < C) acc[i] += row[c];
+      if (c < C) acc[i] += term<W>(wt, j, row[c]);
     }
   }
 #pragma unroll
@@ -125,26 +144,39 @@ extern "C" {
 // B <= 65535 and that rows longer than long_thresh are exactly the
 // n_long rows of long_rows, cut into the n_chunks chunks
 // [chunk_lo[k], chunk_hi[k]), chunks chunk_offs[i]..chunk_offs[i+1] of
-// long row i.
+// long row i.  `wt` is null for the unweighted reduce.
 int sh_csr_reduce(const void* g, const void* offs, const void* cols,
-                  const void* chunk_lo, const void* chunk_hi,
+                  const void* wt, const void* chunk_lo, const void* chunk_hi,
                   const void* long_rows, const void* chunk_offs,
                   void* partial, void* out, int B, int M, int V1, int C,
                   int long_thresh, int n_long, int n_chunks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* gf = static_cast<const float*>(g);
   const int* cl = static_cast<const int*>(cols);
+  const float* wf = static_cast<const float*>(wt);
   float* of = static_cast<float*>(out);
   const int threads = 256;
   const dim3 grid_short((V1 * C + threads - 1) / threads, B);
-  csr_short_kernel<<<grid_short, threads, 0, st>>>(
-      gf, static_cast<const int*>(offs), cl, of, M, V1, C, long_thresh);
+  const int* of_in = static_cast<const int*>(offs);
+  if (wf != nullptr) {
+    csr_short_kernel<true><<<grid_short, threads, 0, st>>>(
+        gf, of_in, cl, wf, of, M, V1, C, long_thresh);
+  } else {
+    csr_short_kernel<false><<<grid_short, threads, 0, st>>>(
+        gf, of_in, cl, nullptr, of, M, V1, C, long_thresh);
+  }
   if (n_long > 0) {
     const dim3 grid_part(n_chunks, B, (C + kSlice - 1) / kSlice);
-    csr_long_partial_kernel<<<grid_part, dim3(32, kWarps), 0, st>>>(
-        gf, cl, static_cast<const int*>(chunk_lo),
-        static_cast<const int*>(chunk_hi), static_cast<float*>(partial), B,
-        M, C);
+    const int* lo = static_cast<const int*>(chunk_lo);
+    const int* hi = static_cast<const int*>(chunk_hi);
+    float* part = static_cast<float*>(partial);
+    if (wf != nullptr) {
+      csr_long_partial_kernel<true><<<grid_part, dim3(32, kWarps), 0, st>>>(
+          gf, cl, wf, lo, hi, part, B, M, C);
+    } else {
+      csr_long_partial_kernel<false><<<grid_part, dim3(32, kWarps), 0, st>>>(
+          gf, cl, nullptr, lo, hi, part, B, M, C);
+    }
     const dim3 grid_fin(n_long, B);
     csr_long_finish_kernel<<<grid_fin, 128, 0, st>>>(
         static_cast<const float*>(partial),

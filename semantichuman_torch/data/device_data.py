@@ -16,7 +16,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.distance import face_edge_lengths, signed_part_volumes
+from ..ops.distance import (face_edge_lengths, face_table,
+                            signed_part_volumes)
 from ..utils.device import resolve_device
 from .dataset import ShapeStats
 
@@ -67,8 +68,7 @@ class DeviceDataSource:
         v = torch.nan_to_num(v, nan=0.0)
         self.gt = None
         if gt_faces is not None:
-            faces = torch.as_tensor(np.asarray(gt_faces, np.int64),
-                                    device=dev)
+            faces = face_table(gt_faces, v.shape[1], dev)
             gt = {}
             with torch.no_grad():
                 if self.n * len(gt_faces) * 3 * 4 <= GT_EDGE_MAX_BYTES:

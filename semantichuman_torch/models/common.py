@@ -93,7 +93,7 @@ def encoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
                         compute_dtype=compute_dtype,
                         csr=tables.spiral_csr[i], **_band_kw(tables, i))
             j += 1
-        x = pool(x, tables.pool_idx[i])
+        x = pool(x, tables.pool_gather[i])
     return x
 
 
@@ -103,7 +103,7 @@ def decoder_trunk(params_conv, plan, tables, x, compute_dtype=None,
     j = 0
     for i in range(tables.n_levels - 1):
         lvl = tables.n_levels - 2 - i
-        x = unpool(x, tables.unpool_idx[lvl], tables.unpool_w[lvl],
+        x = unpool(x, tables.unpool_gather[lvl],
                    band=tables.unpool_band_for(lvl))
         while j < len(plan) and plan[j][0] == lvl:
             p = params_conv[j]

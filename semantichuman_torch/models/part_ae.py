@@ -21,6 +21,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..constants import KPS_KEEP
+from ..ops.row_gather import GatherTable, gather_rows
 from ..ops.spiral_conv import spiral_conv
 from ..utils.params import params_from_jax
 from .common import (decoder_trunk, encoder_trunk, init_conv_stack,
@@ -67,11 +69,13 @@ class PartAE(nn.Module):
             # the decode scatter relies on unique real targets; only the
             # padded slots share (and overwrite) the trash row V
             raise ValueError("part indices must be unique coarse vertices")
-        # encode gathers and decode scatters through this index; padded
-        # slots address the dummy / trash row V
+        # encode gathers through part_gather and decode scatters through
+        # this index; padded slots address the dummy / trash row V
         self.register_buffer("part_pad_idx",
                              torch.as_tensor(pad_idx.reshape(-1), device=dev),
                              persistent=False)
+        self.part_gather = GatherTable.build(pad_idx.reshape(-1),
+                                             coarse_v + 1, dev)
 
         # --- padded keypoint-group layout -----------------------------------
         self.kps_index_list = [list(g) for g in kps_index_list]
@@ -81,12 +85,9 @@ class PartAE(nn.Module):
         for p, g in enumerate(self.kps_index_list):
             kidx[p, :len(g)] = g
             kmask[p, :len(g)] = 1.0
-        self.register_buffer("kps_pad_idx",
-                             torch.as_tensor(kidx.reshape(-1), device=dev),
-                             persistent=False)
-        self.register_buffer("kps_pad_mask",
-                             torch.as_tensor(kmask, device=dev),
-                             persistent=False)
+        # padded slots gather keypoint 0 with weight 0
+        self.kps_gather = GatherTable.build(kidx.reshape(-1), len(KPS_KEEP),
+                                            dev, w=kmask.reshape(-1))
 
     # --- params ---------------------------------------------------------------
     def init(self, seed: int = 0) -> dict:
@@ -132,9 +133,7 @@ class PartAE(nn.Module):
     def kps_encode(self, params, kps):
         """kps [B, 32, 3] kept keypoints -> z_kps [B, P, nk]."""
         b = kps.shape[0]
-        g = kps.index_select(1, self.kps_pad_idx)
-        g = g.reshape(b, self.n_parts, self.g_max, 3)
-        g = g * self.kps_pad_mask[None, :, :, None]
+        g = gather_rows(kps, self.kps_gather)
         g = g.reshape(b, self.n_parts, self.g_max * 3)
         hp = params["kps_heads"]
         return torch.einsum("bpk,pkl->bpl", g, hp["w"]) + hp["b"][None]
@@ -146,7 +145,7 @@ class PartAE(nn.Module):
                           self.compute_dtype, self.conv_fn)
         b = h.shape[0]
         # padded per-part feature blocks; pads hit the zeroed dummy row
-        g = h.index_select(1, self.part_pad_idx)
+        g = gather_rows(h, self.part_gather)
         g = g.reshape(b, self.n_parts, self.n_max * self.enc_out_c)
         hp = params["enc_heads"]
         z = torch.einsum("bpk,pkl->bpl", g, hp["w"]) + hp["b"][None]

@@ -1,6 +1,8 @@
 """Device-resident topology tables, derived once from a MeshHierarchy
 (counterpart of `semantichuman_tpu/models/tables.py`), plus the inverse
-spiral tables that the spiral conv's backward reduces over.
+spiral tables that the spiral conv's backward reduces over and the gather
+tables of pool and unpool (`ops/row_gather.py:GatherTable`: the index, the
+unpool weights and the inverse their backward reduces over).
 
 With `banded=True` (ModelConfig.banded_conv, on by default as in the JAX
 package) the fine spiral levels and the large unpool transitions also carry
@@ -18,6 +20,7 @@ import torch
 from ..ops import banding
 from ..ops.banded_gather import BandTable
 from ..ops.csr_reduce import CSRTable, inverse_csr
+from ..ops.row_gather import GatherTable
 from ..utils.device import resolve_device
 
 # conv bands only at the fine levels (V1 above the JAX one-hot form's upper
@@ -36,6 +39,8 @@ class DeviceTables:
     sizes: tuple          # V_l
     spiral_sizes: tuple   # S_l
     spiral_csr: tuple     # per level CSRTable: inverse of spirals[l]
+    pool_gather: tuple    # per transition GatherTable of pool_idx (T = 1)
+    unpool_gather: tuple  # per transition GatherTable of unpool_idx/_w (T = 3)
     # per level / transition: a BandTable, or None -> the take route
     bands: tuple = ()
     unpool_bands: tuple = ()
@@ -122,11 +127,17 @@ def device_tables(hier, device="cuda", banded: bool = False) -> DeviceTables:
         CSRTable.build(*inverse_spiral_csr(s), n_src=np.asarray(s).size,
                        device=dev)
         for s in hier.spirals)
+    pool_gather = tuple(GatherTable.build(p, sizes[l] + 1, dev)
+                        for l, p in enumerate(hier.pool_idx))
+    unpool_gather = tuple(
+        GatherTable.build(u, sizes[l + 1] + 1, dev, w=np.asarray(w))
+        for l, (u, w) in enumerate(zip(hier.unpool_idx, hier.unpool_w)))
     bands, unpool_bands = _bands(hier, dev) if banded else ((), ())
     return DeviceTables(spirals=spirals, pool_idx=pool_idx,
                         unpool_idx=unpool_idx, unpool_w=unpool_w,
                         sizes=sizes,
                         spiral_sizes=tuple(int(s.shape[1])
                                            for s in hier.spirals),
-                        spiral_csr=spiral_csr, bands=bands,
+                        spiral_csr=spiral_csr, pool_gather=pool_gather,
+                        unpool_gather=unpool_gather, bands=bands,
                         unpool_bands=unpool_bands, banded_conv=banded)

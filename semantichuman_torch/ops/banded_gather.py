@@ -11,9 +11,10 @@ output row:
 
 xp is the packed [n_src, B*C] source (vertex-major), g the flat
 [N*S, B*C] gather before the out-of-band fix-up, which the banded routes
-add through `ops/row_gather.py`.  `banded_gather_fwd` / `_bwd` launch the
-hand-written kernels (`csrc/banded_gather.cu`) for CUDA tensors and count
-them in `.launches`; for CPU tensors they run the plain versions.
+put in place through `ops/row_gather.py`.  `banded_gather_fwd` / `_bwd`
+launch the hand-written kernels (`csrc/banded_gather.cu`) for CUDA tensors
+and count them in `.launches`; for CPU tensors they run the plain
+versions.
 `BandedGatherFn` ties the two into an autograd Function; the weights get
 no gradient, as in `diag_banded_gather`.
 """
@@ -44,7 +45,7 @@ class BandTable:
     bwd: CSRTable                 # n_src rows over the n_rows output rows
     bwd_w: torch.Tensor | None    # [nnz] float32 in CSR order, or None
     fix: GatherTable | None       # fix_src and its inverse (None: no fix-ups)
-    fix_pos: torch.Tensor | None  # [n_fix] int64 flat output rows
+    fix_pos: torch.Tensor | None  # [n_fix] int64 flat output rows, unique
     fix_w: torch.Tensor | None    # [n_fix] float32 (weighted tables)
 
     @property
@@ -92,12 +93,17 @@ class BandTable:
                                  f"{d.n_rows} output rows")
             w, bwd_w = f32(weights), f32(weights[cols])
         fix = fix_pos = None
-        if len(d.fix_pos):
-            fix = GatherTable.build(d.fix_src, d.n_src, device)
-            fix_pos = torch.as_tensor(np.asarray(d.fix_pos, np.int64),
-                                      device=device)
+        # the spec pads its fix-up lists to a multiple of 8 with (position
+        # 0, the zero dummy row) for the TPU; a real fix-up never reads the
+        # dummy, and the routes put the fix-ups in place, so the pads go
+        real = np.asarray(d.fix_src) != d.n_src - 1
+        if real.any():
+            pos = np.asarray(d.fix_pos, np.int64)[real]
+            fix = GatherTable.build(np.asarray(d.fix_src)[real], d.n_src,
+                                    device)
+            fix_pos = torch.as_tensor(pos, device=device)
             if weights is not None:
-                fix_w = f32(weights[np.asarray(d.fix_pos)])
+                fix_w = f32(weights[pos])
         return BandTable(
             spec=spec,
             base=torch.as_tensor(np.asarray(d.base, np.int32), device=device),

@@ -1,11 +1,15 @@
 """Scatter-free CSR row reduce (counterpart of the TPU kernel
 `benchmarks/pallas_dma_gather_probe.py:dma_csr_reduce`):
 
-    out[b, u, :] = sum_{j in [offs[u], offs[u+1])} g[b, cols[j], :]
+    out[b, u, :] = sum_{j in [offs[u], offs[u+1])} wt[j] * g[b, cols[j], :]
 
-In the port it is the spiral conv's input gradient, the transpose of the
-gather x[b, spiral[v, s]] over the inverse spiral table (`CSRTable`).
-`csr_reduce` launches the hand-written kernel (`csrc/csr_reduce.cu`) for a
+with `wt` a weight per entry in CSR order, or None (unweighted).  In the
+port it is the spiral conv's input gradient, the transpose of the gather
+x[b, spiral[v, s]] over the inverse spiral table (`CSRTable`), and the
+backward of every row gather of the training path
+(`ops/row_gather.py:GatherRowsFn`; weighted for unpool's barycentric
+taps).  Each sum runs in ascending j, with no atomics.  `csr_reduce`
+launches the hand-written kernel (`csrc/csr_reduce.cu`) for a
 CUDA tensor and counts the launch in `csr_reduce.launches`; for a CPU
 tensor it runs `csr_reduce_plain`.
 """
@@ -84,16 +88,20 @@ def inverse_csr(flat_idx, n_rows: int):
     return offs, cols
 
 
-def csr_reduce_plain(g: torch.Tensor, table: CSRTable) -> torch.Tensor:
-    """The plain PyTorch version: gather every entry's source row, then add
-    each into its output row.  g [B, M, C] -> [B, n_rows, C]."""
+def csr_reduce_plain(g: torch.Tensor, table: CSRTable,
+                     wt: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version: gather every entry's source row, times
+    its weight, then add each into its output row.  g [B, M, C] ->
+    [B, n_rows, C]."""
     b, _, c = g.shape
     gathered = g.index_select(1, table.cols.long())
+    if wt is not None:
+        gathered = gathered * wt[:, None]
     out = g.new_zeros((b, table.n_rows, c))
     return out.index_add_(1, table.rows, gathered)
 
 
-def _check(g: torch.Tensor, table: CSRTable) -> None:
+def _check(g: torch.Tensor, table: CSRTable, wt=None) -> None:
     """Raise on anything the CUDA kernel does not take."""
     if g.dim() != 3 or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError("csr_reduce expects a contiguous float32 g "
@@ -105,16 +113,23 @@ def _check(g: torch.Tensor, table: CSRTable) -> None:
         raise ValueError(f"table on {table.offs.device}, g on {g.device}")
     if g.shape[0] > 65535:
         raise ValueError(f"batch {g.shape[0]} exceeds the grid limit 65535")
+    if wt is not None and (wt.dtype != torch.float32 or wt.device != g.device
+                           or wt.shape != table.cols.shape
+                           or not wt.is_contiguous()):
+        raise ValueError("csr_reduce expects weights as a contiguous "
+                         f"float32 [nnz] on {g.device}")
 
 
-def csr_reduce(g: torch.Tensor, table: CSRTable) -> torch.Tensor:
-    """g [B, M, C] float32 -> [B, n_rows, C] float32.  CPU tensors take the
-    plain version; CUDA tensors launch the kernel or raise."""
+def csr_reduce(g: torch.Tensor, table: CSRTable,
+               wt: torch.Tensor | None = None) -> torch.Tensor:
+    """g [B, M, C] float32, wt [nnz] float32 in CSR order or None ->
+    [B, n_rows, C] float32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
     if g.device.type == "cpu":
-        return csr_reduce_plain(g, table)
+        return csr_reduce_plain(g, table, wt)
     if g.device.type != "cuda":
         raise ValueError(f"csr_reduce runs on cpu or cuda, not {g.device}")
-    _check(g, table)
+    _check(g, table, wt)
     b, m, c = g.shape
     out = torch.empty((b, table.n_rows, c), dtype=torch.float32,
                       device=g.device)
@@ -128,6 +143,7 @@ def csr_reduce(g: torch.Tensor, table: CSRTable) -> torch.Tensor:
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sh_csr_reduce(
             g.data_ptr(), table.offs.data_ptr(), table.cols.data_ptr(),
+            None if wt is None else wt.data_ptr(),
             table.chunk_lo.data_ptr(), table.chunk_hi.data_ptr(),
             table.long_rows.data_ptr(), table.chunk_offs.data_ptr(),
             partial.data_ptr(), out.data_ptr(), b, m, table.n_rows, c,

@@ -42,7 +42,7 @@ SIGNATURES = {
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "csr_reduce": {
-        "sh_csr_reduce": ([_VOIDP] * 9 + [_INT] * 7 + [_VOIDP], _INT),
+        "sh_csr_reduce": ([_VOIDP] * 10 + [_INT] * 7 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "part_dist": {
@@ -70,7 +70,7 @@ SIGNATURES = {
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "row_gather": {
-        "sh_row_gather": ([_VOIDP] * 3 + [_INT] * 3 + [_VOIDP], _INT),
+        "sh_gather_rows": ([_VOIDP] * 4 + [_INT] * 8 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
 }

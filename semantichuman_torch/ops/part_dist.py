@@ -38,6 +38,7 @@ import torch
 
 from ..constants import LEAF_PART_INDICES
 from .kernels import build
+from .row_gather import GatherTable, gather_rows
 
 W_MODES = {"all_one": 0, "linear": 1, "sin": 2, "threshold": 3}
 _MODES = {"fwd": 0, "fwd_grad": 1, "bwd": 2}
@@ -412,6 +413,10 @@ class PartDistTables:
             allone[:] = 1
         elif leafkeep:
             allone[list(LEAF_PART_INDICES)] = 1
+        # the gathers index vertex rows up to the largest part index; rows
+        # past it get no gradient
+        n_src = 1 + max((int(np.max(ix)) for ix in part_indices if len(ix)),
+                        default=0)
         by_pad: dict = {}
         for k, n in enumerate(sizes):
             by_pad.setdefault(_round_up(max(n, 8), 8), []).append(k)
@@ -425,7 +430,8 @@ class PartDistTables:
             self.buckets.append({
                 "n_pad": n_pad,
                 "part_ids": torch.as_tensor(ids, device=device),
-                "idx_flat": torch.as_tensor(idx.reshape(-1), device=device),
+                # pads gather vertex 0; the kernels ignore rows past n_real
+                "gather": GatherTable.build(idx.reshape(-1), n_src, device),
                 "n_real": torch.as_tensor([sizes[k] for k in ids],
                                           dtype=torch.int32, device=device),
                 "allone": torch.as_tensor(allone[ids], device=device),
@@ -433,10 +439,11 @@ class PartDistTables:
             self.part_ids.extend(ids)
 
 
-def _stack_parts(verts, idx_flat, n_parts: int, n_pad: int):
-    """[B, V, 3] -> [P*B, n_pad, 3] float32, tile p*B + b."""
+def _stack_parts(verts, gather: GatherTable, n_parts: int, n_pad: int):
+    """[B, V, 3] -> [P*B, n_pad, 3] float32, tile p*B + b; `gather` is a
+    bucket's table (`PartDistTables`)."""
     b = verts.shape[0]
-    g = verts.index_select(1, idx_flat).reshape(b, n_parts, n_pad, 3)
+    g = gather_rows(verts, gather).reshape(b, n_parts, n_pad, 3)
     return g.transpose(0, 1).reshape(n_parts * b, n_pad, 3).float() \
         .contiguous()
 
@@ -455,8 +462,8 @@ def fused_part_sums(tx_nodummy, rec_nodummy, bones, tables: PartDistTables,
         ids = bk["part_ids"]
         pc = ids.shape[0]
         n_pad = bk["n_pad"]
-        vp = _stack_parts(tx_nodummy, bk["idx_flat"], pc, n_pad)
-        rp = _stack_parts(rec_nodummy, bk["idx_flat"], pc, n_pad)
+        vp = _stack_parts(tx_nodummy, bk["gather"], pc, n_pad)
+        rp = _stack_parts(rec_nodummy, bk["gather"], pc, n_pad)
         bone = bones.index_select(1, ids).transpose(0, 1) \
             .reshape(pc * b, 3).float().contiguous()
         if a_full is None:

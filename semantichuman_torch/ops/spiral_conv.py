@@ -617,7 +617,9 @@ def spiral_conv_banded(x: torch.Tensor, spiral_idx: torch.Tensor,
     xp = x.transpose(0, 1).reshape(v1, b * c).contiguous()
     g = BandedGatherFn.apply(xp, band)                  # [V1*S, B*C]
     if band.fix is not None:
-        g = g.index_add(0, band.fix_pos, RowGatherFn.apply(xp, band.fix))
+        # the banded gather wrote 0 at every out-of-band row, so the fix-up
+        # puts (no atomics) where the JAX form adds
+        g = g.index_put((band.fix_pos,), RowGatherFn.apply(xp, band.fix))
     g = g.reshape(v1, s, b, c).permute(2, 0, 1, 3).reshape(b, v1, s * c)
     y = act(torch.matmul(g.float(), w.float()) + bias.float())
     return torch.cat([y[:, :-1], y.new_zeros((b, 1, y.shape[2]))], dim=1)

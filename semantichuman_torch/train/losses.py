@@ -20,9 +20,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..constants import (KPS_KEEP, N_PARTS, NOLEAF_IN_MEASURE,
+from ..constants import (KPS_KEEP, N_KPS_FULL, N_PARTS, NOLEAF_IN_MEASURE,
                          NOLEAF_PART_INDICES, SKL_LIST, bone_endpoint_arrays)
-from ..ops.distance import face_edge_lengths, signed_part_volumes
+from ..ops.distance import face_edge_lengths, face_table, signed_part_volumes
+from ..ops.row_gather import GatherTable, constant_table, gather_rows
 from ..ops.part_dist import PartDistTables, fused_part_sums, part_dist_sums
 from ..ops.skeleton import bone_vectors
 from ..utils.device import index_tensor, resolve_device
@@ -30,16 +31,17 @@ from ..utils.device import index_tensor, resolve_device
 
 @dataclass(frozen=True)
 class LossTables:
-    """The static tables the losses read, on the device."""
-    faces: torch.Tensor               # [F, 3] int64
+    """The static tables the losses read, on the device.  The gathers are
+    `GatherTable`s (`ops/row_gather.py`): index and inverse, built once."""
+    faces: GatherTable                # the [F, 3] faces as a gather of V rows
     j_regressor: torch.Tensor         # [35, V] float32
     part_indices: tuple               # 17 int32 numpy arrays (fine level)
     face_part_mask: torch.Tensor      # [F, n_noleaf] float32 one-hot
-    kps_keep: torch.Tensor            # [32] int64
+    kps_keep: GatherTable             # the 32 kept of 35 keypoints
 
     @property
     def device(self) -> torch.device:
-        return self.faces.device
+        return self.j_regressor.device
 
 
 def build_loss_tables(faces: np.ndarray, j_regressor: np.ndarray,
@@ -60,12 +62,12 @@ def build_loss_tables(faces: np.ndarray, j_regressor: np.ndarray,
         mask[:, col] = uniform & (fp[:, 0] == p)
     dev = resolve_device(device)
     return LossTables(
-        faces=torch.as_tensor(faces, dtype=torch.int64, device=dev),
+        faces=face_table(faces, n_verts, dev),
         j_regressor=torch.as_tensor(np.asarray(j_regressor, np.float32),
                                     device=dev),
         part_indices=tuple(part_indices),
         face_part_mask=torch.as_tensor(mask, device=dev),
-        kps_keep=torch.as_tensor(KPS_KEEP, dtype=torch.int64, device=dev))
+        kps_keep=GatherTable.build(KPS_KEEP, N_KPS_FULL, dev))
 
 
 # --- primitive losses --------------------------------------------------------
@@ -92,7 +94,8 @@ def zpartreg_loss(z, measure, relat: bool = True):
     """z [B, 17, nz], measure [B, 32] (16 girths + 16 lengths); the 12
     non-leaf parts against their girth columns."""
     z_norm = torch.sqrt(torch.sum(z ** 2, dim=2))
-    zn = z_norm.index_select(1, index_tensor(NOLEAF_PART_INDICES, z.device))
+    noleaf = constant_table(NOLEAF_PART_INDICES, z.shape[1], z.device)
+    zn = gather_rows(z_norm[:, :, None], noleaf)[:, :, 0]
     m = measure.index_select(1, index_tensor(NOLEAF_IN_MEASURE, z.device))
     if relat:
         return l1(zn / m, torch.ones_like(m))
@@ -105,10 +108,11 @@ def regress_kps(verts_nodummy, j_regressor):
 
 
 def kps_consistency_loss(rec_nodummy, target_kps_kept, j_regressor,
-                         kps_keep):
-    """L1 between regressed keypoints of a decode and the edit targets."""
+                         kps_keep: GatherTable):
+    """L1 between regressed keypoints of a decode and the edit targets;
+    kps_keep is `LossTables.kps_keep`."""
     kps_rec = regress_kps(rec_nodummy, j_regressor)
-    return l1(kps_rec.index_select(1, kps_keep), target_kps_kept)
+    return l1(gather_rows(kps_rec, kps_keep), target_kps_kept)
 
 
 def _part_weight(i: int, n_part: int, point_num: int, w_part_mode: str,

@@ -22,6 +22,7 @@ import torch
 
 from ..constants import KPS_KEEP, NEWSKL_KEEP, SKL_KEEP
 from ..ops.part_dist import PartDistTables, part_dist_sums
+from ..ops.row_gather import gather_rows
 from ..ops.skeleton import kps2skl, skl2kps
 from ..utils.device import index_tensor
 from ..utils.params import tree_leaves, tree_map, tree_unflatten
@@ -144,7 +145,7 @@ def make_loss_fn(model, tables: L.LossTables, flags: StepFlags,
         tx = batch["verts"]
         segs = [tx]
         kps_full = L.regress_kps(tx[:, :-1], jreg)
-        enc_kps = [kps_full.index_select(1, kps_keep)]
+        enc_kps = [gather_rows(kps_full, kps_keep)]
 
         if flags.interp:
             txi = interp_batch["verts"]
@@ -152,7 +153,7 @@ def make_loss_fn(model, tables: L.LossTables, flags: StepFlags,
             if flags.editskl:
                 newkps = _edited_kps(kps_i, edit_spec["skl_len_factor"])
             else:
-                newkps = kps_i.index_select(1, kps_keep)
+                newkps = gather_rows(kps_i, kps_keep)
             segs.append(txi)
             enc_kps.append(newkps)
         if flags.exc:
@@ -277,7 +278,7 @@ def make_eval_step(model, tables: L.LossTables, mm_constant: float = 1000.0):
     def step(params, batch):
         tx = batch["verts"]
         kps = L.regress_kps(tx[:, :-1], jreg)
-        rec, z, z_kps = model(params, tx, kps.index_select(1, kps_keep))
+        rec, z, z_kps = model(params, tx, gather_rows(kps, kps_keep))
         x, xr = tx[:, :-1], rec[:, :-1]
         l1 = torch.mean(torch.abs(xr - x), dim=(1, 2))
         l2mm = torch.mean(torch.sqrt(torch.sum(

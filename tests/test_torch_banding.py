@@ -16,6 +16,7 @@ import torch
 from semantichuman_torch.models import tables as TT
 from semantichuman_torch.ops import banding as TB
 from semantichuman_torch.ops import banded_gather as BG
+from semantichuman_torch.ops import row_gather as RG
 from semantichuman_torch.ops import sampling as TS
 from semantichuman_torch.topology import MeshHierarchy
 from semantichuman_tpu.ops import banding as JB
@@ -239,11 +240,12 @@ def test_gates_keep_take_on_cpu(monkeypatch):
     assert not TS._unpool_band_ok(129, torch.device("cuda"))
     monkeypatch.setattr(TS, "unpool_banded",
                         lambda *a: calls.append(2) or "banded")
-    idx = torch.zeros((5, 3), dtype=torch.int64)
-    TS.unpool(t32, idx, torch.ones(5, 3), band=object())
+    table = RG.GatherTable.build(np.zeros((5, 3)), 3, "cpu",
+                                 w=np.ones((5, 3)))
+    TS.unpool(t32, table, band=object())
     assert calls == [1]
     monkeypatch.setattr(TS, "_unpool_band_ok", lambda *a: True)
-    assert TS.unpool(t32, idx, torch.ones(5, 3), band=object()) == "banded"
+    assert TS.unpool(t32, table, band=object()) == "banded"
 
 
 def test_full_topology_tables(full_hier):

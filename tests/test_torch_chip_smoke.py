@@ -71,14 +71,16 @@ def test_launch_literals():
     """The conv forward's count per path is the new kernel's; v1 is
     counted and expected at 0 everywhere; at the Trainer's batch 12 every
     dx half of the four take-route convs goes unfused (4 csr_reduce more
-    than the 7 fix-up backwards)."""
+    than the 7 fix-up backwards), and every row gather with a gradient
+    adds one csr_reduce (its backward)."""
     assert "spiral_conv_fwd_v1" in CS.KERNEL_COUNTS
     assert [CS.SERVE_LAUNCHES[r]["spiral_conv_fwd"]
             for r in ("small", "large", "take")] == [4, 9, 9]
     assert CS.STEP_LAUNCHES["spiral_conv_fwd"] == 9
     assert CS.TRAIN_LAUNCHES["spiral_conv_fwd"] == 4
     assert CS.TRAIN_LAUNCHES["spiral_conv_bwd_dx"] == 0
-    assert CS.TRAIN_LAUNCHES["csr_reduce"] == 7 + 4
+    assert CS.TRAIN_LAUNCHES["csr_reduce"] == 7 + 4 + (
+        CS.ENCODE_GATHER_GRADS + CS.LOSS_GATHER_GRADS)
     assert set(CS.YARDSTICKS) == {"spiral_conv_fwd_v1", "part_dist_v1"}
     assert set(CS.YARDSTICKS) <= set(CS.KERNEL_COUNTS)
     assert CS.STEP_LAUNCHES["part_dist_fwd_grad"] == 2

@@ -498,9 +498,8 @@ def test_banded_routes_match_take(cuda, full_bands, dtype):
     xc[:, -1] = 0
     band = full_bands["unpool0"]
     res = []
-    for fn in (lambda a: SA.unpool(a, t.unpool_idx[0], t.unpool_w[0],
-                                   band=band),
-               lambda a: SA.unpool_take(a, t.unpool_idx[0], t.unpool_w[0])):
+    for fn in (lambda a: SA.unpool(a, t.unpool_gather[0], band=band),
+               lambda a: SA.unpool_take(a, t.unpool_gather[0])):
         a = xc.clone().requires_grad_(True)
         y = fn(a)
         res.append((y, torch.autograd.grad(y, a, torch.ones_like(y))[0]))
@@ -848,3 +847,132 @@ def test_spiral_conv_fwd_rejects_bad_input(cuda):
     xw, ww, bw = _fwd_inputs(2, 40, 1000, 8, 16, torch.float32, cuda, 1)
     with pytest.raises(ValueError, match="shared memory"):
         TC._forward(xw, wide, ww, bw, "elu")
+
+
+# --- the batched, weighted row gather (row 7) and the weighted CSR reduce ----
+
+def _gather_case(kind, b, c, dtype, device, n_src=500, n_rows=900, seed=0):
+    """x [B, n_src + 1, C] (the last row sliced off, so rows are packed but
+    the batch stride is not B's), and a gather table: "copy" T = 1
+    unweighted, "w1" T = 1 weighted, "w3" T = 3 weighted (unpool-like
+    barycentric weights), every case with repeated source rows."""
+    from semantichuman_torch.ops import row_gather as RG
+    rng = np.random.default_rng(seed + b + c)
+    taps = 3 if kind == "w3" else 1
+    idx = rng.integers(0, n_src, (n_rows, taps) if taps > 1 else n_rows)
+    idx[:5] = idx[5]
+    w = None
+    if kind != "copy":
+        w = rng.uniform(0, 1, idx.shape).astype(np.float32)
+        if taps > 1:
+            w /= w.sum(axis=1, keepdims=True)
+    table = RG.GatherTable.build(idx, n_src, device, w=w)
+    x = torch.from_numpy(rng.standard_normal((b, n_src + 1, c)).astype(
+        np.float32)).to(device).to(dtype)[:, :-1]
+    return x, table
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 12, 384])
+@pytest.mark.parametrize("c", [3, 16, 32, 128])
+@pytest.mark.parametrize("kind", ["copy", "w1", "w3"])
+def test_gather_rows_matches_plain(cuda, kind, c, b, dtype):
+    """Row 7 at T = 1 and 3: copies bit-equal to index_select, weighted sums
+    within 2e-6 of the plain version relative to its largest entry (both
+    round each product and sum in tap order); one counted launch a call,
+    two launches bit-equal."""
+    from semantichuman_torch.ops import row_gather as RG
+    x, table = _gather_case(kind, b, c, dtype, cuda)
+    before = RG.row_gather.launches
+    got = RG.gather_rows_fwd(x, table.idx, table.w)
+    again = RG.gather_rows_fwd(x, table.idx, table.w)
+    ref = RG.gather_rows_plain(x, table.idx, table.w)
+    torch.cuda.synchronize()
+    assert RG.row_gather.launches == before + 2
+    assert got.dtype == dtype and got.shape == ref.shape
+    assert torch.equal(got, again)
+    if kind == "copy":
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got.float(), ref.float(), rtol=2e-6,
+                                   atol=2e-6 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["copy", "w3"])
+def test_gather_rows_fn_gradient(cuda, kind):
+    """GatherRowsFn: forward the row 7 kernel, backward the (weighted)
+    CSR reduce; dx equals index_add_'s to 1e-5 of the largest entry, two
+    backward runs bit-equal, rows past the table's n_src get 0."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    from semantichuman_torch.ops import row_gather as RG
+    x, table = _gather_case(kind, 12, 32, torch.float32, cuda, seed=4)
+    x = torch.cat([x, torch.ones_like(x[:, :7])], dim=1)
+    xg = x.clone().requires_grad_(True)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    ct = torch.randn((12, table.n_rows, 32), generator=gen, device=cuda)
+    before = TR.csr_reduce.launches
+    y = RG.gather_rows(xg, table)
+    (dx,) = torch.autograd.grad(y, xg, ct, retain_graph=True)
+    (dx2,) = torch.autograd.grad(y, xg, ct)
+    assert TR.csr_reduce.launches == before + 2
+    taps = table.taps
+    flat = table.idx.reshape(-1).long()
+    cw = ct.repeat_interleave(taps, dim=1)
+    if table.w is not None:
+        cw = cw * table.w.reshape(-1)[None, :, None]
+    ref = torch.zeros_like(x).index_add_(1, flat, cw)
+    torch.cuda.synchronize()
+    assert torch.equal(dx, dx2)
+    assert torch.count_nonzero(dx[:, table.n_src:]) == 0
+    torch.testing.assert_close(dx, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,c", [(1, 3), (12, 32), (384, 16)])
+def test_csr_reduce_weighted_matches_plain(cuda, b, c):
+    """Row 8 with a weight per entry (unpool's transpose, plus a long row
+    of 300 entries): within 1e-5 of the plain version's largest entry, one
+    counted launch; without weights it gives the unweighted bits."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    from semantichuman_torch.ops import row_gather as RG
+    rng = np.random.default_rng(c)
+    idx = rng.integers(0, 400, (900, 3))
+    idx[:100] = 7                                   # a long row
+    w = rng.uniform(0, 1, idx.shape).astype(np.float32)
+    table = RG.GatherTable.build(idx, 400, cuda, w=w)
+    g = torch.from_numpy(rng.standard_normal((b, 900, c)).astype(
+        np.float32)).to(cuda)
+    assert table.inverse.long_rows.numel() == 1
+    before = TR.csr_reduce.launches
+    got = TR.csr_reduce(g, table.inverse, table.inv_w)
+    plain = TR.csr_reduce(g, table.inverse)
+    torch.cuda.synchronize()
+    assert TR.csr_reduce.launches == before + 2
+    ref = TR.csr_reduce_plain(g, table.inverse, table.inv_w)
+    torch.testing.assert_close(got, ref, rtol=0,
+                               atol=1e-5 * float(ref.abs().max()))
+    ones = torch.ones_like(table.inv_w)
+    assert torch.equal(TR.csr_reduce(g, table.inverse, ones), plain)
+
+
+@pytest.mark.cuda
+def test_gather_rows_rejects_bad_input(cuda):
+    from semantichuman_torch.ops import csr_reduce as TR
+    from semantichuman_torch.ops import row_gather as RG
+    x, table = _gather_case("w3", 2, 8, torch.float32, cuda)
+    with pytest.raises(TypeError):
+        RG.gather_rows_fwd(x.double(), table.idx, table.w)
+    with pytest.raises(ValueError):
+        RG.gather_rows_fwd(x.transpose(1, 2), table.idx, table.w)
+    with pytest.raises(ValueError):
+        RG.gather_rows_fwd(x, table.idx, table.w.cpu())
+    with pytest.raises(ValueError):
+        RG.gather_rows_fwd(x, table.idx[:, :2].contiguous())
+    with pytest.raises(ValueError):
+        RG.gather_rows(x[:, :10], table)
+    g = torch.zeros((2, table.n_rows, 8), device=cuda)
+    with pytest.raises(ValueError):
+        TR.csr_reduce(g, table.inverse, table.inv_w[:-1])

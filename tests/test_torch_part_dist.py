@@ -38,8 +38,8 @@ def step_bucket():
     bones = part_bones(regress_kps(tx_t, tables.j_regressor))
     bone = bones.index_select(1, bk["part_ids"]).transpose(0, 1) \
         .reshape(pc * 2, 3).contiguous()
-    return (TP._stack_parts(tx_t, bk["idx_flat"], pc, 408),
-            TP._stack_parts(rec_t, bk["idx_flat"], pc, 408), bone,
+    return (TP._stack_parts(tx_t, bk["gather"], pc, 408),
+            TP._stack_parts(rec_t, bk["gather"], pc, 408), bone,
             torch.ones((pc, 2)), bk["n_real"], bk["allone"])
 
 

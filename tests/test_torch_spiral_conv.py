@@ -130,12 +130,12 @@ def test_pool_unpool_match_jax(hier_pair):
         xf = rng.standard_normal((2, th.sizes[l] + 1, 5)).astype(np.float32)
         xc = rng.standard_normal((2, th.sizes[l + 1] + 1, 5)).astype(
             np.float32)
-        got_p = TS.pool(torch.from_numpy(xf), tables.pool_idx[l]).numpy()
+        got_p = TS.pool(torch.from_numpy(xf), tables.pool_gather[l]).numpy()
         ref_p = np.asarray(JS.pool_take(jnp.asarray(xf),
                                         jnp.asarray(jh.pool_idx[l])))
         np.testing.assert_allclose(got_p, ref_p, atol=1e-6)
-        got_u = TS.unpool(torch.from_numpy(xc), tables.unpool_idx[l],
-                          tables.unpool_w[l]).numpy()
+        got_u = TS.unpool(torch.from_numpy(xc),
+                          tables.unpool_gather[l]).numpy()
         ref_u = np.asarray(JS.unpool_take(jnp.asarray(xc),
                                           jnp.asarray(jh.unpool_idx[l]),
                                           jnp.asarray(jh.unpool_w[l])))
