@@ -7,7 +7,7 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, eight sources, in parallel) and print the
+   csrc/` (one nvcc per source, nine sources, in parallel) and print the
    card.
 2. the conv forward: at each of the nine full-width conv shapes (the
    bundled 6892-vertex topology's spiral tables), in float32 and bfloat16
@@ -42,15 +42,23 @@ run:
    version (1e-4 of the largest entry, two runs bit-equal) and timed
    beside the unfused route (torch matmuls around the [B, V1, S*C]
    buffers and csr_reduce), whole and half by half, the routes in turns
-   (a, b, b, a) with both readings kept; csr_reduce
-   against its plain version and `index_add_`; the row gather
+   (a, b, b, a) with both readings kept; the CSR reduce
+   (`csrc/csr_reduce.cu`, row 8) at the shapes of the 17 calls of one
+   B = 128 step, recorded from one loss + gradient (the unfused dx at
+   level 3, the 4 pools' and the part head's backward, the 4 unpools'
+   weighted backward, the loss's 7 gathers with a gradient), and at the
+   nine convs' dx shapes at 384 (the stress case of the long dummy row):
+   bit-equal to the port's first kernel (`csr_reduce_v1`,
+   `csrc/csr_reduce_v1.cu`, the yardstick, which keeps the same order of
+   sums and rounding), two runs bit-equal, within 1e-5 (1e-4 for a
+   spiral inverse) of the plain version's largest entry; device times of
+   the kernel and v1 in turns, the plain version and `index_add_` beside
+   the byte bound, summed by family; the row gather
    (`csrc/row_gather.cu`, row 7) at the step's gathers (the four unpools
    and pool L0 at 384, the face gather at 128; float32 and bfloat16)
    against its plain version (copies bit-equal, weighted sums within 2e-6
    of the largest entry, two runs bit-equal) beside index_select or
-   embedding_bag and its byte bound, and csr_reduce weighted at the
-   unpools' backward shapes (1e-5 of the largest entry) beside
-   `index_add_`; the part_dist kernel
+   embedding_bag and its byte bound; the part_dist kernel
    (`csrc/part_dist.cu`, modes fwd, fwd_grad, bwd) against its plain
    versions and against the port's first part_dist kernel
    (`part_dist_v1`, `csrc/part_dist_v1.cu`, the yardstick) at 17 parts x
@@ -78,8 +86,10 @@ run:
    turns (the kernel must be faster), with the share of the step's pairs
    whose two Gram orders round otherwise; the step with its gathers
    swapped back to index_select and autograd against the kernels, in
-   turns (ms/step and device ms by family, no gate); one bf16-trunk step
-   (finite loss).
+   turns (ms/step and device ms by family, no gate); the step with every
+   csr_reduce swapped to csr_reduce_v1, in turns (kernel, v1, v1,
+   kernel): ms/step, device ms and the two CSR families' device ms, no
+   gate; one bf16-trunk step (finite loss).
    At trunk batch 384 no banded route engages: 0 banded launches.
 6. banded kernels, at the trainer's shapes (trunk batch 12 = three
    segments of B = 4, the bundled topology's band tables): every banded
@@ -98,6 +108,10 @@ run:
    bit-equal.  Then the part_dist kernel's three modes at the Trainer's
    grid (17 parts x B = 4, each tile split over blocks) as in phase 4;
    fwd_grad in threshold mode must beat v1 in device time there too.
+   Then the CSR reduce at the shapes of one Trainer step's calls (batch
+   12: the 4 unfused dx, the 7 banded fix-ups' backward at B = 1 with
+   rows of B*C, the gathers' backward), recorded from one loss +
+   gradient, checked and timed as in phase 4.
 7. the Trainer: the paper recipe (Config() defaults: B = 4 per segment,
    lr 1e-3, banded_conv on) on synthetic SMPL-scale data (64 train, 16
    test meshes), full width, 3 epochs with the launch counts set to 0 just
@@ -110,10 +124,11 @@ run:
    gathers' backwards, the 4 unfused dx, the 12 other gathers with a
    gradient), one row gather and one csr_reduce fewer on a step whose
    skeleton exchange drew 'm' (no volume term); plus 9/8/4 forward
-   launches and 15 row gathers per validation pass.  The v1 forward and part_dist kernels launch on no
-   main path.  fit() runs as a user's does, with torch's default
-   algorithms, and a second fit() from the same seed must give its epoch
-   losses and final parameters bit for bit.  Four runs resumed from its
+   launches and 15 row gathers per validation pass.  The v1 forward,
+   part_dist and CSR reduce kernels launch on no main path.  fit() runs
+   as a user's does, with torch's default algorithms, and a second fit()
+   from the same seed must give its epoch losses and final parameters bit
+   for bit.  Four runs resumed from its
    epoch-2 checkpoint, banded_conv on, off, off, on, repeat epoch 3: its
    train loss to rtol 1e-4 (banded) and 1e-3 (take), and per route
    ms/step (the median of both runs' epoch-3 steps, a synchronize after
@@ -130,8 +145,10 @@ before printing any result.  `python3 chip_smoke.py --conv-forward` runs
 phase 1 and phase 2 alone, `--conv-backward` phase 1 and phase 4's conv
 backward alone, each with a per-kernel profile, `--part-dist` phase 1 and
 the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
-row gather's and weighted csr_reduce's checks of phase 4, for tuning
-those kernels: they print no result line and are no gate.
+row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
+reduce's checks and times of phases 4 and 6 with a sweep of its batch
+tile, for tuning those kernels: they print no result line and are no
+gate.
 """
 
 from __future__ import annotations
@@ -168,11 +185,11 @@ TRAINER_TRUNK_B = 3 * TRAINER_B
 DEVICE = "cuda"
 KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_fwd_v1",
                  "spiral_conv_bwd_dw", "spiral_conv_bwd_dx", "csr_reduce",
-                 "part_dist_fwd", "part_dist_fwd_grad", "part_dist_bwd",
-                 "part_dist_v1", "banded_gather_fwd", "banded_gather_bwd",
-                 "row_gather")
+                 "csr_reduce_v1", "part_dist_fwd", "part_dist_fwd_grad",
+                 "part_dist_bwd", "part_dist_v1", "banded_gather_fwd",
+                 "banded_gather_bwd", "row_gather")
 # the yardsticks: counted, and 0 on every main path
-YARDSTICKS = ("spiral_conv_fwd_v1", "part_dist_v1")
+YARDSTICKS = ("spiral_conv_fwd_v1", "part_dist_v1", "csr_reduce_v1")
 # row gathers (`ops/row_gather.py:gather_rows`, the row_gather kernel) of
 # one encode: the 4 pools and the part and keypoint heads; all but the
 # keypoint head's (its input is data) take a gradient, whose backward is
@@ -249,7 +266,8 @@ PROFILE_GROUPS = {"conv_fwd": "sc_fwd_",
                   "conv_bwd_dx_short": "dx_short_kernel",
                   "conv_bwd_dx_narrow": "dx_narrow_kernel",
                   "conv_bwd_dx_long": "dx_long_",
-                  "csr_reduce": "csr_", "part_dist": "part_dist_rows_",
+                  "csr_reduce": "csr_rows_", "csr_reduce_v1": "csr_v1_",
+                  "part_dist": "part_dist_rows_",
                   "part_dist_v1": "part_dist_v1_",
                   "row_gather": "gather_copy_kernel",
                   "row_gather_sum": "gather_sum_kernel",
@@ -814,49 +832,231 @@ def phase_conv_backward(model, profile: bool = False):
     return rows
 
 
-def phase_csr_reduce(model):
-    """csr_reduce at the dx shapes of the step's convs ([384, V1*S, C_in]
-    f32) against its plain version and `index_add_` (the library call of
-    the same function, timed only): max |err| <= 1e-4 of the largest
-    entry, f32 sums in another order (the dummy row at level 0 sums 34,041
-    rows)."""
-    from semantichuman_torch.ops.csr_reduce import (csr_reduce,
-                                                    csr_reduce_plain)
+def csr_families(model) -> dict:
+    """id of each CSR table of the model -> (family, label): the spiral
+    inverses (the unfused dx), the pools' and unpools' gather inverses,
+    the part head's, and the banded routes' fix-ups.  Any other table a
+    step reduces over is one of the loss's gathers."""
+    t = model.tables
+    fam = {id(csr): ("dx", f"dx L{lvl}")
+           for lvl, csr in enumerate(t.spiral_csr)}
+    for lvl, g in enumerate(t.pool_gather):
+        fam[id(g.inverse)] = ("pool", f"pool {lvl}->{lvl + 1}")
+    for lvl, g in enumerate(t.unpool_gather):
+        fam[id(g.inverse)] = ("unpool", f"unpool {lvl + 1}->{lvl}")
+    fam[id(model.part_gather.inverse)] = ("part head", "part head")
+    for kind, bands in (("conv", t.bands), ("unpool", t.unpool_bands)):
+        for lvl, band in enumerate(bands):
+            if band is not None and band.fix is not None:
+                fam[id(band.fix.inverse)] = ("fix-up",
+                                             f"fix-up {kind} L{lvl}")
+    return fam
 
-    gen = torch.Generator(device=DEVICE).manual_seed(2)
+
+def capture_csr_calls(model, run) -> list:
+    """Every csr_reduce call of run(), in order: family, label, g's shape,
+    table and weights.  It wraps the name csr_reduce in the two modules
+    that call it (the gathers' backward, the unfused dx) for the length
+    of run(), which still goes through the kernel."""
+    from semantichuman_torch.ops import row_gather as RG
+    from semantichuman_torch.ops import spiral_conv as SC
+
+    fam = csr_families(model)
+    calls, real = [], (RG.csr_reduce, SC.csr_reduce)
+
+    def record(g, table, wt=None):
+        family, label = fam.get(id(table), ("loss", "loss gather"))
+        calls.append({"family": family, "label": label,
+                      "shape": tuple(g.shape), "table": table, "wt": wt})
+        return real[0](g, table, wt)
+
+    RG.csr_reduce = SC.csr_reduce = record
+    try:
+        run()
+    finally:
+        RG.csr_reduce, SC.csr_reduce = real
+    return calls
+
+
+def step_csr_calls(model, human, tables, b: int | None = None) -> list:
+    """The csr_reduce calls of one loss + gradient of the training step at
+    B = b per segment (TRAIN_B if None; trunk batch 3b), exchange variant
+    'ori', StepFlags() and the edit spec of phase 5."""
+    from semantichuman_torch.train.edits import EditSampler
+    from semantichuman_torch.train.step import (StepFlags, make_loss_fn,
+                                                to_device, value_and_grad)
+
+    b = TRAIN_B if b is None else b
+    params = model.init(0)
+    segs = [host_batch(human, tables, seed=s, b=b) for s in range(3)]
+    spec = to_device(EditSampler(seed=0).sample_interp(200, b), DEVICE)
+    loss_fn = make_loss_fn(model, tables, StepFlags(), "ori")
+    calls = capture_csr_calls(
+        model, lambda: value_and_grad(loss_fn, params, *segs, spec))
+    sync()
+    return calls
+
+
+def csr_bound_ms(table, wt, b: int, c: int) -> float:
+    """Row 8's byte bound: each row of g the table reads, read once, each
+    output row written once, the offsets, columns and weights read
+    once."""
+    n_read = int(torch.unique(table.cols).numel())
+    nnz = int(table.cols.numel())
+    nbytes = (b * (n_read + table.n_rows) * c * 4
+              + (table.n_rows + 1 + nnz * (1 if wt is None else 2)) * 4)
+    return nbytes / PEAK_BYTES * 1e3
+
+
+CSR_SUMS = ("ms", "v1_ms", "plain_ms", "library_ms", "bound_ms")
+
+
+def csr_checks(calls, tag: str, seed: int) -> list:
+    """Row 8 at each call's shape, on g drawn from `seed`: the kernel
+    equals csr_reduce_v1 bit for bit (the same order of sums and the same
+    rounding) and itself over two runs, and lies within 1e-5 of the plain
+    version's largest entry (1e-4 for a spiral inverse, whose dummy row
+    sums up to 34,041 rows: index_add_ adds the same terms in its own
+    order); one counted launch of each a call.  Device ms (device_ms) of
+    the kernel and v1 in turns (kernel, v1, v1, kernel; the
+    mean and both readings), of the plain version and of `index_add_` (the
+    library call; the gathered, weighted source rows made before it),
+    beside the byte bound."""
+    from semantichuman_torch.ops import csr_reduce as TR
+
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
     rows = []
-    for label, v1, s, cin, _cout, _act, spiral, csr in conv_layers(model):
-        g = torch.randn((TRUNK_B, v1 * s, cin), generator=gen, device=DEVICE)
-        got = csr_reduce(g, csr)
-        ref = csr_reduce_plain(g, csr)
-        flat = spiral.reshape(-1).long()
-
-        def library():
-            return torch.zeros((TRUNK_B, v1, cin), device=DEVICE) \
-                .index_add_(1, flat, g)
-
-        lib = library()
+    for call in calls:
+        table, wt = call["table"], call["wt"]
+        b, m, c = call["shape"]
+        g = torch.randn((b, m, c), generator=gen, device=DEVICE)
+        name = (f"{tag} {call['label']} [{b}, {m}, {c}]"
+                + (" weighted" if wt is not None else ""))
+        before = read_counts()
+        got = TR.csr_reduce(g, table, wt)
+        again = TR.csr_reduce(g, table, wt)
+        v1 = TR.csr_reduce_v1(g, table, wt)
+        ref = TR.csr_reduce_plain(g, table, wt)
         sync()
-        err = float((got - ref).abs().max())
+        n = counts_diff(read_counts(), before)
+        require(n["csr_reduce"] == 2 and n["csr_reduce_v1"] == 1,
+                f"csr {name}: launches {n}")
+        require(torch.equal(got, v1), f"csr {name}: the kernel and v1 "
+                "differ")
+        require(torch.equal(got, again), f"csr {name}: two runs differ")
+        tol = 1e-4 if call["family"] == "dx" else 1e-5
         torch.testing.assert_close(got, ref, rtol=0,
-                                   atol=1e-4 * float(ref.abs().max()),
-                                   msg=lambda m: f"csr_reduce {label}: {m}")
-        torch.testing.assert_close(lib, ref, rtol=0,
-                                   atol=1e-4 * float(ref.abs().max()))
-        k_ms = time_ms(lambda: csr_reduce(g, csr), iters=10, warmup=2)
-        p_ms = time_ms(lambda: csr_reduce_plain(g, csr), iters=5, warmup=1)
-        l_ms = time_ms(library, iters=10, warmup=2)
-        nbytes = (g.numel() * 4 + TRUNK_B * v1 * cin * 4
-                  + (v1 + 1 + 2 * v1 * s) * 4)
-        b_ms = nbytes / PEAK_BYTES * 1e3
-        rows.append({"layer": label, "c": cin, "max_abs_err": err,
-                     "ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-                     "bound_ms": b_ms, "bound_by": "bytes"})
-        log(f"[csr] {label:18s} [{TRUNK_B}, {v1 * s}, {cin}] err={err:.3e} "
-            f"kernel={k_ms:.4f} ms plain={p_ms:.4f} ms index_add_="
-            f"{l_ms:.4f} ms bound={b_ms:.4f} ms (bytes)")
-        del g, got, ref, lib
+                                   atol=tol * float(ref.abs().max()),
+                                   msg=lambda s: f"csr {name}: {s}")
+        row = {"family": call["family"], "call": call["label"], "batch": b,
+               "m": m, "n_rows": table.n_rows, "c": c,
+               "weighted": wt is not None,
+               "long_rows": int(table.long_rows.numel()),
+               "max_abs_err": float((got - ref).abs().max())}
+        del got, again, v1, ref
+        runs = {"ms": [], "v1_ms": []}
+        for key in ("ms", "v1_ms", "v1_ms", "ms"):
+            fn = TR.csr_reduce if key == "ms" else TR.csr_reduce_v1
+            runs[key].append(device_ms(lambda: fn(g, table, wt)))
+        src = g.index_select(1, table.cols.long())
+        if wt is not None:
+            src = src * wt[:, None]
+        for key, v in runs.items():
+            row[key], row[f"{key}_runs"] = float(np.mean(v)), v
+        row.update(
+            plain_ms=device_ms(lambda: TR.csr_reduce_plain(g, table, wt)),
+            library_ms=device_ms(lambda: torch.zeros(
+                (b, table.n_rows, c), device=DEVICE).index_add_(
+                    1, table.rows, src)),
+            bound_ms=csr_bound_ms(table, wt, b, c), bound_by="bytes")
+        log(f"[csr] {name:44s} err={row['max_abs_err']:.3e} device ms "
+            f"kernel {row['ms']:.4f} v1 {row['v1_ms']:.4f} plain "
+            f"{row['plain_ms']:.4f} index_add_ {row['library_ms']:.4f} "
+            f"bound {row['bound_ms']:.4f} "
+            f"({100 * row['bound_ms'] / row['ms']:.0f} % of it) | runs "
+            f"{np.round(runs['ms'], 4).tolist()} v1 "
+            f"{np.round(runs['v1_ms'], 4).tolist()}")
+        rows.append(row)
+        del g, src
+    torch.cuda.empty_cache()
     return rows
+
+
+def csr_family_sums(rows) -> dict:
+    """Row 8's timed calls summed by family: calls and CSR_SUMS."""
+    fams = {}
+    for r in rows:
+        f = fams.setdefault(r["family"], {"calls": 0,
+                                          **{k: 0.0 for k in CSR_SUMS}})
+        f["calls"] += 1
+        for k in CSR_SUMS:
+            f[k] += r[k]
+    return fams
+
+
+def phase_csr_reduce(model, human, tables):
+    """Row 8 at the shapes of the 17 calls of one B = 128 step (recorded
+    from one loss + gradient: STEP_LAUNCHES' csr_reduce count) and at the
+    nine convs' dx shapes ([384, V1*S, C_in] over the inverse spiral
+    tables, the stress case of the long dummy row), checked and timed by
+    csr_checks.  Returns (the step's rows, the dx rows)."""
+    calls = step_csr_calls(model, human, tables)
+    require(len(calls) == STEP_LAUNCHES["csr_reduce"],
+            f"one step recorded {len(calls)} csr_reduce calls, "
+            f"STEP_LAUNCHES counts {STEP_LAUNCHES['csr_reduce']}")
+    step_rows = csr_checks(calls, "step", seed=2)
+    for fam, f in csr_family_sums(step_rows).items():
+        log(f"[csr] step family {fam:9s} {f['calls']:2d} calls: device ms "
+            f"kernel {f['ms']:.4f} v1 {f['v1_ms']:.4f} plain "
+            f"{f['plain_ms']:.4f} index_add_ {f['library_ms']:.4f} bound "
+            f"{f['bound_ms']:.4f}")
+    dx_calls = [{"family": "dx", "label": f"dx {label}",
+                 "shape": (TRUNK_B, v1 * s, cin), "table": csr, "wt": None}
+                for label, v1, s, cin, _co, _a, _sp, csr in conv_layers(model)]
+    dx_rows = csr_checks(dx_calls, "conv", seed=3)
+    return step_rows, dx_rows
+
+
+def phase_csr_trainer(model, human, tables):
+    """Row 8 at the shapes of one Trainer step's calls (trunk batch 12,
+    the banded routes on: the unfused dx, the fix-ups' backward at B = 1,
+    the gathers'), recorded from one loss + gradient, checked and timed by
+    csr_checks."""
+    calls = step_csr_calls(model, human, tables, b=TRAINER_B)
+    log(f"[csr] one Trainer step (trunk {TRAINER_TRUNK_B}, 'ori'): "
+        f"{len(calls)} csr_reduce calls (TRAIN_LAUNCHES counts "
+        f"{TRAIN_LAUNCHES['csr_reduce']})")
+    rows = csr_checks(calls, "trainer", seed=8)
+    for fam, f in csr_family_sums(rows).items():
+        log(f"[csr] trainer family {fam:9s} {f['calls']:2d} calls: device "
+            f"ms kernel {f['ms']:.4f} v1 {f['v1_ms']:.4f} bound "
+            f"{f['bound_ms']:.4f}")
+    return rows
+
+
+def csr_tile_sweep(model, human, tables) -> None:
+    """Tuning only: the kernel's device ms at each call of the step with
+    its batch tile held to at most 4 (the largest the kernel takes), 2 and
+    1."""
+    from semantichuman_torch.ops import csr_reduce as TR
+
+    tiles = TR._BATCH_TILES
+    gen = torch.Generator(device=DEVICE).manual_seed(9)
+    try:
+        for call in step_csr_calls(model, human, tables):
+            table, wt = call["table"], call["wt"]
+            g = torch.randn(call["shape"], generator=gen, device=DEVICE)
+            ms = {}
+            for top in tiles:
+                TR._BATCH_TILES = tuple(t for t in tiles if t <= top)
+                ms[top] = round(device_ms(lambda: TR.csr_reduce(g, table,
+                                                                wt)), 4)
+            log(f"[csr] tiles {call['label']:16s} {list(call['shape'])} "
+                f"weighted {wt is not None}: device ms by largest tile "
+                f"{ms}")
+            del g
+    finally:
+        TR._BATCH_TILES = tiles
 
 
 def gather_calls(model, tables):
@@ -913,16 +1113,12 @@ def phase_gather_rows(model, tables):
     sums within 2e-6 of the plain version's largest entry (both round each
     product and sum in tap order), two runs bit-equal.  Device times
     (device_ms) of the kernel, the plain version and, in float32, the
-    library call (gather_library), beside the byte bound.  Then row 8
-    weighted at the unpools' backward shapes (the transposes of their
-    taps, [384, V_f+1, C] float32 cotangents) against its plain version
-    (1e-5 of the largest entry, two runs bit-equal), timed beside
-    `index_add_` of the pre-weighted taps."""
-    from semantichuman_torch.ops import csr_reduce as TR
+    library call (gather_library), beside the byte bound.  Row 8 at the
+    unpools' backward is phase_csr_reduce's."""
     from semantichuman_torch.ops import row_gather as RG
 
     gen = torch.Generator(device=DEVICE).manual_seed(6)
-    rows, bwd_rows = [], []
+    rows = []
     for label, b, n, table, c in gather_calls(model, tables):
         x32 = torch.randn((b, n, c), generator=gen, device=DEVICE)
         for dtype in (torch.float32, torch.bfloat16):
@@ -968,46 +1164,9 @@ def phase_gather_rows(model, tables):
                 f"library {row['library_ms']} bound {row['bound_ms']:.4f} "
                 f"({100 * row['bound_ms'] / row['ms']:.0f} % of it)")
             del got, again, ref, x
-        if table.w is not None:
-            # row 8 weighted: the transpose of the taps
-            g = torch.randn((b, table.n_rows, c), generator=gen,
-                            device=DEVICE)
-
-            def reduce():
-                return TR.csr_reduce(g, table.inverse, table.inv_w)
-
-            got, again = reduce(), reduce()
-            ref = TR.csr_reduce_plain(g, table.inverse, table.inv_w)
-            sync()
-            require(torch.equal(got, again), f"csr weighted {label}: runs "
-                    "differ")
-            torch.testing.assert_close(
-                got, ref, rtol=0, atol=1e-5 * float(ref.abs().max()),
-                msg=lambda m: f"csr weighted {label}: {m}")
-            flat = table.idx.reshape(-1).long()
-            gw = g.repeat_interleave(table.taps, dim=1) \
-                * table.w.reshape(-1)[None, :, None]
-            nnz = flat.numel()
-            nbytes = (g.numel() * 4 + b * n * c * 4
-                      + (n + 1 + 2 * nnz) * 4)
-            brow = {"call": label, "batch": b, "c": c,
-                    "max_abs_err": float((got - ref).abs().max()),
-                    "ms": device_ms(reduce),
-                    "plain_ms": device_ms(lambda: TR.csr_reduce_plain(
-                        g, table.inverse, table.inv_w)),
-                    "library_ms": device_ms(lambda: torch.zeros(
-                        (b, n, c), device=DEVICE).index_add_(1, flat, gw)),
-                    "bound_ms": nbytes / PEAK_BYTES * 1e3,
-                    "bound_by": "bytes"}
-            bwd_rows.append(brow)
-            log(f"[csr] weighted {label} [{b}, {table.n_rows}, {c}] "
-                f"err={brow['max_abs_err']:.3e} device ms kernel "
-                f"{brow['ms']:.4f} plain {brow['plain_ms']:.4f} index_add_ "
-                f"{brow['library_ms']:.4f} bound {brow['bound_ms']:.4f}")
-            del g, got, again, ref, gw
         del x32
     torch.cuda.empty_cache()
-    return rows, bwd_rows
+    return rows
 
 
 def part_dist_case(human, w_mode, batch: int = TRAIN_B):
@@ -1234,15 +1393,17 @@ def phase_part_dist_trainer(human):
     return rows
 
 
-def host_batch(human, tables, seed: int) -> dict:
-    """One segment of B = 128 on the device: verts with the dummy row,
-    measures, and the staged GT edge lengths and part volumes."""
+def host_batch(human, tables, seed: int, b: int | None = None) -> dict:
+    """One segment of B = b (TRAIN_B if None) on the device: verts with
+    the dummy row, measures, and the staged GT edge lengths and part
+    volumes."""
     from semantichuman_torch.ops.distance import (face_edge_lengths,
                                                   signed_part_volumes)
 
-    verts = human.sample_meshes(TRAIN_B, seed=seed).astype(np.float32)
+    b = TRAIN_B if b is None else b
+    verts = human.sample_meshes(b, seed=seed).astype(np.float32)
     v = torch.from_numpy(np.concatenate(
-        [verts, np.zeros((TRAIN_B, 1, 3), np.float32)], axis=1)).to(DEVICE)
+        [verts, np.zeros((b, 1, 3), np.float32)], axis=1)).to(DEVICE)
     with torch.no_grad():
         edges = face_edge_lengths(v[:, :-1], tables.faces)
         vols = signed_part_volumes(v[:, :-1], tables.faces,
@@ -1256,7 +1417,7 @@ def host_batch(human, tables, seed: int) -> dict:
 def reset_counts():
     from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
                                                        banded_gather_fwd)
-    from semantichuman_torch.ops.csr_reduce import csr_reduce
+    from semantichuman_torch.ops.csr_reduce import csr_reduce, csr_reduce_v1
     from semantichuman_torch.ops.part_dist import (part_dist_sums,
                                                    part_dist_v1)
     from semantichuman_torch.ops.row_gather import row_gather
@@ -1266,7 +1427,7 @@ def reset_counts():
                                                      spiral_conv_fwd_v1)
 
     for fn in (spiral_conv, spiral_conv_fwd_v1, spiral_conv_bwd_dw,
-               spiral_conv_bwd_dx, csr_reduce, part_dist_v1,
+               spiral_conv_bwd_dx, csr_reduce, csr_reduce_v1, part_dist_v1,
                banded_gather_fwd, banded_gather_bwd, row_gather):
         fn.launches = 0
     for mode in part_dist_sums.launches:
@@ -1276,7 +1437,7 @@ def reset_counts():
 def read_counts() -> dict:
     from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
                                                        banded_gather_fwd)
-    from semantichuman_torch.ops.csr_reduce import csr_reduce
+    from semantichuman_torch.ops.csr_reduce import csr_reduce, csr_reduce_v1
     from semantichuman_torch.ops.part_dist import (part_dist_sums,
                                                    part_dist_v1)
     from semantichuman_torch.ops.row_gather import row_gather
@@ -1290,6 +1451,7 @@ def read_counts() -> dict:
             "spiral_conv_bwd_dw": spiral_conv_bwd_dw.launches,
             "spiral_conv_bwd_dx": spiral_conv_bwd_dx.launches,
             "csr_reduce": csr_reduce.launches,
+            "csr_reduce_v1": csr_reduce_v1.launches,
             **{f"part_dist_{m}": n for m, n in part_dist_sums.launches.items()},
             "part_dist_v1": part_dist_v1.launches,
             "banded_gather_fwd": banded_gather_fwd.launches,
@@ -1405,6 +1567,7 @@ def phase_train(human, hier):
         lambda: step(p, state, *segs, spec))
     prof["gathers_vs_index_select"] = step_gathers_vs_index_select(
         lambda: step(p, state, *segs, spec))
+    prof["csr_vs_v1"] = step_csr_vs_v1(lambda: step(p, state, *segs, spec))
 
     # --- bf16 trunk, one step --------------------------------------------------
     model16 = build_model(ModelConfig(trunk_dtype="bfloat16"), hier,
@@ -1575,6 +1738,63 @@ def step_gathers_vs_index_select(run, reps: int = 3) -> dict:
     for name, fam in out["families_ms"].items():
         log(f"[profile]   {name} by family, ms per step: "
             f"{ {k: round(v, 4) for k, v in fam.items()} }")
+    return out
+
+
+def step_csr_vs_v1(run, reps: int = 3) -> dict:
+    """The yardstick of row 8's redesign: the step with every csr_reduce
+    call swapped to csr_reduce_v1 (the port's first kernel) and through
+    the kernel, in turns (kernel, v1, v1, kernel), on the same parameters
+    and batch: wall ms per step, device ms, and the device ms of the two
+    CSR families; in each run the other family must read 0.  Outside the
+    counted steps; the swap lives here only."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    from semantichuman_torch.ops import row_gather as RG
+    from semantichuman_torch.ops import spiral_conv as SC
+
+    if DEVICE != "cuda":
+        return {}
+    kernel = TR.csr_reduce
+    runs = {k: [] for k in ("wall_ms", "v1_wall_ms", "device_ms",
+                            "v1_device_ms", "csr_ms", "v1_csr_ms")}
+    try:
+        for v1 in (False, True, True, False):
+            RG.csr_reduce = SC.csr_reduce = (TR.csr_reduce_v1 if v1
+                                             else kernel)
+            run()
+            sync()
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            sync()
+            wall = (time.perf_counter() - t0) * 1e3 / reps
+            by_name = device_by_name(run, reps)
+            require(bool(by_name), "the profiler saw no device kernels in "
+                    "the step")
+            fam = {k: sum(t for n, t in by_name.items()
+                          if PROFILE_GROUPS[k] in n)
+                   for k in ("csr_reduce", "csr_reduce_v1")}
+            used, other = (("csr_reduce_v1", "csr_reduce") if v1
+                           else ("csr_reduce", "csr_reduce_v1"))
+            require(fam[other] == 0 and fam[used] > 0, f"step with "
+                    f"{used}: CSR families {fam}")
+            pre = "v1_" if v1 else ""
+            runs[pre + "wall_ms"].append(wall)
+            runs[pre + "device_ms"].append(sum(by_name.values()))
+            runs[pre + "csr_ms"].append(fam[used])
+    finally:
+        RG.csr_reduce = SC.csr_reduce = kernel
+    out = {k: float(np.mean(v)) for k, v in runs.items()}
+    out.update({f"{k}_runs": v for k, v in runs.items()})
+    log(f"[profile] train step, csr_reduce through the kernel: "
+        f"{out['wall_ms']:.3f} ms/step "
+        f"{np.round(runs['wall_ms'], 3).tolist()}, device "
+        f"{out['device_ms']:.3f} ms, csr {out['csr_ms']:.4f} ms "
+        f"{np.round(runs['csr_ms'], 4).tolist()}; through v1: "
+        f"{out['v1_wall_ms']:.3f} ms/step "
+        f"{np.round(runs['v1_wall_ms'], 3).tolist()}, device "
+        f"{out['v1_device_ms']:.3f} ms, csr {out['v1_csr_ms']:.4f} ms "
+        f"{np.round(runs['v1_csr_ms'], 4).tolist()}")
     return out
 
 
@@ -2103,8 +2323,12 @@ def parse_args(argv):
                       help="phase 1 and the part_dist kernel's checks and "
                       "times alone (phase 4's and phase 6's)")
     mode.add_argument("--gather-rows", action="store_true",
-                      help="phase 1 and the row gather's and the weighted "
-                      "csr_reduce's checks and times alone (phase 4's)")
+                      help="phase 1 and the row gather's checks and times "
+                      "alone (phase 4's)")
+    mode.add_argument("--csr-reduce", action="store_true",
+                      help="phase 1 and the CSR reduce's checks and times "
+                      "alone (phases 4 and 6), with a sweep of its batch "
+                      "tile")
     return p.parse_args(argv)
 
 
@@ -2166,6 +2390,14 @@ def main(argv=None) -> int:
         phase_gather_rows(model, loss_tables)
         log(card)
         return 0
+    if args.csr_reduce:
+        # the CSR reduce's checks alone, for tuning its kernel
+        step_rows, _dx = phase_csr_reduce(model, human, loss_tables)
+        phase_csr_trainer(model, human, loss_tables)
+        csr_tile_sweep(model, human, loss_tables)
+        log(json.dumps({"families": csr_family_sums(step_rows)}))
+        log(card)
+        return 0
 
     rows, max_err = phase_kernels(model)
     serve, serve_take, timing, timing_take = phase_serving(
@@ -2188,12 +2420,13 @@ def main(argv=None) -> int:
         f"({100 * kernel_ms / timing[BATCH]:.1f} %)")
 
     conv_bwd = phase_conv_backward(model)
-    csr_rows = phase_csr_reduce(model)
-    gather_shapes, csr_weighted = phase_gather_rows(model, loss_tables)
+    csr_step, csr_dx = phase_csr_reduce(model, human, loss_tables)
+    gather_shapes = phase_gather_rows(model, loss_tables)
     pd_rows = phase_part_dist(human)
     banded_rows = phase_banded_kernels(model)
     conv_bwd_trainer = phase_conv_backward_trainer(model)
     pd_trainer = phase_part_dist_trainer(human)
+    csr_trainer = phase_csr_trainer(model, human, loss_tables)
     torch.cuda.empty_cache()
     train = phase_train(human, hier)
     step_counts = train.pop("counts")
@@ -2209,8 +2442,6 @@ def main(argv=None) -> int:
         return {"launches": sum(by_path.values()),
                 "launches_by_path": by_path}
 
-    # the step's dx calls: every conv but the first, whose input is data
-    step_csr = csr_rows[1:]
     bwd32 = [r for r in conv_bwd if r["dtype"] == "float32"]
     bwd_sum = {k: sum(r[k] for r in bwd32)
                for k in ("ms", "fused_ms", "unfused_ms", "plain_ms",
@@ -2362,6 +2593,10 @@ def main(argv=None) -> int:
                                  **r["row_gather"]}
                                 for r in banded_rows if "row_gather" in r],
     })
+    # row 8: the 17 calls of one B = 128 step at their shapes, summed; by
+    # family beside them; the conv dx shapes and the Trainer's shapes
+    csr_fams = csr_family_sums(csr_step)
+    csr_w = [r for r in csr_step if r["weighted"]]
     kernels.append({
         "name": "csr_reduce",
         "row": 8,
@@ -2369,19 +2604,27 @@ def main(argv=None) -> int:
         "source": "semantichuman_torch/csrc/csr_reduce.cu",
         "replaces": "benchmarks/pallas_dma_gather_probe.py:157",
         **launches("csr_reduce"),
-        "max_abs_err": max(r["max_abs_err"] for r in csr_rows),
-        # the eight dx reductions of one training step (B = 384), summed
-        "ms": sum(r["ms"] for r in step_csr),
-        "plain_ms": sum(r["plain_ms"] for r in step_csr),
-        "bound_ms": sum(r["bound_ms"] for r in step_csr),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in csr_step + csr_dx + csr_trainer),
+        **{k: sum(r[k] for r in csr_step) for k in CSR_SUMS},
         "bound_by": "bytes",
-        "library_ms": sum(r["library_ms"] for r in step_csr),
-        "layers": csr_rows,
+        # the yardstick: the port's first kernel (csrc/csr_reduce_v1.cu),
+        # bit-equal at every shape above
+        "v1_launches_by_path": launches("csr_reduce_v1")[
+            "launches_by_path"],
+        "families": csr_fams,
+        "step_calls": csr_step,
         # weighted, at the four unpools' backward shapes (B = 384)
-        "weighted": csr_weighted,
-        "weighted_ms": sum(r["ms"] for r in csr_weighted),
-        "weighted_bound_ms": sum(r["bound_ms"] for r in csr_weighted),
-        "weighted_library_ms": sum(r["library_ms"] for r in csr_weighted),
+        "weighted_ms": sum(r["ms"] for r in csr_w),
+        "weighted_v1_ms": sum(r["v1_ms"] for r in csr_w),
+        "weighted_bound_ms": sum(r["bound_ms"] for r in csr_w),
+        "weighted_library_ms": sum(r["library_ms"] for r in csr_w),
+        # the stress case: the nine convs' dx shapes at 384; the step runs
+        # the 64 -> 128 conv's
+        "conv_dx": csr_dx,
+        "conv_dx_ms": {k: sum(r[k] for r in csr_dx[1:]) for k in CSR_SUMS},
+        "trainer_calls": csr_trainer,
+        "step_vs_v1": train.get("csr_vs_v1"),
         "conv_backward_f32_sum": bwd_sum,
         "conv_backward": conv_bwd,
     })

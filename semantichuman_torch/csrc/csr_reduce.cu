@@ -7,182 +7,362 @@
 //
 // g [B, M, C] float32, offs [V1+1] and cols [nnz] int32, wt [nnz] float32
 // in CSR order or null (every weight 1: no multiply), out [B, V1, C]
-// float32.  In the port it is the spiral conv's input gradient: g is the
-// gathered-row gradient dy' @ W^T viewed as [B, V1*S, C], and (offs, cols)
-// is the inverse spiral table, so `out` is the transpose of the gather
-// x[b, spiral[v, s]] without a scatter.  It is also the backward of every
-// row gather of the training path (ops/row_gather.py:GatherRowsFn), where
-// the weighted form is the transpose of unpool's barycentric taps.  Every
-// sum runs in a fixed order (no atomics), so the result is the same from
-// run to run; a weighted term is rounded before it is added (__fmul_rn,
-// no FMA), as the plain version computes it.
+// float32.  In the port it is the backward of every row gather of the
+// training path (ops/row_gather.py:GatherRowsFn; weighted for unpool's
+// barycentric taps) and the spiral conv's input gradient on the unfused
+// route, where g is dy' @ W^T viewed as [B, V1*S, C] and (offs, cols) the
+// inverse spiral table.  Every sum runs in a fixed order (no atomics) and
+// a weighted term is rounded before it is added (__fmul_rn, __fadd_rn: no
+// FMA), so the result repeats from run to run and equals, bit for bit, the
+// port's first kernel (csrc/csr_reduce_v1.cu), which keeps this order and
+// rounding with one thread per (b, u, c).
 //
-// Bound on an H100 SXM: bytes.  Each element of g is read once and each
-// output written once, one add per 4 bytes read; at the training step's
-// largest call (B = 384, level 0, V1*S = 103,395 rows of C = 32) that is
-// 5.08 GB read + 0.34 GB written, 1.6 ms at 3.35 TB/s.
+// Bound on an H100 SXM: bytes.  Each element of g read once, each output
+// written once, one add per 4 bytes read.  At the largest weighted call
+// of the training step, unpool L1 -> L0's backward at B = 384 (g
+// [384, 6893, 32], out [384, 3447, 32]), that is 0.34 GB read and
+// 0.17 GB written, 0.15 ms at 3.35 TB/s.  The reads are gathers: each g
+// row of an unpool is read by its three taps' rows, so 1.02 GB crosses
+// from L2.  What holds a gather kernel to L2's rate is the number of
+// bytes in flight, which a thread per (b, u, c) with 4-byte loads, one
+// dependent chain each (cols[j] -> g), and the table reloaded for every
+// batch element does not reach.
 //
-// Design.  Rows of the inverse table are short (at most 38 entries at
-// level 0) except the dummy row V1-1, which every spiral pad points at:
-// 34,041 of level 0's 103,395 entries.  One schedule for all rows would
-// serialise on it, so rows are split by length at a threshold the wrapper
-// passes:
-//   * short rows: one thread per (b, u, c), c fastest, so a warp reads
-//     consecutive channels of the same gathered rows; it sums the row's
-//     entries in order;
-//   * long rows (the dummy row in practice) are cut into chunks of equal
-//     length.  One block per (chunk, b): lanes run over channels (up to 4
-//     per lane, 128 per grid.z slice), 8 warps over the chunk's entries;
-//     the 8 warp sums are added in warp order into a partial sum per
-//     chunk.  A last kernel adds each long row's chunk partials in chunk
-//     order.
+// Design.  Rows of these tables are short (unpool inverses at most 27
+// entries, pool inverses 0 or 1, spiral inverses at most 38) except the
+// dummy row of a spiral inverse, which every spiral pad points at (34,041
+// of level 0's 103,395 entries).  Rows are split by length at a threshold
+// the wrapper passes:
+//   * short rows, one thread per (row u, 16-byte unit of C), u slowest,
+//     flat over V1 * units: that flat index is also the unit's offset in
+//     out[b], so every warp stores one contiguous run.  A thread reads
+//     offs[u], offs[u+1] once and each entry's cols[j] and wt[j] once per
+//     tile of BT batch elements (grid.y = ceil(B / BT)).  It takes the
+//     entries in groups of E = 8 / BT: first the group's E column
+//     indices, then its E * BT loads of g, all issued before any is used,
+//     then the adds in ascending j: 8 loads in flight a thread whatever
+//     the row's length.  Loads past the row's end or the tile's last batch
+//     element read the last valid ones again instead of branching (a
+//     branch per entry made each load of g wait for its index: the C = 3
+//     calls at B = 4 ran some 20 % slower than v1).  The wrapper picks BT
+//     (ops/csr_reduce.py:plan): up to 4 while the grid keeps one card's
+//     worth of threads; 1 for 4-byte units (C odd) over rows of 4 or more
+//     entries on average, which measured faster there (the faces'
+//     backward, rows of 12 bytes).  BT = 8 and 16 measured slower (BT = 16
+//     needs some 160 registers a thread, one block an SM).  Units of 8 or
+//     4 bytes where C is not a multiple of 4.
+//   * long rows keep the first kernel's reduction tree, which fixes the
+//     order of the sums: chunks of equal length; in a chunk, warp w sums
+//     the entries w, w + 8, w + 16, ...; the 8 warp sums are added in warp
+//     order into a partial per chunk; a last kernel adds each long row's
+//     chunk partials in chunk order.  Here a warp's lanes run over (batch
+//     element, unit) pairs, up to 32 / units batch elements a warp where a
+//     row is at most 32 units, so a lane moves 16 bytes a load and no lane
+//     idles at C = 16, 32 or 64; the wrapper gives a warp fewer batch
+//     elements where the grid would leave SMs idle (the Trainer's batch
+//     12).
 // The wrapper allocates the partial-sum scratch [n_chunks, B, C].
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kPerLane = 4;                 // channels per lane in a slice
-constexpr int kSlice = 32 * kPerLane;       // channels per grid.z slice
+constexpr int kThreads = 256;
+constexpr int kWarps = 8;       // warps over a long row's chunk (the tree)
 
-// the term of entry j: g's value, times wt[j] in the weighted instance
-// (a template parameter, so the unweighted loop is the plain sum)
+template <int NV>
+struct VecOf;
+template <>
+struct VecOf<4> {
+  using T = float4;
+};
+template <>
+struct VecOf<2> {
+  using T = float2;
+};
+template <>
+struct VecOf<1> {
+  using T = float;
+};
+
+__device__ __forceinline__ void unpack(float4 a, float* v) {
+  v[0] = a.x;
+  v[1] = a.y;
+  v[2] = a.z;
+  v[3] = a.w;
+}
+__device__ __forceinline__ void unpack(float2 a, float* v) {
+  v[0] = a.x;
+  v[1] = a.y;
+}
+__device__ __forceinline__ void unpack(float a, float* v) { v[0] = a; }
+__device__ __forceinline__ void pack(const float* v, float4& a) {
+  a = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void pack(const float* v, float2& a) {
+  a = make_float2(v[0], v[1]);
+}
+__device__ __forceinline__ void pack(const float* v, float& a) { a = v[0]; }
+
+// acc + wt * v, the product rounded on its own (the weighted instance),
+// or acc + v
 template <bool W>
-__device__ __forceinline__ float term(const float* __restrict__ wt, int j,
-                                      float v) {
-  if constexpr (W) return __fmul_rn(__ldg(wt + j), v);
-  return v;
+__device__ __forceinline__ float add_term(float acc, float w, float v) {
+  return __fadd_rn(acc, W ? __fmul_rn(w, v) : v);
 }
 
-template <bool W>
-__global__ void csr_short_kernel(const float* __restrict__ g,
-                                 const int* __restrict__ offs,
-                                 const int* __restrict__ cols,
-                                 const float* __restrict__ wt,
-                                 float* __restrict__ out, int M, int V1,
-                                 int C, int long_thresh) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= V1 * C) return;
-  const int b = blockIdx.y;
-  const int u = idx / C;
-  const int c = idx - u * C;
-  const int lo = offs[u];
-  const int hi = offs[u + 1];
+template <int NV, int BT, bool W>
+__global__ void __launch_bounds__(kThreads)
+csr_rows_kernel(const typename VecOf<NV>::T* __restrict__ g,
+                const int* __restrict__ offs, const int* __restrict__ cols,
+                const float* __restrict__ wt,
+                typename VecOf<NV>::T* __restrict__ out, int units,
+                int n_units, long long g_batch, int B, int long_thresh) {
+  using V = typename VecOf<NV>::T;
+  const int k = blockIdx.x * kThreads + threadIdx.x;
+  if (k >= n_units) return;
+  const int u = k / units;
+  const int q = k - u * units;
+  const int lo = __ldg(offs + u);
+  const int hi = __ldg(offs + u + 1);
   if (hi - lo > long_thresh) return;        // written by the long-row path
-  const float* gb = g + (size_t)b * M * C + c;
-  float acc = 0.f;
-  for (int j = lo; j < hi; ++j)
-    acc += term<W>(wt, j, gb[(size_t)cols[j] * C]);
-  out[((size_t)b * V1 + u) * C + c] = acc;
+  const int b0 = blockIdx.y * BT;
+  const int nb = min(BT, B - b0);
+  const V* gb = g + static_cast<long long>(b0) * g_batch + q;
+  float acc[BT][NV];
+#pragma unroll
+  for (int t = 0; t < BT; ++t)
+#pragma unroll
+    for (int i = 0; i < NV; ++i) acc[t][i] = 0.f;
+  // entries in groups of E: the group's column indices and weights, then
+  // its E * BT loads of g are issued together (indices clamped to the
+  // row's last entry and batch elements to the tile's last, so no load
+  // waits behind a branch), then added in ascending j
+  constexpr int E = 8 / BT;
+  for (int j0 = lo; j0 < hi; j0 += E) {
+    int col[E];
+    float w[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = min(j0 + e, hi - 1);
+      col[e] = __ldg(cols + j);
+      w[e] = W ? __ldg(wt + j) : 1.f;
+    }
+    V v[E][BT];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const V* src = gb + static_cast<long long>(col[e]) * units;
+#pragma unroll
+      for (int t = 0; t < BT; ++t)
+        v[e][t] = __ldg(src + min(t, nb - 1) * g_batch);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      if (j0 + e < hi) {
+#pragma unroll
+        for (int t = 0; t < BT; ++t) {
+          if (t < nb) {
+            float f[NV];
+            unpack(v[e][t], f);
+#pragma unroll
+            for (int i = 0; i < NV; ++i)
+              acc[t][i] = add_term<W>(acc[t][i], w[e], f[i]);
+          }
+        }
+      }
+    }
+  }
+  V* dst = out + static_cast<long long>(b0) * n_units + k;
+#pragma unroll
+  for (int t = 0; t < BT; ++t) {
+    if (t < nb) {
+      V o;
+      pack(acc[t], o);
+      dst[static_cast<long long>(t) * n_units] = o;
+    }
+  }
 }
 
-template <bool W>
+// One block per (chunk k, group of bpw batch elements, slice of 32
+// units): lane l takes batch element b0 + l / upw and unit q0 + l % upw,
+// warp w the chunk's entries w, w + kWarps, ...; the warp sums are added
+// in warp order.  upw = min(units, 32), bpw * upw <= 32.
+template <int NV, bool W>
 __global__ void __launch_bounds__(32 * kWarps)
-csr_long_partial_kernel(const float* __restrict__ g,
-                        const int* __restrict__ cols,
-                        const float* __restrict__ wt,
-                        const int* __restrict__ chunk_lo,
-                        const int* __restrict__ chunk_hi,
-                        float* __restrict__ partial, int B, int M, int C) {
-  __shared__ float red[kWarps][kSlice];
+csr_rows_long_kernel(const typename VecOf<NV>::T* __restrict__ g,
+                     const int* __restrict__ cols,
+                     const float* __restrict__ wt,
+                     const int* __restrict__ chunk_lo,
+                     const int* __restrict__ chunk_hi,
+                     typename VecOf<NV>::T* __restrict__ partial, int B,
+                     int units, int upw, int bpw, long long g_batch) {
+  using V = typename VecOf<NV>::T;
+  __shared__ float red[kWarps][32][NV];
   const int k = blockIdx.x;
-  const int b = blockIdx.y;
-  const int c0 = blockIdx.z * kSlice;
   const int lane = threadIdx.x;
   const int warp = threadIdx.y;
-  const float* gb = g + (size_t)b * M * C;
-  float acc[kPerLane];
+  const int b = blockIdx.y * bpw + lane / upw;
+  const int q = blockIdx.z * 32 + lane % upw;
+  const bool active = lane < bpw * upw && b < B && q < units;
+  float acc[NV];
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) acc[i] = 0.f;
-  const int hi = chunk_hi[k];
-  for (int j = chunk_lo[k] + warp; j < hi; j += kWarps) {
-    const float* row = gb + (size_t)cols[j] * C;
+  for (int i = 0; i < NV; ++i) acc[i] = 0.f;
+  if (active) {
+    const V* gb = g + static_cast<long long>(b) * g_batch + q;
+    const int hi = chunk_hi[k];
+#pragma unroll 4
+    for (int j = chunk_lo[k] + warp; j < hi; j += kWarps) {
+      const float w = W ? __ldg(wt + j) : 1.f;
+      float f[NV];
+      unpack(__ldg(gb + static_cast<long long>(__ldg(cols + j)) * units), f);
 #pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int c = c0 + lane + 32 * i;
-      if (c < C) acc[i] += term<W>(wt, j, row[c]);
+      for (int i = 0; i < NV; ++i) acc[i] = add_term<W>(acc[i], w, f[i]);
     }
   }
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) red[warp][lane + 32 * i] = acc[i];
+  for (int i = 0; i < NV; ++i) red[warp][lane][i] = acc[i];
   __syncthreads();
-  if (warp != 0) return;
+  if (warp != 0 || !active) return;
+  float s[NV];
 #pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int c = c0 + lane + 32 * i;
-    if (c >= C) continue;
-    float s = 0.f;
+  for (int i = 0; i < NV; ++i) {
+    s[i] = 0.f;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) s += red[w][lane + 32 * i];
-    partial[((size_t)k * B + b) * C + c] = s;
+    for (int w = 0; w < kWarps; ++w) s[i] = __fadd_rn(s[i], red[w][lane][i]);
   }
+  V o;
+  pack(s, o);
+  partial[(static_cast<long long>(k) * B + b) * units + q] = o;
 }
 
-__global__ void csr_long_finish_kernel(const float* __restrict__ partial,
-                                       const int* __restrict__ long_rows,
-                                       const int* __restrict__ chunk_offs,
-                                       float* __restrict__ out, int B,
-                                       int V1, int C) {
-  const int i = blockIdx.x;
-  const int b = blockIdx.y;
-  const int u = long_rows[i];
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float s = 0.f;
-    for (int k = chunk_offs[i]; k < chunk_offs[i + 1]; ++k)
-      s += partial[((size_t)k * B + b) * C + c];
-    out[((size_t)b * V1 + u) * C + c] = s;
+// One thread per (long row i, batch element b, unit q): the row's chunk
+// partials added in chunk order.
+template <int NV>
+__global__ void __launch_bounds__(kThreads)
+csr_rows_finish_kernel(const typename VecOf<NV>::T* __restrict__ partial,
+                       const int* __restrict__ long_rows,
+                       const int* __restrict__ chunk_offs,
+                       typename VecOf<NV>::T* __restrict__ out, int B,
+                       int V1, int units, int n_long) {
+  using V = typename VecOf<NV>::T;
+  const long long n = static_cast<long long>(n_long) * B * units;
+  const long long t = static_cast<long long>(blockIdx.x) * kThreads +
+                      threadIdx.x;
+  if (t >= n) return;
+  const int q = static_cast<int>(t % units);
+  const int b = static_cast<int>((t / units) % B);
+  const int i = static_cast<int>(t / (static_cast<long long>(units) * B));
+  float s[NV];
+#pragma unroll
+  for (int c = 0; c < NV; ++c) s[c] = 0.f;
+  for (int k = chunk_offs[i]; k < chunk_offs[i + 1]; ++k) {
+    float f[NV];
+    unpack(partial[(static_cast<long long>(k) * B + b) * units + q], f);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) s[c] = __fadd_rn(s[c], f[c]);
   }
+  V o;
+  pack(s, o);
+  out[(static_cast<long long>(b) * V1 + long_rows[i]) * units + q] = o;
+}
+
+struct Args {
+  const void* g;
+  const int* offs;
+  const int* cols;
+  const float* wt;
+  const int* chunk_lo;
+  const int* chunk_hi;
+  const int* long_rows;
+  const int* chunk_offs;
+  void* partial;
+  void* out;
+  int B, M, V1, units, long_thresh, n_long, n_chunks, bt, long_bpw;
+};
+
+template <int NV, int BT, bool W>
+void launch_rows(const Args& a, cudaStream_t st) {
+  using V = typename VecOf<NV>::T;
+  const int n_units = a.V1 * a.units;
+  const dim3 grid((n_units + kThreads - 1) / kThreads, (a.B + BT - 1) / BT);
+  csr_rows_kernel<NV, BT, W><<<grid, kThreads, 0, st>>>(
+      static_cast<const V*>(a.g), a.offs, a.cols, a.wt,
+      static_cast<V*>(a.out), a.units, n_units,
+      static_cast<long long>(a.M) * a.units, a.B, a.long_thresh);
+}
+
+template <int NV, bool W>
+int launch(const Args& a, cudaStream_t st) {
+  using V = typename VecOf<NV>::T;
+  switch (a.bt) {
+    case 1: launch_rows<NV, 1, W>(a, st); break;
+    case 2: launch_rows<NV, 2, W>(a, st); break;
+    case 4: launch_rows<NV, 4, W>(a, st); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (a.n_long == 0) return 0;
+  const int upw = a.units < 32 ? a.units : 32;
+  const int bpw = a.long_bpw;
+  if (bpw < 1 || bpw * upw > 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid_part(a.n_chunks, (a.B + bpw - 1) / bpw,
+                       (a.units + 31) / 32);
+  const long long g_batch = static_cast<long long>(a.M) * a.units;
+  csr_rows_long_kernel<NV, W><<<grid_part, dim3(32, kWarps), 0, st>>>(
+      static_cast<const V*>(a.g), a.cols, a.wt, a.chunk_lo, a.chunk_hi,
+      static_cast<V*>(a.partial), a.B, a.units, upw, bpw, g_batch);
+  const long long n_fin = static_cast<long long>(a.n_long) * a.B * a.units;
+  csr_rows_finish_kernel<NV><<<static_cast<unsigned>(
+      (n_fin + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      static_cast<const V*>(a.partial), a.long_rows, a.chunk_offs,
+      static_cast<V*>(a.out), a.B, a.V1, a.units, a.n_long);
+  return 0;
+}
+
+template <int NV>
+int launch_weighted(const Args& a, cudaStream_t st) {
+  return a.wt != nullptr ? launch<NV, true>(a, st) : launch<NV, false>(a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the three kernels on `stream` and returns cudaGetLastError()
-// (0 on success).  The caller has checked shapes, types, contiguity,
-// B <= 65535 and that rows longer than long_thresh are exactly the
-// n_long rows of long_rows, cut into the n_chunks chunks
-// [chunk_lo[k], chunk_hi[k]), chunks chunk_offs[i]..chunk_offs[i+1] of
-// long row i.  `wt` is null for the unweighted reduce.
+// Launches on `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for a unit or tile the kernels do not take.  `unit`
+// (16, 8 or 4 bytes) divides C * 4 and the addresses of g, out and
+// partial; `bt` (1, 2 or 4) is the batch tile, `long_bpw` the batch
+// elements a warp of the long-row kernel takes (long_bpw * min(units, 32)
+// <= 32).  The caller has
+// checked shapes, types, contiguity, that V1 * C / (unit / 4) and
+// ceil(B / bt) fit the grid, B <= 65535, and that rows longer than
+// long_thresh are exactly the n_long rows of long_rows, cut into the
+// n_chunks chunks [chunk_lo[k], chunk_hi[k]), chunks chunk_offs[i] ..
+// chunk_offs[i+1] of long row i.  `wt` is null for the unweighted reduce.
 int sh_csr_reduce(const void* g, const void* offs, const void* cols,
                   const void* wt, const void* chunk_lo, const void* chunk_hi,
                   const void* long_rows, const void* chunk_offs,
                   void* partial, void* out, int B, int M, int V1, int C,
-                  int long_thresh, int n_long, int n_chunks, void* stream) {
+                  int long_thresh, int n_long, int n_chunks, int unit,
+                  int bt, int long_bpw, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* gf = static_cast<const float*>(g);
-  const int* cl = static_cast<const int*>(cols);
-  const float* wf = static_cast<const float*>(wt);
-  float* of = static_cast<float*>(out);
-  const int threads = 256;
-  const dim3 grid_short((V1 * C + threads - 1) / threads, B);
-  const int* of_in = static_cast<const int*>(offs);
-  if (wf != nullptr) {
-    csr_short_kernel<true><<<grid_short, threads, 0, st>>>(
-        gf, of_in, cl, wf, of, M, V1, C, long_thresh);
-  } else {
-    csr_short_kernel<false><<<grid_short, threads, 0, st>>>(
-        gf, of_in, cl, nullptr, of, M, V1, C, long_thresh);
+  if (B <= 0 || V1 <= 0 || C <= 0) return 0;
+  if ((unit != 16 && unit != 8 && unit != 4) || (C * 4) % unit != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{g, static_cast<const int*>(offs),
+               static_cast<const int*>(cols), static_cast<const float*>(wt),
+               static_cast<const int*>(chunk_lo),
+               static_cast<const int*>(chunk_hi),
+               static_cast<const int*>(long_rows),
+               static_cast<const int*>(chunk_offs), partial, out, B, M, V1,
+               C * 4 / unit, long_thresh, n_long, n_chunks, bt, long_bpw};
+  int rc = 0;
+  switch (unit) {
+    case 16: rc = launch_weighted<4>(a, st); break;
+    case 8: rc = launch_weighted<2>(a, st); break;
+    default: rc = launch_weighted<1>(a, st); break;
   }
-  if (n_long > 0) {
-    const dim3 grid_part(n_chunks, B, (C + kSlice - 1) / kSlice);
-    const int* lo = static_cast<const int*>(chunk_lo);
-    const int* hi = static_cast<const int*>(chunk_hi);
-    float* part = static_cast<float*>(partial);
-    if (wf != nullptr) {
-      csr_long_partial_kernel<true><<<grid_part, dim3(32, kWarps), 0, st>>>(
-          gf, cl, wf, lo, hi, part, B, M, C);
-    } else {
-      csr_long_partial_kernel<false><<<grid_part, dim3(32, kWarps), 0, st>>>(
-          gf, cl, nullptr, lo, hi, part, B, M, C);
-    }
-    const dim3 grid_fin(n_long, B);
-    csr_long_finish_kernel<<<grid_fin, 128, 0, st>>>(
-        static_cast<const float*>(partial),
-        static_cast<const int*>(long_rows),
-        static_cast<const int*>(chunk_offs), of, B, V1, C);
-  }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }
 

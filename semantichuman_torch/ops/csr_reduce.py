@@ -9,9 +9,12 @@ x[b, spiral[v, s]] over the inverse spiral table (`CSRTable`), and the
 backward of every row gather of the training path
 (`ops/row_gather.py:GatherRowsFn`; weighted for unpool's barycentric
 taps).  Each sum runs in ascending j, with no atomics.  `csr_reduce`
-launches the hand-written kernel (`csrc/csr_reduce.cu`) for a
-CUDA tensor and counts the launch in `csr_reduce.launches`; for a CPU
-tensor it runs `csr_reduce_plain`.
+launches the hand-written kernel (`csrc/csr_reduce.cu`: one thread per
+(row, 16-byte unit) over a tile of batch elements, `plan`) for a CUDA
+tensor and counts the launch in `csr_reduce.launches`; for a CPU tensor
+it runs `csr_reduce_plain`.  `csr_reduce_v1` is the port's first kernel
+(`csrc/csr_reduce_v1.cu`: a thread per (b, u, c)), kept as the
+yardstick: no main path calls it, and the two give the same bits.
 """
 
 from __future__ import annotations
@@ -28,6 +31,17 @@ from .kernels import build
 LONG_ROW = 64
 # entries per chunk of a long row
 CHUNK = 512
+# threads a block of the short-row kernel; threads that fill an H100 SXM
+# once (132 SMs x 2048): the batch tile grows only while the grid keeps at
+# least this many threads, as row 7's (ops/row_gather.py:_batch_tile)
+_THREADS = 256
+_SMS = 132
+_FILL_THREADS = _SMS * 2048
+# the kernel's batch tiles, largest first: 8 and 16 measured slower at the
+# training step's shapes (PERF.md, section 6)
+_BATCH_TILES = (4, 2, 1)
+# mean entries a row from which 4-byte units take a batch tile of 1
+ROUND_ROW = 4
 
 
 @dataclass(frozen=True)
@@ -120,37 +134,104 @@ def _check(g: torch.Tensor, table: CSRTable, wt=None) -> None:
                          f"float32 [nnz] on {g.device}")
 
 
-def csr_reduce(g: torch.Tensor, table: CSRTable,
-               wt: torch.Tensor | None = None) -> torch.Tensor:
-    """g [B, M, C] float32, wt [nnz] float32 in CSR order or None ->
-    [B, n_rows, C] float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if g.device.type == "cpu":
-        return csr_reduce_plain(g, table, wt)
-    if g.device.type != "cuda":
-        raise ValueError(f"csr_reduce runs on cpu or cuda, not {g.device}")
+def plan(b: int, n_rows: int, c: int, unit: int, n_chunks: int = 0,
+         nnz: int = 0) -> dict:
+    """The kernel's launch for g [b, *, c] float32 over n_rows output rows
+    holding nnz entries, moved in pieces of `unit` bytes (16, 8 or 4;
+    `row_gather.copy_unit`): units a row, the batch tile bt, the short-row
+    grid (ceil(n_rows * units / 256), ceil(b / bt)) and the long-row grid
+    (n_chunks, ceil(b / bpw), ceil(units / 32)), whose warps take upw =
+    min(units, 32) units of bpw batch elements: 32 // upw, halved while
+    the grid has fewer than two blocks an SM.  bt is the largest of
+    _BATCH_TILES that keeps the grid at one card's worth of threads (else
+    1), and 1 for 4-byte units over rows of ROUND_ROW entries or more on
+    average: there a batch element's entries are better in flight
+    together (PERF.md, section 6)."""
+    if unit not in (16, 8, 4) or (4 * c) % unit:
+        raise ValueError(f"no {unit}-byte unit divides a row of {c} floats")
+    units = 4 * c // unit
+    n_units = n_rows * units
+    if n_units >= 2 ** 31:
+        raise ValueError(f"{n_rows} rows of {units} units exceed the grid")
+    want = max(1, min(b, b * n_units // _FILL_THREADS))
+    if unit == 4 and nnz >= ROUND_ROW * n_rows:
+        want = 1
+    bt = next(t for t in _BATCH_TILES if t <= want)
+    upw = min(units, 32)
+    bpw = 32 // upw
+    while bpw > 1 and n_chunks * -(-b // bpw) * -(-units // 32) < 2 * _SMS:
+        bpw //= 2
+    grid = (-(-n_units // _THREADS), -(-b // bt))
+    long_grid = (n_chunks, -(-b // bpw), -(-units // 32))
+    if max(grid[1], long_grid[1], long_grid[2]) > 65535:
+        raise ValueError(f"batch {b} exceeds the kernel's grid")
+    return {"unit": unit, "units": units, "bt": bt, "grid": grid,
+            "long_bpw": bpw, "long_grid": long_grid}
+
+
+def _launch(name: str, g, table: CSRTable, wt, tiled: bool):
+    """Check, allocate and launch sh_<name> of library `name`, with the
+    unit and batch tile of `plan` where `tiled`; returns (output, whether
+    a kernel was launched: not for an empty output)."""
     _check(g, table, wt)
     b, m, c = g.shape
     out = torch.empty((b, table.n_rows, c), dtype=torch.float32,
                       device=g.device)
     if out.numel() == 0:
-        return out
+        return out, False
     n_chunks = table.chunk_lo.shape[0]
     partial = torch.empty((max(n_chunks, 1), b, c), dtype=torch.float32,
                           device=g.device)
-    lib = build.load("csr_reduce")
+    tile = ()
+    if tiled:
+        from .row_gather import copy_unit
+        p = plan(b, table.n_rows, c, copy_unit(4 * c, g, out, partial),
+                 n_chunks, table.cols.shape[0])
+        tile = (p["unit"], p["bt"], p["long_bpw"])
+    lib = build.load(name)
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sh_csr_reduce(
+        rc = getattr(lib, f"sh_{name}")(
             g.data_ptr(), table.offs.data_ptr(), table.cols.data_ptr(),
             None if wt is None else wt.data_ptr(),
             table.chunk_lo.data_ptr(), table.chunk_hi.data_ptr(),
             table.long_rows.data_ptr(), table.chunk_offs.data_ptr(),
             partial.data_ptr(), out.data_ptr(), b, m, table.n_rows, c,
-            LONG_ROW, table.long_rows.shape[0], n_chunks, stream)
-    build.check(lib, rc, "csr_reduce kernel launch")
-    csr_reduce.launches += 1
+            LONG_ROW, table.long_rows.shape[0], n_chunks, *tile, stream)
+    build.check(lib, rc, f"{name} kernel launch")
+    return out, True
+
+
+def _on_card(g, table, wt, name: str, tiled: bool, fn) -> torch.Tensor:
+    """csr_reduce_plain for a CPU tensor; for a CUDA one the kernel,
+    counted in fn.launches."""
+    if g.device.type == "cpu":
+        return csr_reduce_plain(g, table, wt)
+    if g.device.type != "cuda":
+        raise ValueError(f"csr_reduce runs on cpu or cuda, not {g.device}")
+    out, launched = _launch(name, g, table, wt, tiled)
+    fn.launches += int(launched)
     return out
 
 
+def csr_reduce(g: torch.Tensor, table: CSRTable,
+               wt: torch.Tensor | None = None) -> torch.Tensor:
+    """g [B, M, C] float32, wt [nnz] float32 in CSR order or None ->
+    [B, n_rows, C] float32.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel or raise."""
+    return _on_card(g, table, wt, "csr_reduce", True, csr_reduce)
+
+
 csr_reduce.launches = 0
+
+
+def csr_reduce_v1(g: torch.Tensor, table: CSRTable,
+                  wt: torch.Tensor | None = None) -> torch.Tensor:
+    """The port's first kernel (`csrc/csr_reduce_v1.cu`), the yardstick of
+    `csr_reduce`, counted in `csr_reduce_v1.launches`; no main path calls
+    it.  Arguments and result as csr_reduce's; a CPU tensor runs
+    csr_reduce_plain."""
+    return _on_card(g, table, wt, "csr_reduce_v1", False, csr_reduce_v1)
+
+
+csr_reduce_v1.launches = 0

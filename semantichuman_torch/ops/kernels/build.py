@@ -42,7 +42,11 @@ SIGNATURES = {
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "csr_reduce": {
-        "sh_csr_reduce": ([_VOIDP] * 10 + [_INT] * 7 + [_VOIDP], _INT),
+        "sh_csr_reduce": ([_VOIDP] * 10 + [_INT] * 10 + [_VOIDP], _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
+    "csr_reduce_v1": {
+        "sh_csr_reduce_v1": ([_VOIDP] * 10 + [_INT] * 7 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "part_dist": {

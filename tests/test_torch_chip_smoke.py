@@ -67,6 +67,33 @@ def test_profile_groups_split_the_two_part_dist_kernels():
         assert [g for g, key in groups.items() if key in label] == [family]
 
 
+def test_profile_groups_split_the_two_csr_kernels():
+    """Every kernel of csrc/csr_reduce.cu falls in `csr_reduce` alone, and
+    every kernel of csrc/csr_reduce_v1.cu in `csr_reduce_v1` alone, so the
+    step's profile tells the two apart when v1 is swapped in."""
+    new = _kernels("csr_reduce.cu")
+    old = _kernels("csr_reduce_v1.cu")
+    assert sorted(new) == ["csr_rows_finish_kernel", "csr_rows_kernel",
+                           "csr_rows_long_kernel"]
+    assert sorted(old) == ["csr_v1_long_finish_kernel",
+                           "csr_v1_long_partial_kernel",
+                           "csr_v1_short_kernel"]
+    groups = CS.PROFILE_GROUPS
+    for name, family in [(n, "csr_reduce") for n in new] + \
+            [(n, "csr_reduce_v1") for n in old]:
+        label = f"void (anonymous namespace)::{name}<4, 4, true>(float4)"
+        assert [g for g, key in groups.items() if key in label] == [family]
+
+
+def test_csr_reduce_mode_parses():
+    args = CS.parse_args(["--csr-reduce"])
+    assert args.csr_reduce and not (args.conv_forward or args.conv_backward
+                                    or args.part_dist or args.gather_rows)
+    assert not CS.parse_args([]).csr_reduce
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--csr-reduce", "--gather-rows"])
+
+
 def test_launch_literals():
     """The conv forward's count per path is the new kernel's; v1 is
     counted and expected at 0 everywhere; at the Trainer's batch 12 every
@@ -80,8 +107,10 @@ def test_launch_literals():
     assert CS.TRAIN_LAUNCHES["spiral_conv_fwd"] == 4
     assert CS.TRAIN_LAUNCHES["spiral_conv_bwd_dx"] == 0
     assert CS.TRAIN_LAUNCHES["csr_reduce"] == 7 + 4 + (
-        CS.ENCODE_GATHER_GRADS + CS.LOSS_GATHER_GRADS)
-    assert set(CS.YARDSTICKS) == {"spiral_conv_fwd_v1", "part_dist_v1"}
+        CS.ENCODE_GATHER_GRADS + CS.LOSS_GATHER_GRADS) == 23
+    assert CS.STEP_LAUNCHES["csr_reduce"] == 17
+    assert set(CS.YARDSTICKS) == {"spiral_conv_fwd_v1", "part_dist_v1",
+                                  "csr_reduce_v1"}
     assert set(CS.YARDSTICKS) <= set(CS.KERNEL_COUNTS)
     assert CS.STEP_LAUNCHES["part_dist_fwd_grad"] == 2
     assert CS.TRAIN_LAUNCHES["part_dist_fwd_grad"] == 2

@@ -976,3 +976,98 @@ def test_gather_rows_rejects_bad_input(cuda):
     g = torch.zeros((2, table.n_rows, 8), device=cuda)
     with pytest.raises(ValueError):
         TR.csr_reduce(g, table.inverse, table.inv_w[:-1])
+
+
+# --- the CSR reduce (row 8) against its yardstick csr_reduce_v1 --------------
+
+def _csr_cases(rng):
+    """(label, CSR table, weights in CSR order or None, C): a spiral
+    inverse with a long dummy row, and an unpool-like T = 3 inverse with a
+    long row of 300 entries and a fifth of its weights exactly 0."""
+    from semantichuman_torch.ops import row_gather as RG
+    idx = _spiral_with_pads(500, 9, rng)
+    taps = rng.integers(0, 400, (900, 3))
+    taps[:100] = 7
+    w = rng.uniform(0, 1, taps.shape).astype(np.float32)
+    w[rng.uniform(size=w.shape) < 0.2] = 0.0
+    return [("spiral", _csr(idx, "cuda"), None),
+            ("taps", RG.GatherTable.build(taps, 400, "cuda", w=w), True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("b", [1, 3, 12, 17, 40])
+@pytest.mark.parametrize("c", [3, 6, 16, 32, 64, 192])
+def test_csr_reduce_equals_v1(cuda, c, b, weighted):
+    """The kernel keeps v1's order and rounding (ascending j, each weighted
+    product rounded on its own, long rows through the same chunk tree), so
+    the two give the same bits at every batch tile's edge and unit (16
+    bytes; 8 at C = 6; 4 at C = 3), and at B = 1 with wide rows; two runs
+    bit-equal; within 1e-5 of the plain version's largest entry (index_add_
+    adds the same terms); each call one counted launch of its kernel."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    rng = np.random.default_rng(b * 1000 + c)
+    for label, table, has_w in _csr_cases(rng):
+        inv = table if has_w is None else table.inverse
+        wt = table.inv_w if weighted and has_w else None
+        g = torch.from_numpy(rng.standard_normal(
+            (b, inv.n_src, c)).astype(np.float32)).to(cuda)
+        before = (TR.csr_reduce.launches, TR.csr_reduce_v1.launches)
+        got = TR.csr_reduce(g, inv, wt)
+        again = TR.csr_reduce(g, inv, wt)
+        v1 = TR.csr_reduce_v1(g, inv, wt)
+        ref = TR.csr_reduce_plain(g, inv, wt)
+        torch.cuda.synchronize()
+        assert (TR.csr_reduce.launches, TR.csr_reduce_v1.launches) == (
+            before[0] + 2, before[1] + 1), label
+        assert inv.long_rows.numel() >= 1, label
+        assert torch.equal(got, v1), label
+        assert torch.equal(got, again), label
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()),
+                                   msg=lambda m: f"{label}: {m}")
+
+
+@pytest.mark.cuda
+def test_csr_reduce_equals_v1_on_the_topology(cuda, full_tables):
+    """Every spiral, pool and unpool inverse of the bundled topology at
+    B = 40, weighted where the table is: the kernel equals v1 bit for
+    bit."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cases = [(f"spiral L{l}", t, None, 16)
+             for l, t in enumerate(full_tables.spiral_csr)]
+    cases += [(f"pool {l}", t.inverse, None, 32)
+              for l, t in enumerate(full_tables.pool_gather)]
+    cases += [(f"unpool {l}", t.inverse, t.inv_w, 32)
+              for l, t in enumerate(full_tables.unpool_gather)]
+    for label, table, wt, c in cases:
+        g = torch.randn((40, table.n_src, c), generator=gen, device=cuda)
+        got = TR.csr_reduce(g, table, wt)
+        v1 = TR.csr_reduce_v1(g, table, wt)
+        torch.cuda.synchronize()
+        assert torch.equal(got, v1), label
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["csr_reduce", "csr_reduce_v1"])
+def test_csr_reduce_kernels_reject_bad_input(cuda, name):
+    """A wrong dtype, a wrong row count, weights of the wrong shape or
+    place: each raises and launches nothing."""
+    from semantichuman_torch.ops import csr_reduce as TR
+    fn = getattr(TR, name)
+    (_l, _s, _n), (_lt, taps, _w) = _csr_cases(np.random.default_rng(0))
+    inv = taps.inverse
+    g = torch.zeros((2, inv.n_src, 8), device=cuda)
+    before = fn.launches
+    with pytest.raises(ValueError):
+        fn(g.double(), inv, taps.inv_w)
+    with pytest.raises(ValueError):
+        fn(g[:, 1:].contiguous(), inv, taps.inv_w)
+    with pytest.raises(ValueError):
+        fn(g, inv, taps.inv_w[:-1])
+    with pytest.raises(ValueError):
+        fn(g, inv, taps.inv_w[:, None])
+    with pytest.raises(ValueError):
+        fn(g, inv, taps.inv_w.cpu())
+    assert fn.launches == before
