@@ -137,7 +137,22 @@ run:
    l1 and mm).  The same resume gate runs again under torch's
    deterministic algorithms: a fit() there, and two runs resumed from its
    epoch-2 checkpoint, banded_conv on and off (rtol 1e-4 banded, 1e-3
-   take).
+   take).  All of that drives the loop (`epoch_scan: False`).  Then the
+   Trainer's default epoch path (a CUDA graph a step, `train/graph.py`):
+   (a) a 3-epoch fit from the same seed must give the loop's epoch losses
+   and 24 parameter tensors bit for bit, and a second graph fit the same;
+   (b) runs resumed on it from the loop's epoch-2 checkpoint repeat epoch
+   3 to the resume gates above; (c) scan_epochs 3 with val_every 4 over 4
+   epochs equals one chunk an epoch bit for bit; (d) the launches counted
+   while the step is captured are GRAPH_LAUNCHES, and over one replayed
+   epoch the profiler counts each of the port's kernels a whole number of
+   times the epoch's 16 steps, the index_add_ family and the yardsticks
+   at 0; (e) banded and take, each on both paths in turns (graph, loop,
+   loop, graph), resumed from that checkpoint and timed over two more
+   epochs: ms/step, s/epoch with and without validation, device busy ms a
+   step, the idle share, the host time of the capture.  The rounding of
+   `_foreach_div` by a Python float on the card is printed (why Adam
+   takes its per-step scalars as a tensor on both paths).
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
@@ -147,8 +162,8 @@ backward alone, each with a per-kernel profile, `--part-dist` phase 1 and
 the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
 row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
 reduce's checks and times of phases 4 and 6 with a sweep of its batch
-tile, for tuning those kernels: they print no result line and are no
-gate.
+tile, for tuning those kernels, and `--trainer` phase 1 and phase 7: they
+print no result line and are no gate.
 """
 
 from __future__ import annotations
@@ -237,6 +252,11 @@ TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
                   "csr_reduce": 7 + 4 + ENCODE_GATHER_GRADS
                   + LOSS_GATHER_GRADS,
                   "part_dist_fwd_grad": 2}
+# launches per step of the epoch path, recorded while its step is captured
+# (train/graph.py): the 'dynamic' exchange variant runs the volume term on
+# every step and multiplies it by the step's 'ori' draw, so every step
+# launches what a loop step that drew 'ori' does
+GRAPH_LAUNCHES = dict(TRAIN_LAUNCHES)
 # launches per B = 128 training step (trunk batch 384, no banded route):
 # nine convs forward and their dW; dx for all but the first, whose input
 # is data, the 64 -> 128 conv's on the unfused route (one csr_reduce); the
@@ -1415,23 +1435,7 @@ def host_batch(human, tables, seed: int, b: int | None = None) -> dict:
 
 
 def reset_counts():
-    from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
-                                                       banded_gather_fwd)
-    from semantichuman_torch.ops.csr_reduce import csr_reduce, csr_reduce_v1
-    from semantichuman_torch.ops.part_dist import (part_dist_sums,
-                                                   part_dist_v1)
-    from semantichuman_torch.ops.row_gather import row_gather
-    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
-                                                     spiral_conv_bwd_dw,
-                                                     spiral_conv_bwd_dx,
-                                                     spiral_conv_fwd_v1)
-
-    for fn in (spiral_conv, spiral_conv_fwd_v1, spiral_conv_bwd_dw,
-               spiral_conv_bwd_dx, csr_reduce, csr_reduce_v1, part_dist_v1,
-               banded_gather_fwd, banded_gather_bwd, row_gather):
-        fn.launches = 0
-    for mode in part_dist_sums.launches:
-        part_dist_sums.launches[mode] = 0
+    restore_counts(dict.fromkeys(read_counts(), 0))
 
 
 def read_counts() -> dict:
@@ -2031,14 +2035,15 @@ def banded_summary(rows, key: str) -> dict:
 
 
 def trainer_cfg(banded: bool = True, **train):
-    """The paper recipe (Config() defaults) on synthetic SMPL-scale data."""
+    """The paper recipe (Config() defaults) on synthetic SMPL-scale data;
+    the loop path unless `epoch_scan=True` is passed."""
     from semantichuman_torch.config import Config
     return Config.from_dict({
         "model": {"banded_conv": banded},
         "data": {"synthetic": True, "synthetic_train": 64,
                  "synthetic_test": 16},
         "train": {"n_epochs": 3, "ck_frequency": 2, "save_recons": False,
-                  **train}})
+                  "epoch_scan": False, **train}})
 
 
 def trainer_workdir(root: Path, name: str) -> str:
@@ -2077,6 +2082,71 @@ def timed_steps(trainer) -> list:
 
 
 @contextlib.contextmanager
+def graph_probe():
+    """Wrap the epoch path's warm-up and capture (`train/graph.py`): the
+    launch counts set to 0 just before each capture and read just after
+    (the counters count where a wrapper launches; under a capture that is
+    the kernel recorded, and a replay counts nothing), and the host time
+    of each warm-up and capture."""
+    from semantichuman_torch.train import graph as G
+
+    rec = []
+    warm, cap = G.warm_up, G.capture
+
+    def warm_up(fn, reset, *args):
+        t0 = time.perf_counter()
+        warm(fn, reset, *args)
+        rec.append({"warm_up_s": time.perf_counter() - t0})
+
+    def capture(fn, pool):
+        sync()
+        before = read_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        graph = cap(fn, pool)
+        rec[-1].update(capture_s=time.perf_counter() - t0,
+                       counts=read_counts())
+        # the counts of the window around this capture go on
+        after = rec[-1]["counts"]
+        restore_counts({k: before[k] + after[k] for k in before})
+        return graph
+
+    G.warm_up, G.capture = warm_up, capture
+    try:
+        yield rec
+    finally:
+        G.warm_up, G.capture = warm, cap
+
+
+def restore_counts(counts: dict) -> None:
+    """Set every launch counter to `counts` (read_counts' keys)."""
+    from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
+                                                       banded_gather_fwd)
+    from semantichuman_torch.ops.csr_reduce import csr_reduce, csr_reduce_v1
+    from semantichuman_torch.ops.part_dist import (part_dist_sums,
+                                                   part_dist_v1)
+    from semantichuman_torch.ops.row_gather import row_gather
+    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
+                                                     spiral_conv_bwd_dw,
+                                                     spiral_conv_bwd_dx,
+                                                     spiral_conv_fwd_v1)
+
+    for name, fn in (("spiral_conv_fwd", spiral_conv),
+                     ("spiral_conv_fwd_v1", spiral_conv_fwd_v1),
+                     ("spiral_conv_bwd_dw", spiral_conv_bwd_dw),
+                     ("spiral_conv_bwd_dx", spiral_conv_bwd_dx),
+                     ("csr_reduce", csr_reduce),
+                     ("csr_reduce_v1", csr_reduce_v1),
+                     ("part_dist_v1", part_dist_v1),
+                     ("banded_gather_fwd", banded_gather_fwd),
+                     ("banded_gather_bwd", banded_gather_bwd),
+                     ("row_gather", row_gather)):
+        fn.launches = counts[name]
+    for mode in part_dist_sums.launches:
+        part_dist_sums.launches[mode] = counts[f"part_dist_{mode}"]
+
+
+@contextlib.contextmanager
 def deterministic_torch():
     """torch's deterministic algorithms on for the block: any torch op that
     would add with atomics takes its fixed-order form (the port's own
@@ -2091,39 +2161,316 @@ def deterministic_torch():
         torch.use_deterministic_algorithms(was, warn_only=warn_only)
 
 
-def resumed_epoch(root: Path, name: str, banded: bool, ckpt: str):
-    """A Trainer resumed from the epoch-2 checkpoint, its epoch 3 run with
-    timed steps: (trainer, step times in ms, epoch-3 train loss)."""
+def resumed_epoch(root: Path, name: str, banded: bool, ckpt: str,
+                  graph: bool = False):
+    """A Trainer resumed from the epoch-2 checkpoint, its epoch 3 run (the
+    loop's steps timed): (trainer, step times in ms, epoch-3 train
+    loss)."""
     from semantichuman_torch.train.loop import Trainer
 
-    tr = Trainer(trainer_cfg(banded, resume=ckpt),
+    tr = Trainer(trainer_cfg(banded, resume=ckpt, epoch_scan=graph),
                  trainer_workdir(root, name), device=DEVICE)
     require(tr.start_epoch == 3, f"resumed at {tr.start_epoch}")
-    times = timed_steps(tr)
+    require(tr._epoch_scan_ok() == graph, "the Trainer takes the "
+            f"{'loop' if graph else 'epoch path'}")
+    times = [] if graph else timed_steps(tr)
     tr.fit()
     return tr, times, tr.history[0]["train"]
 
 
+def params_equal(a, b) -> list:
+    from semantichuman_torch.utils.params import tree_leaves
+    return [torch.equal(x, y) for x, y in zip(tree_leaves(a),
+                                              tree_leaves(b))]
+
+
+def phase_trainer_graph(root: Path, losses: list, final: list,
+                        ckpt: str) -> dict:
+    """The Trainer's default epoch path on the card (train.epoch_scan):
+    (a) a 3-epoch fit, Config() defaults, default algorithms, against the
+    loop's fit from the same seed (`losses`, `final`) and against a second
+    graph fit, each bit for bit; (c) one chunk per epoch (the first fit
+    taken on to epoch 4) against train.scan_epochs 3 and val_every 4 (the
+    chunks clipped at the epoch-2 checkpoint), bit for bit; (d) the
+    launches recorded while the step is captured (GRAPH_LAUNCHES) and,
+    over one replayed epoch, torch.profiler's count of every kernel a
+    multiple of the epoch's steps, the index_add_ family and the
+    yardsticks at 0."""
+    from semantichuman_torch.train.loop import Trainer
+    from semantichuman_torch.utils.params import tree_leaves
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    with graph_probe() as caps:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = Trainer(trainer_cfg(epoch_scan=True),
+                     trainer_workdir(root, "graph_fit"), device=DEVICE)
+        require(tr._epoch_scan_ok(), "Config() defaults do not take the "
+                "epoch path")
+        tr.fit()
+        sync()
+        out["fit_s"] = time.perf_counter() - t0
+        out["counts"] = read_counts()
+    out["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    require(len(caps) == 1, f"{len(caps)} captures, want 1 (one key: "
+            "the loss flags of Config() do not change, 'dynamic' variant)")
+    cap = caps[0]
+    want = expect(GRAPH_LAUNCHES)
+    log(f"[graph] captured step: launches {cap['counts']}; warm-up "
+        f"{cap['warm_up_s']:.3f} s, capture {cap['capture_s']:.3f} s "
+        f"(host); peak device memory {out['peak_memory_gib']:.2f} GiB")
+    require(cap["counts"] == want,
+            f"captured step launches {cap['counts']}, want {want}")
+    got = [h["train"] for h in tr.history]
+    same = params_equal(final, tr.params)
+    log(f"[graph] (a) epoch losses {got} (loop {losses}); {sum(same)} of "
+        f"{len(same)} parameter tensors bit-equal to the loop's")
+    if not (got == losses and all(same)):
+        for i, (x, y) in enumerate(zip(tree_leaves(final),
+                                       tree_leaves(tr.params))):
+            log(f"[graph]   leaf {i}: max |graph - loop| "
+                f"{float((x - y).abs().max()):.3e}")
+    require(got == losses and all(same) and len(same) == 24,
+            "the epoch path's fit differs from the loop's")
+    out.update(epoch_losses=got, captures=caps)
+
+    tr2 = Trainer(trainer_cfg(epoch_scan=True),
+                  trainer_workdir(root, "graph_refit"), device=DEVICE)
+    tr2.fit()
+    again = [h["train"] for h in tr2.history]
+    same = params_equal(tr.params, tr2.params)
+    log(f"[graph] (a) second graph fit: epoch losses {again}; {sum(same)} "
+        f"of {len(same)} parameter tensors bit-equal")
+    require(again == got and all(same), "two graph fits differ")
+    del tr2
+
+    # (c) one chunk per epoch (the first fit on to epoch 4) against chunks
+    tr.start_epoch = 4
+    tr.fit(4)
+    chunked = Trainer(trainer_cfg(epoch_scan=True, n_epochs=4,
+                                  scan_epochs=3, val_every=4),
+                      trainer_workdir(root, "graph_chunks"), device=DEVICE)
+    chunks = []
+    run_chunk = chunked._run_scan_chunk
+
+    def record(e0, e1):
+        chunks.append((e0, e1))
+        return run_chunk(e0, e1)
+
+    chunked._run_scan_chunk = record
+    chunked.fit()
+    per_epoch = [h["train"] for h in tr.history]
+    by_chunk = [h["train"] for h in chunked.history]
+    same = params_equal(tr.params, chunked.params)
+    log(f"[graph] (c) chunks {chunks}: epoch losses {by_chunk} (one chunk "
+        f"an epoch {per_epoch}); {sum(same)} of {len(same)} parameter "
+        "tensors bit-equal")
+    require(chunks == [(1, 2), (3, 4)], f"chunks {chunks}")
+    require(by_chunk == per_epoch and all(same),
+            "chunked epochs differ from one chunk an epoch")
+    out.update(chunks=chunks, chunk_epoch_losses=by_chunk)
+    del chunked
+
+    # (d) the profiler over one replayed epoch
+    out["replay_profile"] = profile_replays(tr, 5)
+    del tr
+    return out
+
+
+def port_kernels() -> set:
+    """The names of the __global__ functions of the port's CUDA sources."""
+    names = set()
+    for src in (ROOT / "semantichuman_torch" / "csrc").glob("*.cu"):
+        for chunk in src.read_text().split("__global__")[1:]:
+            chunk = re.sub(r"__launch_bounds__\([^)]*\)", "", chunk)
+            names.add(re.search(r"(\w+)\(", chunk).group(1))
+    return names
+
+
+def profile_replays(tr, epoch: int) -> dict:
+    """torch.profiler over one epoch of replays of the Trainer's captured
+    step (its staged schedule, on its static buffers; the Trainer's state
+    is not read back): each of the port's kernels counted a multiple of
+    the epoch's steps, the port's kernel families present, the index_add_
+    family and the yardsticks' at 0.  -> device busy ms a step, top kernels,
+    families."""
+    from torch.profiler import ProfilerActivity, profile
+
+    k = len(tr.train_loader)
+    run, _names = tr._get_scan_step(epoch, "dynamic")
+    buf = tr._epoch_buffers
+    buf.load(tr.params, tr.opt_state)
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(k):
+            run()
+        torch.cuda.synchronize()
+    by_name, n_by_name = {}, {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = (by_name.get(e.name, 0.0)
+                               + e.time_range.elapsed_us() / 1e3 / k)
+            n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
+    require(by_name, "the profiler saw no device kernels in the replays")
+    busy = sum(by_name.values())
+    ours = {nm: n for nm, n in n_by_name.items()
+            if any(re.search(rf"\b{f}\b", nm) for f in port_kernels())}
+    odd = {nm: n for nm, n in ours.items() if n % k}
+    require(ours and not odd, f"the port's kernels not run a whole number "
+            f"of times a replay over {k} replays: {odd}")
+    # torch's own kernels: printed, no gate (a window has been seen to
+    # miss the first kernel of its first replay)
+    other = {nm[:80]: n for nm, n in n_by_name.items()
+             if nm not in ours and n % k}
+    if other:
+        log(f"[graph] (d) torch kernels counted off a multiple of {k}: "
+            f"{other}")
+    groups = {label: sum(t for nm, t in by_name.items() if key in nm)
+              for label, key in PROFILE_GROUPS.items()}
+    launches = {label: sum(n for nm, n in n_by_name.items() if key in nm)
+                // k for label, key in PROFILE_GROUPS.items()}
+    log(f"[graph] (d) one replayed epoch ({k} replays): device busy "
+        f"{busy:.3f} ms a step; kernels a step by family {launches}")
+    for label in ("conv_fwd", "conv_bwd_dw", "csr_reduce", "part_dist",
+                  "row_gather"):
+        require(launches[label] > 0, f"no {label} kernel in the replays")
+    for label in ("index_add", "conv_fwd_v1", "csr_reduce_v1",
+                  "part_dist_v1"):
+        require(launches[label] == 0, f"{label} in the replays: "
+                f"{launches[label]} a step")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return {"device_busy_ms": busy, "kernels_per_step": sum(
+        n_by_name.values()) // k, "family_launches_per_step": launches,
+        "kernel_families_ms": groups,
+        "top_kernels": [[nm[:90], t] for nm, t in top]}
+
+
+def route_runs(root: Path, losses: list, ckpt: str) -> dict:
+    """(b) and (e): per route (banded, take), the epoch path and the loop
+    in turns (graph, loop, loop, graph), each resumed from the loop's
+    epoch-2 checkpoint: epoch 3's loss to rtol 1e-4 (banded) and 1e-3
+    (take) against the uninterrupted loop's; then two more epochs each,
+    timed: ms/step (the epoch's training time over its steps), s/epoch
+    with and without the val pass, device busy ms a step (one profiled
+    epoch more), the idle share; the host time of the capture."""
+    out = {}
+    for banded in (True, False):
+        name = "banded" if banded else "take"
+        runs = {"graph": {}, "loop": {}}
+        for i, graph in enumerate((True, False, False, True)):
+            path = "graph" if graph else "loop"
+            r = runs[path]
+            with graph_probe() as caps:
+                tr, times, loss3 = resumed_epoch(
+                    root, f"{name}_{path}{i}", banded, ckpt, graph=graph)
+                # take: the two routes gather the same values; the
+                # gradients' f32 sums run in another order through 16
+                # Adam steps
+                np.testing.assert_allclose(loss3, losses[2],
+                                           rtol=1e-4 if banded else 1e-3)
+                tr.start_epoch = 4
+                tr.fit(5)
+            steady = tr.history[1:]
+            k = len(tr.train_loader)
+            r.setdefault("epoch3_loss", []).append(loss3)
+            r.setdefault("ms_per_step_runs", []).append(float(np.mean(
+                [h["train_sec"] for h in steady])) / k * 1e3)
+            r.setdefault("epoch_s_runs", []).append(float(np.mean(
+                [h["sec"] for h in steady])))
+            r.setdefault("epoch_train_s_runs", []).append(float(np.mean(
+                [h["train_sec"] for h in steady])))
+            if graph:
+                r.setdefault("capture_s_runs", []).append(
+                    caps[0]["capture_s"])
+                r.setdefault("warm_up_s_runs", []).append(
+                    caps[0]["warm_up_s"])
+            else:
+                r.setdefault("step_ms_median_runs", []).append(
+                    float(np.median(times)))
+            log(f"[trainer] {name} {path}: epoch 3 loss {loss3!r} "
+                f"(uninterrupted {losses[2]!r}, bit-equal "
+                f"{loss3 == losses[2]}); epochs 4-5 "
+                f"{r['ms_per_step_runs'][-1]:.3f} ms/step, "
+                f"{r['epoch_train_s_runs'][-1]:.3f} s/epoch before val, "
+                f"{r['epoch_s_runs'][-1]:.3f} with val"
+                + (f"; capture {caps[0]['capture_s']:.3f} s host"
+                   if graph else ""))
+            if i < 2:
+                r.update(profile_replays(tr, 6) if graph
+                         else profile_epoch(tr))
+            if banded and i == 1:
+                _p, _z, _zk, _tx, l1, mm = tr.evaluate()
+                require(np.isfinite(l1) and np.isfinite(mm),
+                        f"evaluate: l1 {l1} mm {mm}")
+                log(f"[trainer] evaluate: l1 {l1:.6f}, {mm:.3f} mm")
+                out.update(eval_l1=l1, eval_mm=mm)
+            del tr
+        for path, r in runs.items():
+            ms = float(np.mean(r["ms_per_step_runs"]))
+            r.update(ms_per_step=ms, meshes_per_s=TRAINER_B / ms * 1e3,
+                     epoch_s=float(np.mean(r["epoch_s_runs"])),
+                     epoch_train_s=float(np.mean(r["epoch_train_s_runs"])))
+            if "device_busy_ms" in r:
+                r["idle_share"] = max(0.0, 1 - r["device_busy_ms"] / ms)
+            log(f"[trainer] {name} {path}: {ms:.3f} ms/step (runs "
+                f"{r['ms_per_step_runs']}), {r['meshes_per_s']:.1f} "
+                f"meshes/s, {r['epoch_train_s']:.3f} s/epoch before val, "
+                f"{r['epoch_s']:.3f} with val, device busy "
+                f"{r.get('device_busy_ms', 'not measured')} ms a step, idle "
+                f"share {r.get('idle_share', 'not measured')}")
+        out[name] = runs
+    return out
+
+
+def foreach_div_rounding() -> dict:
+    """Why `Adam` takes its per-step lr and bias corrections as a float32
+    tensor in the loop too: which rounding `torch._foreach_div` by a
+    Python float s gives on the card, against a true division by float32
+    s (what a captured step can do with s on the device) and against a
+    product with the float32 reciprocal of s in float32 or in double.  A
+    record, no gate."""
+    x = torch.rand(1 << 16, device="cuda", generator=torch.Generator(
+        "cuda").manual_seed(0)) + 0.5
+    out = {}
+    for t in (1, 7, 300):
+        s = 1.0 - 0.9 ** t
+        got = torch._foreach_div([x], s)[0]
+        out[t] = {
+            "true_division": torch.equal(got, x / torch.tensor(
+                s, device="cuda")),
+            "times_f32_reciprocal": torch.equal(got, x * float(
+                np.float32(1) / np.float32(s))),
+            "times_f64_reciprocal": torch.equal(got, x * float(
+                np.float32(1.0 / s)))}
+    log(f"[trainer] _foreach_div(x, s) on the card equals, for s = "
+        f"1 - 0.9^t: {out}")
+    return out
+
+
 def phase_trainer():
-    """The Trainer's main path (fit with counts), a second fit, resume,
-    evaluate, and the banded and take routes timed from the same
-    checkpoint.
+    """The Trainer's main paths: the loop (fit with counts, a second fit)
+    and the epoch path (`phase_trainer_graph`), both routes in turns on
+    both paths resumed from the loop's checkpoint (`route_runs`),
+    evaluate.
 
     Everything but the last block uses torch's default algorithms, as a
     user's training does.  No kernel of the path adds with atomics (every
     gather's backward is the fixed-order CSR reduce; the profiles hold the
     index_add_ family at 0), so a second fit() from the same seed must give
-    the same epoch losses and final parameters bit for bit, and the four
-    timed runs resumed from the epoch-2 checkpoint (banded, take, take,
-    banded) must repeat epoch 3's loss to rtol 1e-4 (banded) and 1e-3
+    the same epoch losses and final parameters bit for bit, the epoch path
+    must give the loop's, and the runs resumed from the epoch-2
+    checkpoint must repeat epoch 3's loss to rtol 1e-4 (banded) and 1e-3
     (take: another order of the gradients' f32 sums through 16 Adam
     steps).  The last block repeats the resume under torch's deterministic
     algorithms: a fit() and two runs resumed from its epoch-2 checkpoint,
     held to the same tolerances."""
     from semantichuman_torch.train.loop import Trainer
-    from semantichuman_torch.utils.params import tree_leaves
+    from semantichuman_torch.utils.params import tree_leaves, tree_unflatten
 
-    out = {}
+    out = {"foreach_div_by_float": foreach_div_rounding()}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
         t0 = time.perf_counter()
@@ -2135,12 +2482,13 @@ def phase_trainer():
                 and all(b is not None for b in t.unpool_bands),
                 "expected conv bands at levels 0-1 and four unpool bands")
         require(tr.device_data is not None, "data not staged on the device")
+        require(not tr._epoch_scan_ok(), "epoch_scan False takes the loop")
         n_steps = len(tr.train_loader) * 3
         n_val = len(tr.val_loader) * 3
         require(n_val == 3, "expected one validation batch per epoch")
 
-        # --- the main path: counts from 0, read right after; the
-        # exchange variant of each step recorded -------------------------
+        # --- the loop: counts from 0, read right after; the exchange
+        # variant of each step recorded -------------------------------------
         variants, get = [], tr._get_step
 
         def get_step(epoch, variant):
@@ -2180,7 +2528,8 @@ def phase_trainer():
         ckpt = os.path.join(tr.workdir, "checkpoints")
         require(os.path.isdir(os.path.join(ckpt, "2")),
                 "no epoch-2 checkpoint")
-        final = [p.detach().clone() for p in tree_leaves(tr.params)]
+        final = tree_unflatten(tr.params, [p.detach().clone()
+                                           for p in tree_leaves(tr.params)])
         del tr
 
         # --- a second fit from the same seed, default algorithms: the
@@ -2189,57 +2538,23 @@ def phase_trainer():
                      device=DEVICE)
         tr.fit()
         again = [h["train"] for h in tr.history]
-        same = [torch.equal(a, b) for a, b in
-                zip(final, tree_leaves(tr.params))]
+        same = params_equal(final, tr.params)
         log(f"[trainer] second fit, default algorithms: epoch losses "
             f"{again} (first {losses}); {sum(same)} of {len(same)} "
             "parameter tensors bit-equal")
-        require(again == losses and all(same) and len(same) == len(final),
+        require(again == losses and all(same) and len(same) == 24,
                 "two default-mode fits from one seed differ")
         out["refit_epoch_losses"] = again
-        del tr, final
+        del tr
 
-        # --- timed from the checkpoint: banded, take, take, banded ----------
-        runs = {"banded": {"run_ms": [], "step_ms": [], "epoch_s": [],
-                           "epoch3_loss": []},
-                "take": {"run_ms": [], "step_ms": [], "epoch_s": [],
-                         "epoch3_loss": []}}
-        for i, banded in enumerate((True, False, False, True)):
-            name = "banded" if banded else "take"
-            r = runs[name]
-            tr, times, loss3 = resumed_epoch(root, f"resume{i}", banded, ckpt)
-            r["run_ms"].append(float(np.median(times)))
-            r["step_ms"] += times
-            r["epoch_s"].append(tr.history[0]["sec"])
-            r["epoch3_loss"].append(loss3)
-            log(f"[trainer] resumed {name}: epoch 3 loss {loss3!r} "
-                f"(uninterrupted {losses[2]!r}, bit-equal "
-                f"{loss3 == losses[2]}), {r['run_ms'][-1]:.3f} "
-                f"ms/step median of {len(times)}, epoch "
-                f"{tr.history[0]['sec']:.3f} s with val")
-            # take: the two routes gather the same values; the gradients'
-            # f32 sums run in another order through 16 Adam steps
-            np.testing.assert_allclose(loss3, losses[2],
-                                       rtol=1e-4 if banded else 1e-3)
-            if i < 2:
-                r.update(profile_epoch(tr))
-            if i == 0:
-                _p, _z, _zk, _tx, l1, mm = tr.evaluate()
-                require(np.isfinite(l1) and np.isfinite(mm),
-                        f"evaluate: l1 {l1} mm {mm}")
-                log(f"[trainer] evaluate: l1 {l1:.6f}, {mm:.3f} mm")
-                out.update(eval_l1=l1, eval_mm=mm)
-            del tr
-        for name, r in runs.items():
-            ms = float(np.median(r["step_ms"]))
-            r.update(ms_per_step=ms, meshes_per_s=TRAINER_B / ms * 1e3)
-            if "device_busy_ms" in r:
-                r["idle_share"] = max(0.0, 1 - r["device_busy_ms"] / ms)
-            log(f"[trainer] {name}: {ms:.3f} ms/step (median of "
-                f"{len(r['step_ms'])} steps; runs {r['run_ms']}), "
-                f"{TRAINER_B / ms * 1e3:.1f} meshes/s, idle share "
-                f"{r.get('idle_share', 'not measured')}")
-        out["routes"] = runs
+        # --- the epoch path: (a), (c), (d) ----------------------------------
+        graph = phase_trainer_graph(root, losses, final, ckpt)
+        out["graph_counts"] = graph.pop("counts")
+        out["graph"] = graph
+        del final
+
+        # --- (b), (e): both routes, both paths, in turns --------------------
+        out["routes"] = route_runs(root, losses, ckpt)
 
         # --- the exact gate, under deterministic algorithms: a fit, then
         # its epoch 3 repeated from its epoch-2 checkpoint ---------------------
@@ -2270,8 +2585,8 @@ def phase_trainer():
 
 def profile_epoch(tr) -> dict:
     """Device time per step by kernel name over one more epoch of steps
-    (torch.profiler); the caller sets it against the unprofiled median
-    step time for the idle share."""
+    (torch.profiler); the caller sets it against the unprofiled step time
+    for the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
     if DEVICE != "cuda":
@@ -2329,6 +2644,9 @@ def parse_args(argv):
                       help="phase 1 and the CSR reduce's checks and times "
                       "alone (phases 4 and 6), with a sweep of its batch "
                       "tile")
+    mode.add_argument("--trainer", action="store_true",
+                      help="phase 1 and the Trainer's phase 7 alone (the "
+                      "loop and the epoch path, their gates and times)")
     return p.parse_args(argv)
 
 
@@ -2351,6 +2669,11 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]} device {kind}")
 
     card = phase_build()
+    if args.trainer:
+        # the Trainer's phase alone, for work on its paths: no result line
+        log(json.dumps({"trainer": phase_trainer()}))
+        log(card)
+        return 0
 
     human = SyntheticHuman()
     hier = MeshHierarchy.load(str(TOPOLOGY))
@@ -2433,9 +2756,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     trainer = phase_trainer()
     trainer_counts = trainer.pop("counts")
+    graph_counts = trainer.pop("graph_counts")
 
+    # trainer_graph: the epoch path's fit, whose wrappers count its
+    # warm-up steps, the captured step and the validation passes (a
+    # replay counts nothing; phase 7 holds the replays to the profiler)
     paths = {"serve": serve, "serve_take": serve_take,
-             "train_step": step_counts, "trainer": trainer_counts}
+             "train_step": step_counts, "trainer": trainer_counts,
+             "trainer_graph": graph_counts}
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}

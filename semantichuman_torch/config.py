@@ -9,13 +9,15 @@ Fields that select a mechanism of the JAX package's TPU runtime load and
 have no effect in the port:
 
   * `model.use_pallas`: the port's kernels are its only implementation;
-  * `train.epoch_scan`, `train.scan_epochs`: the port always runs the
-    step loop (the JAX package's own test holds the epoch scan equal to
-    it; its counterpart here, a CUDA graph, is not ported);
   * `train.data_parallel`: one process drives one card; a distributed run
     raises (data parallelism is not ported);
   * `train.profile_start` / `profile_stop`: at their default (0, 0);
     a profiling window raises (the trace window is not ported).
+
+`train.epoch_scan` (on by default) and `train.scan_epochs` mean what they
+mean in the JAX package: the Trainer runs chunks of up to scan_epochs
+epochs over device-resident data with no per-step host work, on the card
+as replays of one captured CUDA graph a step (`train/loop.py`).
 
 `model.banded_conv` (on by default, as in the JAX package) builds band
 tables for the fine spiral levels and the large unpool transitions; the
@@ -135,8 +137,8 @@ class TrainConfig:
     val_every: int = 1                # val pass every N epochs
     save_recons: bool = True
     data_parallel: bool = True        # no effect in the port (one card)
-    epoch_scan: bool = True           # no effect in the port (step loop)
-    scan_epochs: int = 1              # no effect in the port
+    epoch_scan: bool = True           # the epoch path (a CUDA graph a step)
+    scan_epochs: int = 1              # epochs per chunk of the epoch path
     log_every: int = 0                # extra step-level logging (0 = off)
     profile_start: int = 0
     profile_stop: int = 0             # > profile_start: not ported, raises

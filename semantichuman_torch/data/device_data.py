@@ -84,17 +84,23 @@ class DeviceDataSource:
     def __len__(self):
         return self.n
 
-    def take(self, meta: dict) -> dict:
-        """One batch from index metadata (BatchLoader.iter_indices()): the
-        same dict as a placed host batch."""
-        idx = torch.as_tensor(np.asarray(meta["global_idx"], np.int64),
-                              device=self.device)
+    def batch_fn(self, idx: torch.Tensor) -> dict:
+        """The batch of the int64 device index idx [B]: verts, measures
+        and the staged GT loss inputs, each an index_select on the device
+        (no host array is read, so a captured step can call it)."""
         out = {"verts": self.verts.index_select(0, idx)}
         if self.measures is not None:
             out["measure"] = self.measures.index_select(0, idx)
         for name, arr in (self.gt or {}).items():
             out[name] = arr.index_select(0, idx)
-        return {**out, "pad": meta["pad"],
+        return out
+
+    def take(self, meta: dict) -> dict:
+        """One batch from index metadata (BatchLoader.iter_indices()): the
+        same dict as a placed host batch."""
+        idx = torch.as_tensor(np.asarray(meta["global_idx"], np.int64),
+                              device=self.device)
+        return {**self.batch_fn(idx), "pad": meta["pad"],
                 "valid": torch.as_tensor(meta["valid"], device=self.device),
                 "idx": meta["global_idx"], "global_idx": meta["global_idx"]}
 
@@ -118,10 +124,17 @@ class DeviceBatchLoader:
         for meta in self.loader.iter_indices():
             yield self.source.take(meta)
 
-    def cycle(self, anchor: int | None = None):
-        """BatchLoader.cycle's endless, resume-safe schedule."""
+    def meta_cycle(self, anchor: int | None = None):
+        """BatchLoader.cycle's endless, resume-safe schedule as index
+        metadata: cycle() materializes it, and the epoch path
+        (`Trainer._run_scan_chunk`) stages it on the device."""
         if anchor is not None:
             self.loader.epoch = anchor * self.loader.EPOCH_ANCHOR_STRIDE
         while True:
-            yield from self
+            yield from self.loader.iter_indices()
             self.loader.epoch += 1
+
+    def cycle(self, anchor: int | None = None):
+        """BatchLoader.cycle's endless, resume-safe schedule."""
+        for meta in self.meta_cycle(anchor):
+            yield self.source.take(meta)

@@ -5,13 +5,27 @@
   -> step cache -> epoch loop (train / val) -> checkpoints
   -> final eval + prediction export
 
-It runs on one device, the card unless the caller asks for the CPU, and
-always as a loop of eager steps (the JAX package's whole-epoch scan equals
-that loop by its own test; a CUDA graph, its counterpart, is not ported).
-Each epoch reseeds the batch shuffle, the edit sampler and the interp/exc
-cycle from the epoch number, so the port replays the JAX Trainer's batch,
-edit-spec and exc-variant schedule exactly, and a resumed run replays the
-uninterrupted one.  Per-step losses stay on the device until the epoch
+It runs on one device, the card unless the caller asks for the CPU, on
+one of two paths, as the JAX Trainer does:
+
+  * the epoch path (train.epoch_scan, on by default; `_epoch_scan_ok`):
+    a chunk of epochs (up to train.scan_epochs, clipped at every
+    checkpoint, validation, sample dump and loss-gate change) has its
+    whole schedule (batch indices, edit specs, Adam's lr and bias
+    corrections) staged on the device once, and each step reads its row
+    there (`step.py:make_epoch_scan_step`).  On the card the step is
+    captured once per (loss flags, exchange variant) as a CUDA graph
+    (`graph.py`) and replayed once per step; on the CPU the same step
+    runs uncaptured.  A capture that fails raises: the Trainer does not
+    fall back to the loop.
+  * the loop (epoch_scan off, or data that is not staged): eager steps,
+    their batches and edit specs moved to the device one step at a time.
+
+Both paths reseed the batch shuffle, the edit sampler and the interp/exc
+cycle from the epoch number, so they replay the JAX Trainer's batch,
+edit-spec and exc-variant schedule exactly, a resumed run replays the
+uninterrupted one, and a checkpoint written by one path resumes in the
+other.  Per-step losses stay on the device until the epoch (or chunk)
 ends; validation and evaluation sums accumulate on the device and are read
 once per pass.
 
@@ -44,10 +58,12 @@ from ..topology import MeshHierarchy
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
+from . import graph as G
 from . import losses as L
 from .edits import EditSampler
 from .optim import AdamState, make_optimizer
-from .step import flags_for_epoch, make_eval_step, make_train_step, to_device
+from .step import (EpochBuffers, flags_for_epoch, make_epoch_scan_step,
+                   make_eval_step, make_train_step, to_device)
 
 BUNDLED_TOPOLOGY_DIR = Path(__file__).resolve().parents[2] / "assets"
 
@@ -147,6 +163,8 @@ class Trainer:
         self.history = []          # per epoch: {"epoch", "train", "val", "sec"}
         self._step_cache: dict = {}
         self._eval_steps: dict = {}
+        self._epoch_buffers = None      # the epoch path's static tensors
+        self._graph_pool = None         # one memory pool for its graphs
 
     # --- topology ----------------------------------------------------------------
     def _load_topology(self) -> MeshHierarchy:
@@ -363,36 +381,74 @@ class Trainer:
         self._dump_train_params()
         if self.start_epoch == 1 and cfg.train.save_recons:
             self.dump_part_template()
-        for epoch in range(self.start_epoch, n_epochs + 1):
+        use_scan = self._epoch_scan_ok()
+        epoch = self.start_epoch
+        while epoch <= n_epochs:
             t0 = time.time()
-            # per-epoch deterministic state: the batch order, the edit-spec
-            # RNG and the interp/exc schedule are functions of the epoch,
-            # so resume-at-E replays the uninterrupted run's epoch E
-            self.train_loader.set_epoch(epoch)
-            self.sampler.reseed(epoch)
-            interp_iter = self.interp_loader.cycle(anchor=epoch)
-            tloss, metrics, last_batch = self._run_epoch_steps(epoch,
-                                                               interp_iter)
+            if use_scan:
+                e1 = self._scan_chunk_end(epoch, n_epochs)
+                tlosses, metrics, last_batch = self._run_scan_chunk(epoch,
+                                                                    e1)
+            else:
+                # per-epoch deterministic state: the batch order, the
+                # edit-spec RNG and the interp/exc schedule are functions
+                # of the epoch, so resume-at-E replays the uninterrupted
+                # run's epoch E (the epoch path builds each epoch of a
+                # chunk the same way)
+                e1 = epoch
+                self.train_loader.set_epoch(epoch)
+                self.sampler.reseed(epoch)
+                interp_iter = self.interp_loader.cycle(anchor=epoch)
+                tl, metrics, last_batch = self._run_epoch_steps(epoch,
+                                                                interp_iter)
+                tlosses = [tl]
             self.logger.log(self.global_step, metrics)
-            vloss = None
-            if epoch % max(cfg.train.val_every, 1) == 0 or epoch == n_epochs:
-                vloss = self.validate()
-            sec = time.time() - t0
-            ep_metrics = {"epoch_train": tloss}
-            if vloss is not None:
-                ep_metrics["epoch_val"] = vloss
-            self.logger.log(epoch, ep_metrics, prefix="epoch")
-            self.history.append({"epoch": epoch, "train": tloss,
-                                 "val": vloss, "sec": sec})
-            vtxt = "-" if vloss is None else f"{vloss:.6f}"
-            print(f"epoch {epoch} | tr {tloss:.6f} | val {vtxt} | "
-                  f"{sec:.1f}s", flush=True)
-            if epoch % cfg.train.ck_frequency == 0:
-                self.save(epoch)
-            if (cfg.train.save_recons and epoch % 50 == 0
-                    and last_batch is not None):
-                self._dump_sample(epoch, last_batch)
+            train_sec = (time.time() - t0) / len(tlosses)
+            for i, e in enumerate(range(epoch, e1 + 1)):
+                t1 = time.time()
+                vloss = None
+                if e == e1 and (e % max(cfg.train.val_every, 1) == 0
+                                or e == n_epochs):
+                    vloss = self.validate()
+                sec = train_sec + time.time() - t1
+                ep_metrics = {"epoch_train": tlosses[i]}
+                if vloss is not None:
+                    ep_metrics["epoch_val"] = vloss
+                self.logger.log(e, ep_metrics, prefix="epoch")
+                self.history.append({"epoch": e, "train": tlosses[i],
+                                     "val": vloss, "sec": sec,
+                                     "train_sec": train_sec})
+                vtxt = "-" if vloss is None else f"{vloss:.6f}"
+                print(f"epoch {e} | tr {tlosses[i]:.6f} | val {vtxt} | "
+                      f"{sec:.1f}s", flush=True)
+                if e % cfg.train.ck_frequency == 0:
+                    self.save(e)
+                if (cfg.train.save_recons and e % 50 == 0
+                        and last_batch is not None):
+                    self._dump_sample(e, last_batch)
+            epoch = e1 + 1
         return self
+
+    def _scan_chunk_end(self, e0: int, n_epochs: int) -> int:
+        """The last epoch e1 >= e0 of the chunk that starts at e0: at most
+        train.scan_epochs epochs, and never past an epoch that needs the
+        host after it (checkpoint, validation, sample dump) or a change of
+        the loss flags (another step).  The boundary test covers e0 too: a
+        chunk that crossed a boundary would save end-of-chunk parameters
+        under the boundary's epoch and skip its validation."""
+        t = self.cfg.train
+        e1 = min(e0 + max(t.scan_epochs, 1) - 1, n_epochs)
+        f0 = flags_for_epoch(t, e0)
+        e = e0
+        while e < e1:
+            if (e % t.ck_frequency == 0
+                    or e % max(t.val_every, 1) == 0
+                    or (t.save_recons and e % 50 == 0)):
+                break
+            if flags_for_epoch(t, e + 1) != f0:
+                break
+            e += 1
+        return e
 
     def _run_epoch_steps(self, epoch: int, interp_iter):
         """One epoch as a loop of steps; losses stay on the device until it
@@ -423,6 +479,132 @@ class Trainer:
         sizes = np.asarray(step_sizes, np.float64)
         epoch_loss = float((losses * sizes).sum() / max(sizes.sum(), 1.0))
         return epoch_loss, _to_host(metrics), last_batch
+
+    # --- the epoch path ---------------------------------------------------------
+    def _epoch_scan_ok(self) -> bool:
+        """The epoch path applies with the JAX Trainer's prerequisites: the
+        flag on, the part model, one process, no trace window, and
+        device-resident train and interp loaders over one source."""
+        t = self.cfg.train
+        dist = torch.distributed
+        return bool(
+            t.epoch_scan
+            and self.cfg.model.model_type == "multiz+partkps"
+            and not (dist.is_available() and dist.is_initialized()
+                     and dist.get_world_size() > 1)
+            and not t.profile_stop > t.profile_start
+            and isinstance(self.train_loader, DeviceBatchLoader)
+            and isinstance(self.interp_loader, DeviceBatchLoader)
+            and self.train_loader.source is self.interp_loader.source)
+
+    def _get_scan_step(self, epoch: int, variant: str):
+        """(run, step): run() is one step of the epoch path on the
+        Trainer's EpochBuffers, on the card the replay of a graph captured
+        at first use per (loss flags, exchange variant), on the CPU the
+        step itself; step.metric_names name its metric columns once it has
+        run."""
+        key = ("scan", flags_for_epoch(self.cfg.train, epoch), variant)
+        if key not in self._step_cache:
+            buf = self._epoch_buffers
+            step = make_epoch_scan_step(
+                self.model, self.tables, self.optimizer, key[1], variant,
+                self.train_loader.source.batch_fn)
+            if self.device.type == "cuda":
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
+
+                def reset():
+                    buf.k.zero_()
+                    buf.pos.zero_()
+
+                G.warm_up(lambda: step(buf), reset)
+                run = G.capture(lambda: step(buf), self._graph_pool).replay
+            else:
+                def run():
+                    step(buf)
+            # the step (and the tables it closes over) lives as long as
+            # its graph: a replay reads every tensor the capture saw
+            self._step_cache[key] = (run, step)
+        return self._step_cache[key]
+
+    def _run_scan_chunk(self, e0: int, e1: int):
+        """Epochs e0..e1 on the epoch path: the host builds each epoch's
+        batch, edit-spec and exc-variant schedule as the loop does
+        (set_epoch, reseed, the anchored interp cycle) and Adam's scalars
+        for every step, stages them on the device in one copy, runs the
+        step once per row, and reads the metrics once at the end.
+        -> (per-epoch train losses, the last step's metrics with the
+        chunk's largest gnorm, the last batch or None)."""
+        cfg = self.cfg
+        src = self.train_loader.source
+        exc_dyn = self.sampler.exc_mode == "ori_or_m"
+        host_meas = self.interp_loader.loader.source.measures
+        idx_tr, idx_in, idx_ex, specs, epoch_of_step = [], [], [], [], []
+        variant = last_meta = None
+        for e in range(e0, e1 + 1):
+            self.train_loader.set_epoch(e)
+            self.sampler.reseed(e)
+            interp_metas = self.interp_loader.meta_cycle(anchor=e)
+            for meta in self.train_loader.loader.iter_indices():
+                mi, me = next(interp_metas), next(interp_metas)
+                idx_tr.append(meta["global_idx"])
+                idx_in.append(mi["global_idx"])
+                idx_ex.append(me["global_idx"])
+                variant = self.sampler.sample_exc_variant()
+                measure = None
+                if cfg.train.edit_mode == "exc":
+                    measure = np.asarray(host_meas)[mi["global_idx"]]
+                spec = self.sampler.sample_interp(
+                    e, len(mi["global_idx"]), measure=measure)
+                if exc_dyn:
+                    spec["exc_is_ori"] = np.float32(variant == "ori")
+                specs.append(spec)
+                epoch_of_step.append(e)
+                last_meta = meta
+        k = len(idx_tr)
+        sched = {"idx_tr": np.stack(idx_tr).astype(np.int64),
+                 "idx_in": np.stack(idx_in).astype(np.int64),
+                 "idx_ex": np.stack(idx_ex).astype(np.int64),
+                 **{f"spec:{n}": np.stack([s[n] for s in specs])
+                    for n in specs[0]}}
+        if self._epoch_buffers is None:
+            self._epoch_buffers = EpochBuffers(
+                self.params, max(cfg.train.scan_epochs, 1)
+                * self.steps_per_epoch, self.device)
+        buf = self._epoch_buffers
+        buf.stage(sched, self.optimizer.step_scalars(self.opt_state.count,
+                                                     k))
+        run, step = self._get_scan_step(e0,
+                                        "dynamic" if exc_dyn else variant)
+        buf.load(self.params, self.opt_state)
+        for _ in range(k):
+            run()
+        ms, applied, bad = buf.read(k)
+        self.params, self.opt_state = buf.state_out(self.opt_state, applied,
+                                                    bad)
+        self.global_step += k
+        ms = dict(zip(step.metric_names, ms.T))
+        if cfg.train.log_every:
+            base = self.global_step - k
+            for j in range(k):
+                if (base + j + 1) % cfg.train.log_every == 0:
+                    self.logger.log(base + j + 1,
+                                    {n: float(v[j]) for n, v in ms.items()})
+        eps = np.asarray(epoch_of_step)
+        sizes = np.full(k, float(cfg.train.batch_train))
+        losses = ms["loss"]
+        # the loop's formula: the size-weighted mean of the f32 losses in
+        # float64
+        tlosses = [float((losses[eps == e] * sizes[eps == e]).sum()
+                         / max(sizes[eps == e].sum(), 1.0))
+                   for e in range(e0, e1 + 1)]
+        metrics = {n: float(v[-1]) for n, v in ms.items()}
+        # the chunk's largest raw gradient norm: a spike mid-chunk is the
+        # signal, which the last step's would hide
+        metrics["gnorm"] = float(ms["gnorm"].max())
+        last_batch = (src.take(last_meta)
+                      if cfg.train.save_recons and e1 % 50 == 0 else None)
+        return tlosses, metrics, last_batch
 
     def validate(self) -> float:
         """Mean per-sample L1 over the val split (pad rows masked)."""

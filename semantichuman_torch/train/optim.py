@@ -10,6 +10,14 @@ torch.optim.Adam(weight_decay=λ) does; not AdamW), after the global-norm
 clip.  The clip is optax's: no epsilon is added to the norm.  `init`
 returns the state and `update` returns (updates, new state) for lists of
 trees (dicts and lists) of tensors, without changing its arguments.
+
+`update_` is the same update in place, for a step captured as a CUDA graph
+(`train/graph.py`): a capture records the host's numbers as constants, so
+the step's lr and bias corrections come in as device tensors, and
+`skip_nonfinite` becomes optax.apply_if_finite's rule on the device.  Both
+take those three numbers from `step_scalars` (the schedule and the bias
+corrections in double, rounded once to float32) as a float32 tensor, so
+the two give the same bits.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, replace
 
+import numpy as np
 import torch
 
 from ..utils.params import tree_leaves, tree_unflatten
@@ -97,6 +106,57 @@ class Adam:
                                               for g in grads]),
                         replace(state, notfinite_count=bad))
             state = replace(state, notfinite_count=bad)
+        scalars = torch.from_numpy(self.step_scalars(state.count, 1)[0])
+        mu, nu, updates = self._moments(grads, params, state.mu, state.nu,
+                                        scalars.to(grads[0].device))
+        return (tree_unflatten(tree, updates),
+                replace(state, count=state.count + 1, mu=mu, nu=nu))
+
+    def step_scalars(self, count: int, k: int) -> np.ndarray:
+        """[k, 3] float32: (-lr, 1 - b1^t, 1 - b2^t) of the k Adam steps
+        that start at state.count = count, computed in double precision
+        and rounded once to float32."""
+        out = np.empty((k, 3), np.float32)
+        for j in range(k):
+            c = count + j
+            out[j] = (-self.schedule(c), 1.0 - self.B1 ** (c + 1),
+                      1.0 - self.b2 ** (c + 1))
+        return out
+
+    def update_(self, grads, params, mu, nu, scalars, bad=None):
+        """`update` in place, with no host read: params, mu and nu (lists of
+        tensors) take their new values; scalars [3] float32 on their device
+        is this step's row of `step_scalars`.  With skip_nonfinite > 0, bad
+        (a 0-d int64 tensor, the count of non-finite steps in a row) is
+        updated in place, a step is applied as optax.apply_if_finite
+        decides, and the returned 0-d bool tensor says whether it was
+        (state.count advances only then); else None is returned."""
+        grads = [g.detach() for g in grads]
+        keep = None
+        if self.skip_nonfinite > 0:
+            finite = torch.stack([torch.isfinite(g).all()
+                                  for g in grads]).all()
+            bad.copy_(torch.where(finite, torch.zeros_like(bad), bad + 1))
+            keep = finite | (bad > self.skip_nonfinite)
+        new_mu, new_nu, updates = self._moments(grads, params, mu, nu,
+                                                scalars)
+        if keep is not None:
+            new_mu = [torch.where(keep, a, b) for a, b in zip(new_mu, mu)]
+            new_nu = [torch.where(keep, a, b) for a, b in zip(new_nu, nu)]
+            updates = [torch.where(keep, u, torch.zeros_like(u))
+                       for u in updates]
+        torch._foreach_copy_(mu, new_mu)
+        torch._foreach_copy_(nu, new_nu)
+        torch._foreach_add_(params, updates)
+        return keep
+
+    def _moments(self, grads, params, mu, nu, scalars):
+        """(new mu, new nu, updates) of one step from the raw gradients;
+        scalars [3] float32 on the gradients' device: -lr, 1 - b1^t,
+        1 - b2^t.  Both `update` and `update_` take them as a tensor, so
+        the loop and a captured step divide and multiply alike (on the
+        card `_foreach_div` by a Python float rounds otherwise than a
+        division by the same float32 number)."""
         if self.grad_clip > 0:
             norm = global_norm(grads)
             keep = norm < self.grad_clip
@@ -106,18 +166,16 @@ class Adam:
             grads = torch._foreach_add(grads, params, alpha=self.weight_decay)
         b1, b2 = self.B1, self.b2
         mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - b1),
-                                torch._foreach_mul(state.mu, b1))
+                                torch._foreach_mul(mu, b1))
         nu = torch._foreach_add(
             torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2),
-            torch._foreach_mul(state.nu, b2))
-        count = state.count + 1
-        mu_hat = torch._foreach_div(mu, 1.0 - b1 ** count)
-        nu_hat = torch._foreach_div(nu, 1.0 - b2 ** count)
+            torch._foreach_mul(nu, b2))
+        neg_lr, bc1, bc2 = scalars[0], scalars[1], scalars[2]
+        mu_hat = [m / bc1 for m in mu]
+        nu_hat = [n / bc2 for n in nu]
         denom = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.EPS)
         step = torch._foreach_div(mu_hat, denom)
-        updates = torch._foreach_mul(step, -self.schedule(state.count))
-        return (tree_unflatten(tree, updates),
-                replace(state, count=count, mu=mu, nu=nu))
+        return list(mu), list(nu), [s * neg_lr for s in step]
 
 
 def make_optimizer(lr: float, weight_decay: float, lr_decay: float,

@@ -11,6 +11,12 @@ Batches ({"verts" [B, V+1, 3], "measure" [B, 32], optional
 "gt_face_edges" [B, 3, F], "gt_part_vols" [B, P']}) and the edit spec
 (`EditSampler.sample_interp` as tensors, `to_device`) live on the model's
 device before the step is called, as they do for the jitted JAX step.
+
+`make_epoch_scan_step` is the step of the epoch path: it reads its batch,
+edit spec and Adam scalars from a chunk's schedule staged on the device
+(`EpochBuffers`) through a device step counter and updates the parameters
+and moments in place, so one capture of it (`train/graph.py`) serves
+every step of every epoch.
 """
 
 from __future__ import annotations
@@ -27,7 +33,7 @@ from ..ops.skeleton import kps2skl, skl2kps
 from ..utils.device import index_tensor
 from ..utils.params import tree_leaves, tree_map, tree_unflatten
 from . import losses as L
-from .optim import global_norm
+from .optim import AdamState, global_norm
 
 
 @dataclass(frozen=True)
@@ -265,6 +271,124 @@ def make_train_step(model, tables: L.LossTables, optimizer,
                                               tree_leaves(updates))]
         return tree_unflatten(params, new), opt_state, metrics
 
+    return step
+
+
+class EpochBuffers:
+    """The static device tensors of the epoch path: the parameters and
+    Adam moments the step updates in place, the step counter k, the count
+    of Adam updates applied in the chunk (pos: the row of `scalars` the
+    next update reads) and of non-finite steps in a row (bad), a chunk's
+    staged schedule (batch indices, edit specs, Adam scalars), and one row
+    of metrics a step.  Every tensor keeps its storage for the Trainer's
+    life, so a graph captured over them stays valid; `k_max` rows hold the
+    longest chunk (train.scan_epochs epochs)."""
+
+    N_METRICS = 16      # metric columns (a step has at most 10)
+
+    def __init__(self, params, k_max: int, device):
+        dev = torch.device(device)
+        self.k_max = k_max
+        self.params = tree_map(lambda p: torch.empty_like(p, device=dev),
+                               params)
+        self.leaves = tree_leaves(self.params)
+        self.mu = [torch.empty_like(p) for p in self.leaves]
+        self.nu = [torch.empty_like(p) for p in self.leaves]
+        self.k = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.pos = torch.zeros(1, dtype=torch.int64, device=dev)
+        self.bad = torch.zeros((), dtype=torch.int64, device=dev)
+        self.scalars = torch.zeros((k_max, 3), dtype=torch.float32,
+                                   device=dev)
+        self.metrics = torch.zeros((k_max, self.N_METRICS),
+                                   dtype=torch.float32, device=dev)
+        self.sched: dict = {}
+
+    def stage(self, sched: dict, scalars: np.ndarray):
+        """Copy a chunk's host schedule ({name: [k, ...] array}, the
+        buffers made at the first call from its shapes) and its Adam
+        scalars ([k, 3], `Adam.step_scalars`) into the static buffers."""
+        self.scalars[:len(scalars)].copy_(torch.from_numpy(scalars))
+        for name, a in sched.items():
+            a = np.ascontiguousarray(a)
+            if len(a) > self.k_max:
+                raise ValueError(f"a chunk of {len(a)} steps; the buffers "
+                                 f"hold {self.k_max}")
+            if name not in self.sched:
+                self.sched[name] = torch.zeros(
+                    (self.k_max,) + a.shape[1:],
+                    dtype=torch.from_numpy(a).dtype, device=self.k.device)
+            self.sched[name][:len(a)].copy_(torch.from_numpy(a))
+
+    def load(self, params, opt_state: AdamState):
+        """The Trainer's state in, the counters at 0."""
+        torch._foreach_copy_(self.leaves, tree_leaves(params))
+        torch._foreach_copy_(self.mu, list(opt_state.mu))
+        torch._foreach_copy_(self.nu, list(opt_state.nu))
+        self.k.zero_()
+        self.pos.zero_()
+        self.bad.fill_(int(opt_state.notfinite_count))
+
+    def read(self, k: int):
+        """After k steps, in one device-to-host copy: (metrics [k,
+        N_METRICS] float64, Adam updates applied, non-finite steps in a
+        row)."""
+        host = torch.cat([self.metrics[:k].reshape(-1),
+                          self.pos.float(), self.bad.float().reshape(1)]) \
+            .double().cpu().numpy()
+        return (host[:-2].reshape(k, self.N_METRICS), int(host[-2]),
+                int(host[-1]))
+
+    def state_out(self, opt_state: AdamState, applied: int, bad: int):
+        """Copies of the parameters and the Adam state (the buffers stay
+        the graph's)."""
+        params = tree_unflatten(self.params, [p.clone() for p in self.leaves])
+        return params, AdamState(count=opt_state.count + applied,
+                                 mu=[m.clone() for m in self.mu],
+                                 nu=[n.clone() for n in self.nu],
+                                 notfinite_count=bad)
+
+
+def make_epoch_scan_step(model, tables: L.LossTables, optimizer,
+                         flags: StepFlags, exc_variant: str, batch_fn,
+                         sums_fn=part_dist_sums):
+    """One step of the epoch path (the counterpart of the JAX package's
+    `make_epoch_scan_step`, whose lax.scan runs it over the chunk):
+    step(buf: EpochBuffers) reads row k of the staged schedule ("idx_tr",
+    "idx_in", "idx_ex" [K, B] int64, "spec:<name>" [K, ...]) through the
+    device counter buf.k, runs the loss, its gradient and
+    `Adam.update_` with row buf.pos of buf.scalars, writes the metrics
+    (`step.metric_names`, the loss terms and gnorm) into row k of
+    buf.metrics, and adds 1 to k.  It reads no host value, so it can be
+    captured as a CUDA graph.  exc_variant 'dynamic' reads each step's
+    'ori'/'m' draw from spec "exc_is_ori".  batch_fn(idx [B]) -> a batch
+    dict (`DeviceDataSource.batch_fn`)."""
+    loss_fn = make_loss_fn(model, tables, flags, exc_variant, sums_fn)
+    names: list = []
+
+    def step(buf: EpochBuffers):
+        k, sched = buf.k, buf.sched
+
+        def row(name):
+            return sched[name].index_select(0, k)[0]
+
+        spec = {name[5:]: row(name) for name in sched
+                if name.startswith("spec:")}
+        _, metrics, grads = value_and_grad(
+            loss_fn, buf.params, batch_fn(row("idx_tr")),
+            batch_fn(row("idx_in")), batch_fn(row("idx_ex")), spec)
+        grads = tree_leaves(grads)
+        metrics["gnorm"] = global_norm(grads)
+        keep = optimizer.update_(grads, buf.leaves, buf.mu, buf.nu,
+                                 buf.scalars.index_select(0, buf.pos)[0],
+                                 buf.bad)
+        buf.pos.add_(1 if keep is None else keep.long())
+        if not names:
+            names.extend(metrics)
+        vals = torch.stack([metrics[n].float().reshape(()) for n in names])
+        buf.metrics.narrow(1, 0, len(names)).index_copy_(0, k, vals[None])
+        k.add_(1)
+
+    step.metric_names = names
     return step
 
 

@@ -134,3 +134,24 @@ def test_forward_phase_covers_the_main_paths(path, batches):
     batch at which a main path runs it."""
     assert set(batches()) <= set(CS.FWD_BATCHES), path
     assert set(CS.FWD_TIMED) <= set(CS.FWD_BATCHES)
+
+
+def test_trainer_mode_parses():
+    args = CS.parse_args(["--trainer"])
+    assert args.trainer and not (args.conv_forward or args.csr_reduce)
+    assert not CS.parse_args([]).trainer
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--trainer", "--part-dist"])
+
+
+def test_graph_launch_literals():
+    """The epoch path's captured step is the 'dynamic' exchange variant:
+    the volume term (one face gather and its backward) runs on every step,
+    so it launches what a loop step that drew 'ori' does, the 'm' draw's
+    fewer launches never apply, and the yardsticks stay at 0."""
+    assert CS.GRAPH_LAUNCHES == CS.TRAIN_LAUNCHES
+    assert CS.GRAPH_LAUNCHES["row_gather"] == 6 + 8 + 11
+    assert CS.GRAPH_LAUNCHES["csr_reduce"] == 23
+    assert set(CS.M_VARIANT_FEWER) <= set(CS.GRAPH_LAUNCHES)
+    for k in CS.YARDSTICKS:
+        assert CS.expect(CS.GRAPH_LAUNCHES)[k] == 0

@@ -1071,3 +1071,85 @@ def test_csr_reduce_kernels_reject_bad_input(cuda, name):
     with pytest.raises(ValueError):
         fn(g, inv, taps.inv_w.cpu())
     assert fn.launches == before
+
+
+def _graph_trainer(tmp_path, name):
+    """A small-width Trainer on the epoch path on the card: the bundled
+    6892-vertex topology, 12 synthetic train meshes (3 steps an epoch at
+    B = 4), narrow filters."""
+    import shutil
+
+    from semantichuman_torch.config import Config
+    from semantichuman_torch.train.loop import Trainer
+
+    wd = tmp_path / name
+    wd.mkdir()
+    for suffix in ("", ".meta"):
+        shutil.copy(TOPOLOGY + suffix, wd / f"topology_2222.npz{suffix}")
+    cfg = Config.from_dict({
+        "model": {"filter_sizes_enc": [[3, 8, 8, 16, 16], [[]] * 5],
+                  "filter_sizes_dec": [[16, 16, 8, 8, 8],
+                                       [[], [], [], [], 3]]},
+        "data": {"synthetic": True, "synthetic_train": 12,
+                 "synthetic_test": 4},
+        "train": {"n_epochs": 1, "save_recons": False, "batch_test": 4}})
+    tr = Trainer(cfg, str(wd), device="cuda")
+    assert tr._epoch_scan_ok()
+    return tr
+
+
+@pytest.mark.cuda
+def test_captured_step_replays_equal_eager_steps(cuda, tmp_path,
+                                                 monkeypatch):
+    """An epoch of the epoch path at small width: 3 replays of the captured
+    step give the parameters, moments and losses of the same step run 3
+    times eagerly, bit for bit."""
+    import types
+
+    from semantichuman_torch.train import graph as G
+    from semantichuman_torch.utils.params import tree_leaves
+
+    captured = _graph_trainer(tmp_path, "graph")
+    captured.fit()
+    with monkeypatch.context() as mp:
+        mp.setattr(G, "warm_up", lambda fn, reset, steps=2: None)
+        mp.setattr(G, "capture",
+                   lambda fn, pool: types.SimpleNamespace(replay=fn))
+        eager = _graph_trainer(tmp_path, "eager")
+        eager.fit()
+    assert captured.global_step == eager.global_step == 3
+    assert captured.history[0]["train"] == eager.history[0]["train"]
+    for a, b in zip(tree_leaves(captured.params) + captured.opt_state.mu
+                    + captured.opt_state.nu,
+                    tree_leaves(eager.params) + eager.opt_state.mu
+                    + eager.opt_state.nu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_capture_with_a_host_copy_raises(cuda, tmp_path):
+    """A step that copies from the host meets the capture and raises; the
+    Trainer does not run the step eagerly instead: after the warm-up's two
+    steps (on the epoch buffers, not the Trainer's state) and the one
+    capture that failed, batch_fn was called no more, and the parameters
+    and the step count are as before."""
+    from semantichuman_torch.utils.params import tree_leaves
+
+    tr = _graph_trainer(tmp_path, "host_copy")
+    src = tr.train_loader.source
+    batch_fn, calls = src.batch_fn, []
+
+    def host_copy_batch_fn(idx):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        torch.as_tensor(np.zeros(3, np.float32), device="cuda")
+        return batch_fn(idx)
+
+    src.batch_fn = host_copy_batch_fn
+    before = [p.clone() for p in tree_leaves(tr.params)]
+    with pytest.raises(RuntimeError):
+        tr.fit()
+    torch.cuda.synchronize()
+    assert calls == [False] * 6 + [True]
+    assert tr.global_step == 0 and tr.history == []
+    for a, b in zip(before, tree_leaves(tr.params)):
+        assert torch.equal(a, b)
