@@ -23,16 +23,19 @@ run:
 3. serving: build the full-width PartAE from the default ModelConfig (seed
    0, banded_conv on), export a bundle, load it on the card, answer forward
    at B = 1, 16, 64 and encode -> decode at B = 64 with the launch counts
-   set to 0 just before; require per forward, by route (SERVE_LAUNCHES):
-   at B <= 16 five banded convs and four banded unpools (9 banded-gather
-   forwards, 8 fix-up row gathers) and 4 spiral-conv launches, at B = 64
-   nine spiral-conv launches and the four banded unpools (3 row gathers),
-   and at every batch the encode's 6 row gathers (4 pools, 2 heads);
-   finite outputs, exactly zero dummy rows, and agreement (atol 1e-4) with
-   the same model run through the plain conv on the card and with the
-   same params exported with banded_conv off (9 spiral-conv launches, 10
-   row gathers: the unpools' weighted taps too).  Then time both
-   bundles.
+   set to 0 just before; require per forward the take route
+   (SERVE_LAUNCHES["take"]: 9 spiral-conv launches, 10 row gathers), since
+   the card's measurements closed both banded gates; finite outputs,
+   exactly zero dummy rows, and agreement (atol 1e-4) with the same model
+   run through the plain conv on the card, and bit for bit with the same
+   params exported with banded_conv off.  Then the forced banded arm: the
+   same bundle with the gates open to the JAX package's (FORCED_GATES,
+   16 and 128), per forward at B <= 16 five banded convs and four banded
+   unpools (9 banded-gather forwards, 8 fix-up row gathers) and 4
+   spiral-conv launches, at B = 64 nine spiral-conv launches and the four
+   banded unpools (3 row gathers), and at every batch the encode's 6 row
+   gathers; within atol 1e-4 of the take route.  Then time both routes
+   in turns.
 
 4. training kernels, at the training step's full-width shapes (trunk
    batch 384 = three segments of B = 128): the spiral conv's backward
@@ -93,8 +96,8 @@ run:
    At trunk batch 384 no banded route engages: 0 banded launches.
 6. banded kernels, at the trainer's shapes (trunk batch 12 = three
    segments of B = 4, the bundled topology's band tables): every banded
-   call of one step (convs at levels 0-1 at their input widths, unpools
-   into levels 0-3).  The banded-gather forward against its plain version
+   call of one step of the forced banded arm (convs at levels 0-1 at
+   their input widths, unpools into levels 0-3).  The banded-gather forward against its plain version
    (bit-equal unweighted, rtol 1e-6 weighted), its backward (1e-5 of the
    largest entry with the dummy row zeroed, two runs bit-equal) and the
    fix-up row gather (bit-equal to index_select), each timed on the device
@@ -102,41 +105,39 @@ run:
    are paced by the host) beside its plain version, the library call
    (index_select, index_add_) and its bound (bytes moved / 3.35 TB/s).
    Then the two fused backward kernels at the four convs that stay on the
-   take route there (enc L2, enc L3, dec L3, dec L2; batch 12 fills the
+   take route in that arm (enc L2, enc L3, dec L3, dec L2; batch 12 fills the
    dx kernel's batch tiles only partly), float32 and bfloat16: each
    within 1e-4 of the largest entry of its plain version, two runs
    bit-equal.  Then the part_dist kernel's three modes at the Trainer's
    grid (17 parts x B = 4, each tile split over blocks) as in phase 4;
    fwd_grad in threshold mode must beat v1 in device time there too.
    Then the CSR reduce at the shapes of one Trainer step's calls (batch
-   12: the 4 unfused dx, the 7 banded fix-ups' backward at B = 1 with
-   rows of B*C, the gathers' backward), recorded from one loss +
-   gradient, checked and timed as in phase 4.
+   12, the default take route: the 8 unfused dx, the gathers' backward),
+   recorded from one loss + gradient, checked and timed as in phase 4.
 7. the Trainer: the paper recipe (Config() defaults: B = 4 per segment,
-   lr 1e-3, banded_conv on) on synthetic SMPL-scale data (64 train, 16
-   test meshes), full width, 3 epochs with the launch counts set to 0 just
-   before fit(): finite falling epoch losses and per step (TRAIN_LAUNCHES)
-   9 banded-gather forwards, 8 backwards, 25 row gathers (8 fix-ups, the
-   encode's 6, the loss's 11), 4 spiral-conv forwards, 2 part_dist
-   fwd_grad, and for the four coarse convs on the take route (enc L2, enc
-   L3, dec L3, dec L2) 4 dW launches and 0 dx (at batch <= 16 every dx
-   half takes the unfused route), and 23 csr_reduce (the 7 fix-up
-   gathers' backwards, the 4 unfused dx, the 12 other gathers with a
-   gradient), one row gather and one csr_reduce fewer on a step whose
-   skeleton exchange drew 'm' (no volume term); plus 9/8/4 forward
-   launches and 15 row gathers per validation pass.  The v1 forward,
-   part_dist and CSR reduce kernels launch on no main path.  fit() runs
-   as a user's does, with torch's default algorithms, and a second fit()
-   from the same seed must give its epoch losses and final parameters bit
-   for bit.  Four runs resumed from its
-   epoch-2 checkpoint, banded_conv on, off, off, on, repeat epoch 3: its
-   train loss to rtol 1e-4 (banded) and 1e-3 (take), and per route
+   lr 1e-3, banded_conv on, both gates closed: the take route) on
+   synthetic SMPL-scale data (64 train, 16 test meshes), full width, 3
+   epochs with the launch counts set to 0 just before fit(): finite
+   falling epoch losses and per step (TRAIN_LAUNCHES) 9 spiral-conv
+   forwards and 9 dW, 0 dx (at batch <= 16 every dx half takes the
+   unfused route), 21 row gathers (the encode's 6, the unpools' 4, the
+   loss's 11), 24 csr_reduce (the 8 unfused dx, the 16 gathers with a
+   gradient), 2 part_dist fwd_grad, one row gather and one csr_reduce
+   fewer on a step whose skeleton exchange drew 'm' (no volume term);
+   plus 9 forward launches and 11 row gathers per validation pass.  The
+   v1 forward, part_dist and CSR reduce kernels launch on no main path.
+   fit() runs as a user's does, with torch's default algorithms, and a
+   second fit() from the same seed must give its epoch losses and final
+   parameters bit for bit.  Four runs resumed from its epoch-2
+   checkpoint, the forced banded arm (FORCED_GATES), the take route, the
+   take route, the forced banded arm, repeat epoch 3: its train loss to
+   rtol 1e-4 (take) and 1e-3 (banded), and per route
    ms/step (the median of both runs' epoch-3 steps, a synchronize after
    each step), meshes/s (4 a step), s/epoch, the idle share, top kernels
    and families (the index_add_ family must be 0); evaluate once (finite
    l1 and mm).  The same resume gate runs again under torch's
    deterministic algorithms: a fit() there, and two runs resumed from its
-   epoch-2 checkpoint, banded_conv on and off (rtol 1e-4 banded, 1e-3
+   epoch-2 checkpoint, forced banded and take (rtol 1e-3 banded, 1e-4
    take).  All of that drives the loop (`epoch_scan: False`).  Then the
    Trainer's default epoch path (a CUDA graph a step, `train/graph.py`):
    (a) a 3-epoch fit from the same seed must give the loop's epoch losses
@@ -147,12 +148,30 @@ run:
    while the step is captured are GRAPH_LAUNCHES, and over one replayed
    epoch the profiler counts each of the port's kernels a whole number of
    times the epoch's 16 steps, the index_add_ family and the yardsticks
-   at 0; (e) banded and take, each on both paths in turns (graph, loop,
-   loop, graph), resumed from that checkpoint and timed over two more
-   epochs: ms/step, s/epoch with and without validation, device busy ms a
-   step, the idle share, the host time of the capture.  The rounding of
-   `_foreach_div` by a Python float on the card is printed (why Adam
-   takes its per-step scalars as a tensor on both paths).
+   at 0; (e) forced banded and take, each on both paths in turns (graph,
+   loop, loop, graph), resumed from that checkpoint and timed over two
+   more epochs: ms/step, s/epoch with and without validation, device
+   busy ms a step, the idle share, the host time of the capture; the
+   forced banded arm's captured step launches GRAPH_LAUNCHES_BANDED (9
+   banded-gather forwards, 8 backwards).  The rounding of `_foreach_div`
+   by a Python float on the card is printed (why Adam takes its per-step
+   scalars as a tensor on both paths).
+8. training from an on-disk dataset (`phase_dfaust`): the port's
+   preprocessing CLIs (make_synthetic at SMPL scale with 64 train and 16
+   test meshes, obj2npy, data_generation --n_val 8) in a temporary
+   directory, then `cli.train` with configs/train_dfaust.yaml (bf16
+   trunk, banded_conv off), only root_dir, asset_dir, n_val and 2 epochs
+   set, twice: (a) the stacked layout (staged: the epoch path) and (b)
+   data.from_stacked off (FileSource: the loop, its batches through
+   prefetch_to_device).  (a) compiles the first train frame's template
+   into its workdir, (b) reads it from that cache; finite falling epoch
+   losses and a finite test eval on both; launches as GRAPH_LAUNCHES (the
+   captured step, its two warm-up steps) or TRAIN_LAUNCHES a step plus
+   VAL_LAUNCHES per eval batch; the first host batch of (a) equals (b)'s,
+   epoch 1's loss to DFAUST_LOSS_RTOL; ms/step and the idle share of
+   both; the port's compile of the bundled synthetic template equals
+   assets/topology_synth_full_2222.npz array for array; the seconds of
+   the preprocessing and the compiles.
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
@@ -162,8 +181,12 @@ backward alone, each with a per-kernel profile, `--part-dist` phase 1 and
 the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
 row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
 reduce's checks and times of phases 4 and 6 with a sweep of its batch
-tile, for tuning those kernels, and `--trainer` phase 1 and phase 7: they
-print no result line and are no gate.
+tile, for tuning those kernels, `--trainer` phase 1 and phase 7,
+`--dfaust` phase 1 and phase 8, and `--band-gates` phase 1 and each
+banded gate measured on its own against the take route in turns (serving
+at B = 1, 16, 64, the Trainer's epoch path at trunk 12 and the fast
+recipe's 128), the measurement that set both gates: they print no result
+line and are no gate.
 """
 
 from __future__ import annotations
@@ -218,10 +241,17 @@ UNPOOL_GATHERS = 4
 # buckets of GT and reconstruction in the distance loss's two calls (4);
 # the 7 on the reconstruction or z take a gradient
 LOSS_GATHERS, LOSS_GATHER_GRADS = 11, 7
-# launches per forward of the default model, by route: at B <= 16 the
-# convs at levels 0-1 (5 of 9) and the four unpools take the banded route;
-# every banded call but unpool 4->3 (no out-of-band taps) adds a fix-up
-# row gather (8).  At 16 < B <= 128 only the unpools do (3).
+# the batch gates of the banded routes (`ops/spiral_conv.py:_BANDED_MAX_B`
+# for the conv, `ops/sampling.py:_UNPOOL_BAND_MAX_B` for unpool) that the
+# forced banded arms open: the JAX package's, under which the port ran by
+# default until the card's measurements closed both (`--band-gates`)
+FORCED_GATES = (16, 128)
+# launches per forward of the default model: the take route at every
+# batch (both gates closed), 9 convs, the encode's gathers and the 4
+# unpools'.  The forced banded arm (FORCED_GATES): at B <= 16 the convs at
+# levels 0-1 (5 of 9) and the four unpools take the banded route; every
+# banded call but unpool 4->3 (no out-of-band taps) adds a fix-up row
+# gather (8).  At 16 < B <= 128 only the unpools do (3).
 SERVE_LAUNCHES = {
     "small": {"spiral_conv_fwd": 4, "banded_gather_fwd": 9,
               "row_gather": ENCODE_GATHERS + 8},
@@ -230,33 +260,56 @@ SERVE_LAUNCHES = {
     "take": {"spiral_conv_fwd": 9,
              "row_gather": ENCODE_GATHERS + UNPOOL_GATHERS},
 }
+# staging a train split on the device (`data/device_data.py`) computes its
+# GT loss inputs once: the face gathers of the edge lengths and of the
+# part volumes
+STAGE_GATHERS = 2
+# a step on host batches (a split not staged) computes its GT loss inputs
+# itself: the face gathers of the GT edge lengths and, on a step that runs
+# the volume term (not 'm'), of the GT part volumes
+UNSTAGED_GT_GATHERS = 2
 # a Trainer step whose skeleton exchange draws 'm' (exc_mode 'ori_or_m'
 # draws 'ori' or 'm' each step) has no volume term: one face gather and
 # its backward fewer than TRAIN_LAUNCHES counts
 M_VARIANT_FEWER = {"row_gather": 1, "csr_reduce": 1}
-# a Trainer validation batch (16 meshes): the "small" forward and the eval
-# step's keypoint gather
-VAL_LAUNCHES = dict(SERVE_LAUNCHES["small"],
-                    row_gather=SERVE_LAUNCHES["small"]["row_gather"] + 1)
-# launches per Trainer step at trunk batch 12: the forward as "small"
-# above plus the loss's gathers; backward through 8 banded calls (all but
-# the first conv, whose input is data) and their 7 fix-up gathers'
-# backward through csr_reduce; the loss's two part_dist fwd_grad calls;
-# the 4 take-route convs' backward (enc L2, enc L3, dec L3, dec L2)
-# launches 4 dW, and their 4 dx halves take the unfused route at batch
-# <= 16: 4 csr_reduce more; and one csr_reduce per gather with a gradient.
-TRAIN_LAUNCHES = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
-                  "spiral_conv_bwd_dx": 0, "banded_gather_fwd": 9,
-                  "banded_gather_bwd": 8,
-                  "row_gather": ENCODE_GATHERS + 8 + LOSS_GATHERS,
-                  "csr_reduce": 7 + 4 + ENCODE_GATHER_GRADS
+# a Trainer validation or test batch (16 meshes): one forward and the
+# eval step's keypoint gather; by route as SERVE_LAUNCHES
+VAL_LAUNCHES = dict(SERVE_LAUNCHES["take"],
+                    row_gather=SERVE_LAUNCHES["take"]["row_gather"] + 1)
+VAL_LAUNCHES_BANDED = dict(
+    SERVE_LAUNCHES["small"],
+    row_gather=SERVE_LAUNCHES["small"]["row_gather"] + 1)
+# launches per Trainer step at trunk batch 12, the default (take) route:
+# 9 conv forwards and their 9 dW; the 8 dx halves (all but the first
+# conv's, whose input is data) take the unfused route at batch <= 16, one
+# csr_reduce each; the encode's, the unpools' and the loss's row gathers
+# and one csr_reduce per gather with a gradient; the loss's two part_dist
+# fwd_grad calls.
+TRAIN_LAUNCHES = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
+                  "spiral_conv_bwd_dx": 0,
+                  "row_gather": ENCODE_GATHERS + UNPOOL_GATHERS
+                  + LOSS_GATHERS,
+                  "csr_reduce": 8 + ENCODE_GATHER_GRADS + UNPOOL_GATHERS
                   + LOSS_GATHER_GRADS,
                   "part_dist_fwd_grad": 2}
+# the same step in the forced banded arm (FORCED_GATES): the forward as
+# "small" above plus the loss's gathers; backward through 8 banded calls
+# and their 7 fix-up gathers' backward through csr_reduce; the 4
+# take-route convs (enc L2, enc L3, dec L3, dec L2) launch 4 dW and 4
+# unfused dx.
+TRAIN_LAUNCHES_BANDED = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
+                         "spiral_conv_bwd_dx": 0, "banded_gather_fwd": 9,
+                         "banded_gather_bwd": 8,
+                         "row_gather": ENCODE_GATHERS + 8 + LOSS_GATHERS,
+                         "csr_reduce": 7 + 4 + ENCODE_GATHER_GRADS
+                         + LOSS_GATHER_GRADS,
+                         "part_dist_fwd_grad": 2}
 # launches per step of the epoch path, recorded while its step is captured
 # (train/graph.py): the 'dynamic' exchange variant runs the volume term on
 # every step and multiplies it by the step's 'ori' draw, so every step
 # launches what a loop step that drew 'ori' does
 GRAPH_LAUNCHES = dict(TRAIN_LAUNCHES)
+GRAPH_LAUNCHES_BANDED = dict(TRAIN_LAUNCHES_BANDED)
 # launches per B = 128 training step (trunk batch 384, no banded route):
 # nine convs forward and their dW; dx for all but the first, whose input
 # is data, the 64 -> 128 conv's on the unfused route (one csr_reduce); the
@@ -559,7 +612,8 @@ def phase_serving(model, model_take, params, human):
             bd.forward(batches[b])
     torch.cuda.synchronize()
 
-    # --- the main path: counts from 0, read right after -------------------
+    # --- the main path, the default bundle (banded_conv on, both gates
+    # closed: the take route): counts from 0, read right after -----------
     reset_counts()
     outs = {}
     for b in SERVE_BATCHES:
@@ -567,17 +621,33 @@ def phase_serving(model, model_take, params, human):
         outs[b] = bundle.forward(batches[b])
         torch.cuda.synchronize()
         got = counts_diff(read_counts(), before)
-        want = expect(SERVE_LAUNCHES[serve_route(b)])
+        want = expect(SERVE_LAUNCHES["take"])
         require(got == want, f"forward B={b}: launches {got}, want {want}")
     before = read_counts()
     z, z_kps, _dummy = bundle.encode(batches[BATCH])
     dec = bundle.decode(z, z_kps)
     torch.cuda.synchronize()
     got = counts_diff(read_counts(), before)
-    require(got == expect(SERVE_LAUNCHES["large"]),
+    require(got == expect(SERVE_LAUNCHES["take"]),
             f"encode+decode: launches {got}")
     launches = read_counts()
-    log(f"[serve] main path (banded bundle): launches {launches}")
+    log(f"[serve] main path (default bundle): launches {launches}")
+
+    # the forced banded arm: the same bundle with the gates open to
+    # FORCED_GATES, rows 5-6 on their main-path shapes
+    reset_counts()
+    outs_banded = {}
+    with band_gates(*FORCED_GATES):
+        for b in SERVE_BATCHES:
+            before = read_counts()
+            outs_banded[b] = bundle.forward(batches[b])
+            torch.cuda.synchronize()
+            got = counts_diff(read_counts(), before)
+            want = expect(SERVE_LAUNCHES[serve_route(b)])
+            require(got == want, f"forced banded forward B={b}: launches "
+                    f"{got}, want {want}")
+    launches_banded = read_counts()
+    log(f"[serve] forced banded arm: launches {launches_banded}")
 
     # the same params exported with banded_conv off: the take route only
     reset_counts()
@@ -590,12 +660,15 @@ def phase_serving(model, model_take, params, human):
                                     len(SERVE_BATCHES)),
             f"take bundle: launches {launches_take}")
     for b in SERVE_BATCHES:
-        for name, got, want in zip(("rec", "z", "z_kps"), outs[b],
-                                   outs_take[b]):
-            err = float((got - want).abs().max())
-            log(f"[serve] banded vs take B={b} {name}: max abs err "
+        for name, got, banded, want in zip(("rec", "z", "z_kps"), outs[b],
+                                           outs_banded[b], outs_take[b]):
+            # one route, one set of kernels: the same bits
+            require(torch.equal(got, want), f"B={b} {name}: the default "
+                    "bundle differs from the take bundle")
+            err = float((banded - want).abs().max())
+            log(f"[serve] forced banded vs take B={b} {name}: max abs err "
                 f"{err:.3e}")
-            torch.testing.assert_close(got, want, rtol=0, atol=1e-4)
+            torch.testing.assert_close(banded, want, rtol=0, atol=1e-4)
 
     for b, (rec, zb, zkb) in outs.items():
         require(rec.shape == (b, v1, 3) and zb.shape == (b, 17, 8)
@@ -635,22 +708,24 @@ def phase_serving(model, model_take, params, human):
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3 / reps
 
-    timing, timing_take = {}, {}
+    timing, timing_banded = {}, {}
     for b in SERVE_BATCHES:
         runs = {"banded": [], "take": []}
         for route in ("banded", "take", "take", "banded"):
-            runs[route].append(wall_ms(
-                bundle if route == "banded" else bundle_take, b))
-        timing[b], timing_take[b] = (float(np.mean(runs["banded"])),
-                                     float(np.mean(runs["take"])))
-        log(f"[serve] forward B={b}: banded {runs['banded']} ms, take "
-            f"{runs['take']} ms; {b / timing[b] * 1e3:.1f} meshes/s banded")
+            with route_gates(route == "banded"):
+                runs[route].append(wall_ms(bundle, b))
+        timing[b], timing_banded[b] = (float(np.mean(runs["take"])),
+                                       float(np.mean(runs["banded"])))
+        log(f"[serve] forward B={b}: default (take) {runs['take']} ms, "
+            f"forced banded {runs['banded']} ms; "
+            f"{b / timing[b] * 1e3:.1f} meshes/s default")
     for b in SERVE_BATCHES:
-        for route, bd, wall in (("banded", bundle, timing[b]),
-                                ("take", bundle_take, timing_take[b])):
-            log(f"[profile] serving, {route} bundle")
-            profile_forward(bd, batches[b], wall)
-    return launches, launches_take, timing, timing_take
+        for route, wall in (("default", timing[b]),
+                            ("banded", timing_banded[b])):
+            log(f"[profile] serving, {route} route")
+            with route_gates(route == "banded"):
+                profile_forward(bundle, batches[b], wall)
+    return launches, launches_banded, launches_take, timing, timing_banded
 
 
 def profile_forward(bundle, verts, wall_ms: float, reps: int = 5) -> None:
@@ -1039,9 +1114,8 @@ def phase_csr_reduce(model, human, tables):
 
 def phase_csr_trainer(model, human, tables):
     """Row 8 at the shapes of one Trainer step's calls (trunk batch 12,
-    the banded routes on: the unfused dx, the fix-ups' backward at B = 1,
-    the gathers'), recorded from one loss + gradient, checked and timed by
-    csr_checks."""
+    the default take route: the unfused dx, the gathers' backward),
+    recorded from one loss + gradient, checked and timed by csr_checks."""
     calls = step_csr_calls(model, human, tables, b=TRAINER_B)
     log(f"[csr] one Trainer step (trunk {TRAINER_TRUNK_B}, 'ori'): "
         f"{len(calls)} csr_reduce calls (TRAIN_LAUNCHES counts "
@@ -2047,13 +2121,10 @@ def trainer_cfg(banded: bool = True, **train):
 
 
 def trainer_workdir(root: Path, name: str) -> str:
-    """A workdir holding the compiled hierarchy where the Trainer reads it
-    (the port has no topology compiler)."""
+    """A new workdir (the Trainer reads the bundled hierarchy, whose
+    compile key matches the synthetic template)."""
     d = root / name
     d.mkdir()
-    for suffix in ("", ".meta"):
-        shutil.copy(str(TOPOLOGY) + suffix,
-                    d / f"topology_2222.npz{suffix}")
     return str(d)
 
 
@@ -2348,31 +2419,37 @@ def profile_replays(tr, epoch: int) -> dict:
         "top_kernels": [[nm[:90], t] for nm, t in top]}
 
 
-def route_runs(root: Path, losses: list, ckpt: str) -> dict:
-    """(b) and (e): per route (banded, take), the epoch path and the loop
-    in turns (graph, loop, loop, graph), each resumed from the loop's
-    epoch-2 checkpoint: epoch 3's loss to rtol 1e-4 (banded) and 1e-3
-    (take) against the uninterrupted loop's; then two more epochs each,
-    timed: ms/step (the epoch's training time over its steps), s/epoch
-    with and without the val pass, device busy ms a step (one profiled
-    epoch more), the idle share; the host time of the capture."""
+def route_runs(root: Path, resume_from: dict) -> dict:
+    """(b) and (e): per route (the forced banded arm, FORCED_GATES, and
+    the default take route), the epoch path and the loop in turns (graph,
+    loop, loop, graph), each resumed from the epoch-2 checkpoint of the
+    loop's fit on its route (resume_from: route -> (epoch losses,
+    checkpoint dir)): epoch 3's loss to rtol 1e-4 against that fit's; the
+    launches of the banded arm's captured step (GRAPH_LAUNCHES_BANDED);
+    then two more epochs each, timed: ms/step (the epoch's training time
+    over its steps), s/epoch with and without the val pass, device busy
+    ms a step (one profiled epoch more), the idle share; the host time of
+    the capture."""
     out = {}
     for banded in (True, False):
         name = "banded" if banded else "take"
+        losses, ckpt = resume_from[name]
         runs = {"graph": {}, "loop": {}}
         for i, graph in enumerate((True, False, False, True)):
             path = "graph" if graph else "loop"
             r = runs[path]
-            with graph_probe() as caps:
+            with graph_probe() as caps, route_gates(banded):
                 tr, times, loss3 = resumed_epoch(
                     root, f"{name}_{path}{i}", banded, ckpt, graph=graph)
-                # take: the two routes gather the same values; the
-                # gradients' f32 sums run in another order through 16
-                # Adam steps
-                np.testing.assert_allclose(loss3, losses[2],
-                                           rtol=1e-4 if banded else 1e-3)
+                np.testing.assert_allclose(loss3, losses[2], rtol=1e-4)
                 tr.start_epoch = 4
                 tr.fit(5)
+            if banded and graph and i == 0:
+                want = expect(GRAPH_LAUNCHES_BANDED)
+                got = [c["counts"] for c in caps]
+                require(got == [want], "forced banded arm: captured steps' "
+                        f"launches {got}, want one with {want}")
+                out["banded_counts"] = got[0]
             steady = tr.history[1:]
             k = len(tr.train_loader)
             r.setdefault("epoch3_loss", []).append(loss3)
@@ -2399,9 +2476,12 @@ def route_runs(root: Path, losses: list, ckpt: str) -> dict:
                 + (f"; capture {caps[0]['capture_s']:.3f} s host"
                    if graph else ""))
             if i < 2:
-                r.update(profile_replays(tr, 6) if graph
-                         else profile_epoch(tr))
-            if banded and i == 1:
+                # the loop's profiled epoch runs eagerly: on the arm's
+                # route only under its gates
+                with route_gates(banded):
+                    r.update(profile_replays(tr, 6) if graph
+                             else profile_epoch(tr))
+            if not banded and i == 1:
                 _p, _z, _zk, _tx, l1, mm = tr.evaluate()
                 require(np.isfinite(l1) and np.isfinite(mm),
                         f"evaluate: l1 {l1} mm {mm}")
@@ -2422,6 +2502,124 @@ def route_runs(root: Path, losses: list, ckpt: str) -> dict:
                 f"{r.get('device_busy_ms', 'not measured')} ms a step, idle "
                 f"share {r.get('idle_share', 'not measured')}")
         out[name] = runs
+    return out
+
+
+@contextlib.contextmanager
+def band_gates(conv: int, unpool: int):
+    """The batch gates of the banded conv (`ops/spiral_conv.py:
+    _BANDED_MAX_B`) and the banded unpool (`ops/sampling.py:
+    _UNPOOL_BAND_MAX_B`) set for the block: the route is banded at batch
+    <= the gate on the card, and 0 closes it.  A graph captured inside
+    the block keeps the routes it recorded."""
+    import importlib
+
+    from semantichuman_torch.ops import sampling
+
+    sc = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+    saved = sc._BANDED_MAX_B, sampling._UNPOOL_BAND_MAX_B
+    sc._BANDED_MAX_B, sampling._UNPOOL_BAND_MAX_B = conv, unpool
+    try:
+        yield
+    finally:
+        sc._BANDED_MAX_B, sampling._UNPOOL_BAND_MAX_B = saved
+
+
+def route_gates(banded: bool):
+    """The forced banded arm's gates (FORCED_GATES) for banded, else the
+    default gates."""
+    return band_gates(*FORCED_GATES) if banded else contextlib.nullcontext()
+
+
+def gate_trainer_ms(root: Path, name: str, cfg, gates) -> float:
+    """ms/step of a Trainer's fit on the epoch path under `gates` (conv,
+    unpool): the mean training time of every epoch but the first (which
+    holds the capture) over its steps."""
+    from semantichuman_torch.train.loop import Trainer
+
+    with band_gates(*gates):
+        tr = Trainer(cfg, trainer_workdir(root, name), device=DEVICE)
+        require(tr._epoch_scan_ok(), f"{name}: not on the epoch path")
+        tr.fit()
+    ms = float(np.mean([h["train_sec"] for h in tr.history[1:]])) \
+        / len(tr.train_loader) * 1e3
+    require(all(np.isfinite(h["train"]) for h in tr.history),
+            f"{name}: non-finite epoch loss")
+    del tr
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_band_gates(model, params, human) -> dict:
+    """Each banded route's gate on its own against the take route, in
+    turns (banded, take, take, banded): the conv gate open (the unpool
+    gate closed) and the unpool gate open (the conv gate closed), each
+    against both closed.  Serving: ms per forward at B = 1, 16, 64 (host
+    clock, 20 forwards after 3).  The Trainer on its epoch path: the
+    paper recipe at B = 4 (trunk 12; 64 train meshes, 6 epochs of 16
+    steps) and the fast recipe (`configs/train_fast.yaml`: batches 64 and
+    32, trunk 128; 256 train meshes, 11 epochs of 4 steps), ms/step over
+    the epochs after the first.  For each gate, the batches at which its
+    banded arm wins.  A record, no gate."""
+    from semantichuman_torch.config import Config
+    from semantichuman_torch.serving import ServingBundle, export_inference
+
+    open_ = 1 << 30
+    arms = {"conv": (open_, 0), "unpool": (0, open_), "take": (0, 0)}
+    meshes = human.sample_meshes(max(SERVE_BATCHES), seed=0)
+    verts_all = np.concatenate(
+        [meshes, np.zeros((len(meshes), 1, 3))], axis=1).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        export_inference(model, params, human.J_regressor, tmp)
+        bundle = ServingBundle(tmp, device="cuda")
+
+    def wall_ms(b, reps=20):
+        x = torch.from_numpy(verts_all[:b]).cuda()
+        for _ in range(3):
+            bundle.forward(x)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            bundle.forward(x)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / reps
+
+    out = {"serving": {}, "trainer": {}}
+    for b in SERVE_BATCHES:
+        for gate in ("conv", "unpool"):
+            runs = {gate: [], "take": []}
+            for arm in (gate, "take", "take", gate):
+                with band_gates(*arms[arm]):
+                    runs[arm].append(wall_ms(b))
+            out["serving"][f"{gate} B={b}"] = runs
+            log(f"[gates] serving B={b}, {gate} gate open: banded "
+                f"{runs[gate]} ms, take {runs['take']} ms")
+
+    fast = Config.from_yaml(str(ROOT / "configs" / "train_fast.yaml"))
+    fast = Config.from_dict({**fast.to_dict(), "train": {
+        **fast.to_dict()["train"], "n_epochs": 11, "scan_epochs": 1,
+        "val_every": 100, "ck_frequency": 100, "save_recons": False}})
+    cases = {"B=4 trunk 12": trainer_cfg(epoch_scan=True, n_epochs=6,
+                                         ck_frequency=100, val_every=100),
+             "fast trunk 128": fast}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for case, cfg in cases.items():
+            for gate in ("conv", "unpool"):
+                runs = {gate: [], "take": []}
+                for i, arm in enumerate((gate, "take", "take", gate)):
+                    runs[arm].append(gate_trainer_ms(
+                        root, f"{case[:4]}_{gate}_{arm}{i}".replace(
+                            " ", "_").replace("=", ""), cfg, arms[arm]))
+                out["trainer"][f"{gate} {case}"] = runs
+                log(f"[gates] Trainer {case}, {gate} gate open: banded "
+                    f"{runs[gate]} ms/step, take {runs['take']} ms/step")
+    wins = {gate: [k.split(" ", 1)[1] for k, r in {
+        **out["serving"], **out["trainer"]}.items()
+        if k.startswith(gate) and np.mean(r[gate]) < np.mean(r["take"])]
+        for gate in ("conv", "unpool")}
+    log(f"[gates] the banded arm wins at: {wins}")
+    out["banded_wins"] = wins
     return out
 
 
@@ -2451,9 +2649,10 @@ def foreach_div_rounding() -> dict:
 
 
 def phase_trainer():
-    """The Trainer's main paths: the loop (fit with counts, a second fit)
-    and the epoch path (`phase_trainer_graph`), both routes in turns on
-    both paths resumed from the loop's checkpoint (`route_runs`),
+    """The Trainer's main paths: the loop (fit with counts, a second fit,
+    the same fit in the forced banded arm with its counts) and the epoch
+    path (`phase_trainer_graph`), both routes in turns on both paths
+    resumed from the loop's checkpoint on their route (`route_runs`),
     evaluate.
 
     Everything but the last block uses torch's default algorithms, as a
@@ -2461,12 +2660,13 @@ def phase_trainer():
     gather's backward is the fixed-order CSR reduce; the profiles hold the
     index_add_ family at 0), so a second fit() from the same seed must give
     the same epoch losses and final parameters bit for bit, the epoch path
-    must give the loop's, and the runs resumed from the epoch-2
-    checkpoint must repeat epoch 3's loss to rtol 1e-4 (banded) and 1e-3
-    (take: another order of the gradients' f32 sums through 16 Adam
-    steps).  The last block repeats the resume under torch's deterministic
-    algorithms: a fit() and two runs resumed from its epoch-2 checkpoint,
-    held to the same tolerances."""
+    must give the loop's, and the runs resumed from a route's epoch-2
+    checkpoint must repeat that route's epoch 3 loss to rtol 1e-4.  (The
+    two routes' losses are not held to each other: their gradients' f32
+    sums run in another order, and 16 Adam steps from one checkpoint took
+    them 7.5e-3 apart.)  The last block repeats the resume under torch's
+    deterministic algorithms: per route a fit() and a run resumed from its
+    epoch-2 checkpoint, held to the same tolerance."""
     from semantichuman_torch.train.loop import Trainer
     from semantichuman_torch.utils.params import tree_leaves, tree_unflatten
 
@@ -2477,6 +2677,8 @@ def phase_trainer():
         tr = Trainer(trainer_cfg(), trainer_workdir(root, "fit"),
                      device=DEVICE)
         out["init_s"] = time.perf_counter() - t0
+        # banded_conv on builds the bands; the closed gates keep the
+        # default route off them (the forced banded arm reads them)
         t = tr.model.tables
         require([b is not None for b in t.bands] == [True, True] + [False] * 3
                 and all(b is not None for b in t.unpool_bands),
@@ -2547,6 +2749,35 @@ def phase_trainer():
         out["refit_epoch_losses"] = again
         del tr
 
+        # --- the forced banded arm (FORCED_GATES): the same fit on the
+        # banded routes, its launches counted; its epoch-2 checkpoint is
+        # where the banded runs below resume ---------------------------------
+        with band_gates(*FORCED_GATES), variant_probe() as variants_b:
+            tr = Trainer(trainer_cfg(), trainer_workdir(root, "banded_fit"),
+                         device=DEVICE)
+            sync()
+            reset_counts()
+            tr.fit()
+            sync()
+            counts_b = read_counts()
+        n_m = variants_b.count("m")
+        want = {k: TRAIN_LAUNCHES_BANDED.get(k, 0) * n_steps
+                + VAL_LAUNCHES_BANDED.get(k, 0) * n_val
+                - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
+        losses_b = [h["train"] for h in tr.history]
+        log(f"[trainer] forced banded fit: epoch losses {losses_b}, {n_m} "
+            f"steps with the 'm' exchange, launches {counts_b}")
+        require(len(variants_b) == n_steps and counts_b == want,
+                f"forced banded fit: launches {counts_b}, want {want}")
+        require(all(np.isfinite(losses_b))
+                and losses_b[2] < losses_b[1] < losses_b[0],
+                f"forced banded fit: epoch losses {losses_b}")
+        out.update(banded_counts=counts_b, banded_epoch_losses=losses_b)
+        resume_from = {"banded": (losses_b, os.path.join(tr.workdir,
+                                                         "checkpoints")),
+                       "take": (losses, ckpt)}
+        del tr
+
         # --- the epoch path: (a), (c), (d) ----------------------------------
         graph = phase_trainer_graph(root, losses, final, ckpt)
         out["graph_counts"] = graph.pop("counts")
@@ -2554,30 +2785,30 @@ def phase_trainer():
         del final
 
         # --- (b), (e): both routes, both paths, in turns --------------------
-        out["routes"] = route_runs(root, losses, ckpt)
+        out["routes"] = route_runs(root, resume_from)
 
         # --- the exact gate, under deterministic algorithms: a fit, then
         # its epoch 3 repeated from its epoch-2 checkpoint ---------------------
         with deterministic_torch():
-            tr = Trainer(trainer_cfg(), trainer_workdir(root, "held_fit"),
-                         device=DEVICE)
-            tr.fit()
-            held = [h["train"] for h in tr.history]
-            held_ckpt = os.path.join(tr.workdir, "checkpoints")
-            out.update(deterministic_epoch_losses=held,
-                       deterministic_epoch_s=[h["sec"] for h in tr.history])
-            del tr
             for banded in (True, False):
                 name = "banded" if banded else "take"
-                tr, _times, loss3 = resumed_epoch(root, f"held_{name}",
-                                                  banded, held_ckpt)
+                with route_gates(banded):
+                    tr = Trainer(trainer_cfg(),
+                                 trainer_workdir(root, f"held_fit_{name}"),
+                                 device=DEVICE)
+                    tr.fit()
+                    held = [h["train"] for h in tr.history]
+                    held_ckpt = os.path.join(tr.workdir, "checkpoints")
+                    out.update({
+                        f"deterministic_{name}_epoch_losses": held,
+                        f"deterministic_{name}_epoch_s":
+                            [h["sec"] for h in tr.history]})
+                    del tr
+                    tr, _times, loss3 = resumed_epoch(root, f"held_{name}",
+                                                      banded, held_ckpt)
                 log(f"[trainer] resumed {name}, deterministic: epoch 3 loss "
                     f"{loss3:.9f} (uninterrupted {held[2]:.9f})")
-                # take: the two routes gather the same values; the
-                # gradients' f32 sums run in another order through 16
-                # Adam steps
-                np.testing.assert_allclose(loss3, held[2],
-                                           rtol=1e-4 if banded else 1e-3)
+                np.testing.assert_allclose(loss3, held[2], rtol=1e-4)
                 out[f"resumed_{name}_loss"] = loss3
                 del tr
     return out
@@ -2621,6 +2852,301 @@ def profile_epoch(tr) -> dict:
             "kernel_families_ms": groups}
 
 
+DFAUST_CONFIG = ROOT / "configs" / "train_dfaust.yaml"
+# the dataset phase 8 preprocesses: the Trainer phase's cut (64 train, 16
+# test meshes) at SMPL scale, 8 train meshes carved off as the val split
+DFAUST_TRAIN, DFAUST_TEST, DFAUST_VAL = 64, 16, 8
+DFAUST_EPOCHS = 2
+# epoch 1's train loss of the stacked layout (the epoch path, its splits
+# normalized on the device) against the per-sample layout (the loop, its
+# batches normalized on the host): the same batches and edit specs, inputs
+# that differ in the last bits of the zeroroot offset, through the bf16
+# trunk and 14 Adam steps.  Stated before the first run: 1e-2, four bf16
+# roundings (2^-8 each) of room.
+DFAUST_LOSS_RTOL = 1e-2
+
+
+@contextlib.contextmanager
+def compile_probe():
+    """Count the topology compiler's hierarchy builds and time each call
+    the Trainer makes to compile_topology (a compile, or a read of its
+    workdir cache)."""
+    from semantichuman_torch.topology import compiler
+    from semantichuman_torch.train import loop
+
+    rec = {"builds": 0, "compile_s": []}
+    build, comp = compiler.build_hierarchy, loop.compile_topology
+
+    def build_hierarchy(*args, **kw):
+        rec["builds"] += 1
+        return build(*args, **kw)
+
+    def compile_topology(*args, **kw):
+        t0 = time.perf_counter()
+        hier = comp(*args, **kw)
+        rec["compile_s"].append(time.perf_counter() - t0)
+        return hier
+
+    compiler.build_hierarchy, loop.compile_topology = (build_hierarchy,
+                                                       compile_topology)
+    try:
+        yield rec
+    finally:
+        compiler.build_hierarchy, loop.compile_topology = build, comp
+
+
+@contextlib.contextmanager
+def variant_probe():
+    """Record the exchange variant of each loop step of any Trainer."""
+    from semantichuman_torch.train.loop import Trainer
+
+    variants, get = [], Trainer._get_step
+
+    def get_step(self, epoch, variant):
+        variants.append(variant)
+        return get(self, epoch, variant)
+
+    Trainer._get_step = get_step
+    try:
+        yield variants
+    finally:
+        Trainer._get_step = get
+
+
+def preprocess(root: Path) -> dict:
+    """The port's preprocessing CLIs into root, as a user runs them:
+    make_synthetic (SMPL scale), obj2npy, data_generation.  -> seconds
+    each."""
+    from semantichuman_torch.cli import (data_generation, make_synthetic,
+                                         obj2npy)
+
+    secs = {}
+    t0 = time.perf_counter()
+    make_synthetic.main(["--out_dir", str(root), "--n_train",
+                         str(DFAUST_TRAIN), "--n_test", str(DFAUST_TEST)])
+    secs["make_synthetic"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    obj2npy.main(["--save_path", str(root),
+                  "--trainobj_path", str(root / "obj_train"),
+                  "--testobj_path", str(root / "obj_test"),
+                  "--asset_dir", str(root / "asset")])
+    secs["obj2npy"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    data_generation.main(["-r", str(root), "--n_val", str(DFAUST_VAL)])
+    secs["data_generation"] = time.perf_counter() - t0
+    return secs
+
+
+def dfaust_config(root: Path, out: Path, from_stacked: bool,
+                  **data) -> str:
+    """configs/train_dfaust.yaml with root_dir, asset_dir and n_val set to
+    the preprocessed dataset (and data.from_stacked off for the
+    per-sample layout, and any other data field given), written as a
+    YAML file for cli.train."""
+    import yaml
+
+    raw = yaml.safe_load(DFAUST_CONFIG.read_text())
+    raw["data"].update(root_dir=str(root), asset_dir=str(root / "asset"),
+                       n_val=DFAUST_VAL, **data)
+    if not from_stacked:
+        raw["data"]["from_stacked"] = False
+    out.write_text(yaml.safe_dump(raw))
+    return str(out)
+
+
+def dfaust_run(root: Path, tmp: Path, layout: str, **data) -> tuple:
+    """`cli.train --config <train_dfaust> --epochs 2` on the card, the
+    launch counts set to 0 just before and read just after.  -> (trainer,
+    counts, compile probe, graph captures, loop variants, seconds)."""
+    from semantichuman_torch.cli import train as train_cli
+
+    cfg = dfaust_config(root, tmp / f"train_dfaust_{layout}.yaml",
+                        layout == "stacked", **data)
+    with compile_probe() as comp, graph_probe() as caps, \
+            variant_probe() as variants:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(["--config", cfg, "--workdir",
+                             str(tmp / layout), "--epochs",
+                             str(DFAUST_EPOCHS), "--device", DEVICE])
+        sync()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+    return tr, counts, comp, caps, variants, secs
+
+
+def dfaust_checks(tr, counts, caps, variants, layout: str) -> dict:
+    """One layout's gates: the route it took, finite falling epoch
+    losses, a finite test eval, the launches; ms/step of epoch 2 and the
+    device idle share (one profiled epoch more)."""
+    graph = layout == "stacked"
+    require(tr._epoch_scan_ok() == graph, f"{layout}: the Trainer takes "
+            f"{'the loop' if graph else 'the epoch path'}")
+    require(tr.model.compute_dtype == torch.bfloat16
+            and not tr.model.tables.banded_conv,
+            f"{layout}: not the DFAUST recipe's bf16 take-route trunk")
+    hist = tr.history
+    losses = [h["train"] for h in hist]
+    log(f"[dfaust] {layout}: epochs {[(h['epoch'], h['train'], h['val'], h['sec']) for h in hist]}")
+    require(len(losses) == DFAUST_EPOCHS and all(np.isfinite(losses))
+            and all(np.isfinite(h["val"]) for h in hist),
+            f"{layout}: non-finite epoch loss {losses}")
+    require(losses[1] < losses[0], f"{layout}: epoch losses not falling: "
+            f"{losses}")
+    report = Path(tr.workdir, "checkpoints", "train_params.txt").read_text()
+    l1 = float(re.findall(r"autoencoder: L1 loss (\S+)", report)[-1])
+    mm = float(re.findall(r"euclidean distance in mm (\S+)", report)[-1])
+    preds = np.load(Path(tr.workdir, "predictions", "predictions.npy"))
+    require(np.isfinite(l1) and np.isfinite(mm)
+            and bool(np.isfinite(preds).all())
+            and preds.shape[0] == DFAUST_TEST,
+            f"{layout}: test eval l1 {l1} mm {mm}, predictions "
+            f"{preds.shape}")
+    n_steps = len(tr.train_loader) * DFAUST_EPOCHS
+    n_eval = len(tr.val_loader) * DFAUST_EPOCHS + len(tr.test_loader)
+    if graph:
+        want_step = expect(GRAPH_LAUNCHES)
+        got_step = [c["counts"] for c in caps]
+        require(got_step == [want_step], f"{layout}: captured steps' "
+                f"launches {got_step}, want one with {want_step}")
+        # the two warm-up steps and the captured one (the replays count
+        # nothing), and the staging of the train split in the Trainer
+        want = {k: GRAPH_LAUNCHES.get(k, 0) * 3
+                + VAL_LAUNCHES.get(k, 0) * n_eval for k in KERNEL_COUNTS}
+        want["row_gather"] += STAGE_GATHERS
+    else:
+        require(len(caps) == 0 and len(variants) == n_steps
+                and set(variants) <= {"ori", "m"},
+                f"{layout}: captures {len(caps)}, variants {variants}")
+        n_m = variants.count("m")
+        want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps
+                + VAL_LAUNCHES.get(k, 0) * n_eval
+                - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
+        want["row_gather"] += UNSTAGED_GT_GATHERS * n_steps - n_m
+    log(f"[dfaust] {layout}: {n_steps} steps, {n_eval} eval batches, "
+        f"launches {counts}")
+    require(counts == want, f"{layout}: launches {counts}, want {want}")
+    k = len(tr.train_loader)
+    ms = hist[-1]["train_sec"] / k * 1e3
+    prof = profile_replays(tr, DFAUST_EPOCHS + 1) if graph \
+        else profile_epoch(tr)
+    busy = prof.get("device_busy_ms")
+    idle = None if busy is None else max(0.0, 1 - busy / ms)
+    log(f"[dfaust] {layout}: epoch {DFAUST_EPOCHS} {ms:.3f} ms/step "
+        f"({k} steps), device busy {busy} ms a step, idle share {idle}; "
+        f"test eval l1 {l1:.6f}, {mm:.3f} mm")
+    return {"epoch_losses": losses, "epoch_val": [h["val"] for h in hist],
+            "epoch_s": [h["sec"] for h in hist], "ms_per_step": ms,
+            "device_busy_ms": busy, "idle_share": idle, "test_l1": l1,
+            "test_mm": mm, "counts": counts, "profile": prof}
+
+
+def copy_cache(cache: Path, workdir: Path) -> None:
+    """A compiled hierarchy and its .meta key into a new workdir."""
+    workdir.mkdir()
+    for suffix in ("", ".meta"):
+        shutil.copy(str(cache) + suffix, workdir / (cache.name + suffix))
+
+
+def phase_dfaust(card: str) -> dict:
+    """Phase 8: training from an on-disk dataset on the card.  The port's
+    preprocessing CLIs build an SMPL-scale dataset (64 train, 16 test
+    meshes, 8 of the train meshes the val split); cli.train trains
+    configs/train_dfaust.yaml (bf16 trunk, banded_conv off, the DFAUST
+    recipe's losses) for 2 epochs from (a) the stacked layout (staged: the
+    epoch path) and (b) the per-sample layout (data.from_stacked off:
+    FileSource, the loop with prefetch_to_device).  (a) compiles the first
+    train frame's template into its workdir, (b) reads that cache; both
+    give finite falling losses, a finite test eval and the launches
+    counted; the first host batch of (a) equals (b)'s and epoch 1's loss
+    agrees to DFAUST_LOSS_RTOL; the port's compile of the bundled
+    synthetic template equals assets/topology_synth_full_2222.npz array
+    for array."""
+    from semantichuman_torch.data.synthetic import SyntheticHuman
+    from semantichuman_torch.topology import compile_topology
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmpdir:
+        tmp = Path(tmpdir)
+        root = tmp / "DFAUST"
+        out["preprocess_s"] = preprocess(root)
+        log(f"[dfaust] preprocessing {out['preprocess_s']} s")
+
+        tr_a, counts_a, comp_a, caps_a, var_a, secs_a = dfaust_run(
+            root, tmp, "stacked")
+        cache = tmp / "stacked" / "topology_2222.npz"
+        require(comp_a["builds"] == 1 and cache.exists()
+                and Path(str(cache) + ".meta").exists(),
+                f"(a): the topology was not compiled into the workdir "
+                f"({comp_a})")
+        out["stacked"] = dfaust_checks(tr_a, counts_a, caps_a, var_a,
+                                       "stacked")
+        out["stacked"].update(run_s=secs_a, compile_s=comp_a["compile_s"])
+
+        copy_cache(cache, tmp / "files")
+        tr_b, counts_b, comp_b, caps_b, var_b, secs_b = dfaust_run(
+            root, tmp, "files")
+        require(comp_b["builds"] == 0, "(b): the cached topology was "
+                f"compiled again ({comp_b})")
+        out["files"] = dfaust_checks(tr_b, counts_b, caps_b, var_b, "files")
+        out["files"].update(run_s=secs_b, compile_s=comp_b["compile_s"])
+        # prefetch's effect on (b): the same run with the batches staged
+        # inline (data.prefetch 0); one run, a record, no gate
+        copy_cache(cache, tmp / "files_inline")
+        tr_c = dfaust_run(root, tmp, "files_inline", prefetch=0)[0]
+        k = len(tr_c.train_loader)
+        out["files_inline_ms_per_step"] = \
+            tr_c.history[-1]["train_sec"] / k * 1e3
+        require([h["train"] for h in tr_c.history]
+                 == out["files"]["epoch_losses"],
+                 "the per-sample layout trains otherwise without prefetch")
+        log(f"[dfaust] files, data.prefetch 0: epoch {DFAUST_EPOCHS} "
+            f"{out['files_inline_ms_per_step']:.3f} ms/step (prefetch "
+            f"{tr_b.cfg.data.prefetch}: {out['files']['ms_per_step']:.3f})")
+        del tr_c
+
+        host_a = tr_a.train_loader.loader
+        host_a.set_epoch(1)
+        tr_b.train_loader.set_epoch(1)
+        first_a, first_b = next(iter(host_a)), next(iter(tr_b.train_loader))
+        require(all(np.array_equal(first_a[key], first_b[key])
+                    for key in ("verts", "measure", "global_idx")),
+                "the first host batch differs between the layouts")
+        la, lb = (out["stacked"]["epoch_losses"][0],
+                  out["files"]["epoch_losses"][0])
+        gap = abs(la - lb) / abs(lb)
+        log(f"[dfaust] epoch 1 loss: stacked {la!r}, per-sample {lb!r}, "
+            f"relative gap {gap:.3e} (tolerance {DFAUST_LOSS_RTOL})")
+        require(gap <= DFAUST_LOSS_RTOL, f"epoch 1 loss gap {gap:.3e}")
+        out["epoch1_gap"] = gap
+        del tr_a, tr_b
+        torch.cuda.empty_cache()
+
+        sh = SyntheticHuman()
+        t0 = time.perf_counter()
+        compile_topology(sh.template_verts, sh.template_faces,
+                         reference_vertex=414,
+                         cache_path=str(tmp / "full.npz"))
+        out["full_compile_s"] = time.perf_counter() - t0
+        with np.load(tmp / "full.npz") as got, np.load(TOPOLOGY) as want:
+            same = sorted(got.files) == sorted(want.files) and all(
+                got[k].dtype == want[k].dtype
+                and np.array_equal(got[k], want[k]) for k in want.files)
+        require(same, "the full-scale compile differs from "
+                f"{TOPOLOGY.name}")
+    a, b = out["stacked"], out["files"]
+    log(f"[dfaust] {card}: preprocessing "
+        f"{sum(out['preprocess_s'].values()):.2f} s, compile "
+        f"{a['compile_s'][0]:.2f} s (cached read "
+        f"{b['compile_s'][0]:.3f} s, full-scale template "
+        f"{out['full_compile_s']:.2f} s); stacked {a['ms_per_step']:.3f} "
+        f"ms/step idle {a['idle_share']}, per-sample {b['ms_per_step']:.3f} "
+        f"ms/step idle {b['idle_share']} (inline staging "
+        f"{out['files_inline_ms_per_step']:.3f} ms/step)")
+    return out
+
+
 def parse_args(argv):
     """No argument: every phase, the gates and the result line.  The two
     tuning modes run phase 1 and one kernel's phase alone, with a profile
@@ -2647,6 +3173,14 @@ def parse_args(argv):
     mode.add_argument("--trainer", action="store_true",
                       help="phase 1 and the Trainer's phase 7 alone (the "
                       "loop and the epoch path, their gates and times)")
+    mode.add_argument("--dfaust", action="store_true",
+                      help="phase 1 and phase 8 alone (the preprocessing "
+                      "CLIs and cli.train on configs/train_dfaust.yaml, "
+                      "both layouts)")
+    mode.add_argument("--band-gates", action="store_true",
+                      help="phase 1 and the banded routes' batch gates, "
+                      "each on its own against the take route, in turns "
+                      "(serving and the Trainer's epoch path)")
     return p.parse_args(argv)
 
 
@@ -2669,6 +3203,14 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]} device {kind}")
 
     card = phase_build()
+    if args.dfaust:
+        # the on-disk dataset's phase alone: no result line
+        dfaust = phase_dfaust(card)
+        for layout in ("stacked", "files"):
+            dfaust[layout].pop("profile")
+        log(json.dumps({"dfaust": dfaust}))
+        log(card)
+        return 0
     if args.trainer:
         # the Trainer's phase alone, for work on its paths: no result line
         log(json.dumps({"trainer": phase_trainer()}))
@@ -2682,6 +3224,12 @@ def main(argv=None) -> int:
                              human.part_dict, device="cuda")
     params = model.init(0)
     require(len(conv_layers(model)) == 9, "expected 9 convs per forward")
+    if args.band_gates:
+        # the gates' measurements alone: no result line
+        log(json.dumps({"band_gates": phase_band_gates(model, params,
+                                                       human)}))
+        log(card)
+        return 0
 
     if args.conv_forward:
         # the conv-forward phase alone, for tuning its kernel: prints the
@@ -2723,7 +3271,7 @@ def main(argv=None) -> int:
         return 0
 
     rows, max_err = phase_kernels(model)
-    serve, serve_take, timing, timing_take = phase_serving(
+    serve, serve_banded, serve_take, timing, timing_banded = phase_serving(
         model, model_take, params, human)
     del model_take
 
@@ -2757,13 +3305,28 @@ def main(argv=None) -> int:
     trainer = phase_trainer()
     trainer_counts = trainer.pop("counts")
     graph_counts = trainer.pop("graph_counts")
+    banded_counts = trainer.pop("banded_counts")
+    banded_graph_counts = trainer["routes"].pop("banded_counts")
+    torch.cuda.empty_cache()
+    dfaust = phase_dfaust(card)
+    dfaust_counts = {layout: dfaust[layout].pop("counts")
+                     for layout in ("stacked", "files")}
 
     # trainer_graph: the epoch path's fit, whose wrappers count its
     # warm-up steps, the captured step and the validation passes (a
-    # replay counts nothing; phase 7 holds the replays to the profiler)
-    paths = {"serve": serve, "serve_take": serve_take,
-             "train_step": step_counts, "trainer": trainer_counts,
-             "trainer_graph": graph_counts}
+    # replay counts nothing; phase 7 holds the replays to the profiler);
+    # serve_banded, trainer_banded (the loop's fit) and
+    # trainer_banded_graph (the launches recorded while the epoch path's
+    # step is captured): the forced banded arms (FORCED_GATES), the only
+    # runs of rows 5-6 on a path a user drives, since the card's
+    # measurements closed both gates
+    paths = {"serve": serve, "serve_banded": serve_banded,
+             "serve_take": serve_take, "train_step": step_counts,
+             "trainer": trainer_counts, "trainer_graph": graph_counts,
+             "trainer_banded": banded_counts,
+             "trainer_banded_graph": banded_graph_counts,
+             "dfaust_stacked": dfaust_counts["stacked"],
+             "dfaust_files": dfaust_counts["files"]}
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -2806,7 +3369,7 @@ def main(argv=None) -> int:
             "launches_by_path"],
         "b384": f384,
         "b64": f64,
-        "forward_ms": {"banded": timing, "take": timing_take},
+        "forward_ms": {"default": timing, "banded": timing_banded},
         "layers": rows,
     }]
     kernels.append({
@@ -2966,11 +3529,13 @@ def main(argv=None) -> int:
                     f"{k} launched on a main path: {launches(k)}")
             continue
         path = ("train_step" if k.startswith("spiral_conv_bwd")
+                else "trainer_banded" if k.startswith("banded_gather")
                 else "trainer")
         require(paths[path][k] > 0 or k in ("part_dist_fwd",
                                             "part_dist_bwd"),
                 f"{k}: no launch on the {path} path")
     log(json.dumps({"trainer": trainer}))
+    log(json.dumps({"dfaust": dfaust}, default=str))
     log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))

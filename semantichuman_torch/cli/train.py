@@ -1,15 +1,18 @@
 """Training entry point (the port's counterpart of
 `semantichuman_tpu/cli/train.py`).
 
-  python -m semantichuman_torch.cli.train --workdir results/run1 \
-      [--config configs/train_synthetic_small.yaml] [--epochs N] \
-      [--synthetic] [--resume DIR] [--finetune] [--device cpu]
+  python -m semantichuman_torch.cli.train --config configs/train_dfaust.yaml \
+      --workdir results/run1 [--epochs N] [--synthetic] [--resume DIR] \
+      [--finetune] [--device cpu]
 
 Runs the Trainer on the card (on the CPU only with --device cpu): the
-epoch loop with checkpoints, then, with train.eval_flag, the final eval and
-prediction export.  The compiled topology is read from
-<workdir>/topology_<ds tag>.npz, or from the bundled hierarchy for the
-default synthetic template (the port has no topology compiler).
+topology compile (cached in the workdir), the epoch loop with checkpoints,
+then, with train.eval_flag, the final eval and prediction export.  The
+dataset is the config's data.root_dir and data.asset_dir, as the
+preprocessing CLIs write them (make_synthetic -> obj2npy ->
+data_generation), or the synthetic generator with --synthetic.  The JAX
+CLI's --resume_torch and --distributed are not ported (ROADMAP.md section
+1, 'import_torch and resume_torch' and 'DDP and the trace window').
 """
 
 from __future__ import annotations
@@ -60,6 +63,7 @@ def main(argv=None):
         _p, _z, _zk, _tx, l1, l2mm = trainer.export_predictions()
         print(f"test L1: {l1:.6f}")
         print(f"test per-vertex euclidean (mm): {l2mm:.4f}")
+    return trainer
 
 
 if __name__ == "__main__":

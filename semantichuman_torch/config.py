@@ -21,10 +21,12 @@ as replays of one captured CUDA graph a step (`train/loop.py`).
 
 `model.banded_conv` (on by default, as in the JAX package) builds band
 tables for the fine spiral levels and the large unpool transitions; the
-spiral conv and unpool take the banded routes on the card at the JAX
-package's batch gates (`ops/spiral_conv.py`, `ops/sampling.py`).  The
-topology fields (`ds_factors`, `step_sizes`, `dilation`) name the compiled
-hierarchy the trainer loads (the port has no topology compiler).  The
+spiral conv and unpool take the banded routes where the card's batch
+gates let them (`ops/spiral_conv.py:_BANDED_MAX_B`,
+`ops/sampling.py:_UNPOOL_BAND_MAX_B`; both closed, since the banded routes
+measured slower on the card at every batch).  The topology fields
+(`ds_factors`, `step_sizes`, `dilation`) are the compile parameters of the
+hierarchy the trainer compiles (`topology/compiler.py`).  The
 neural3DMM fields (`nz`, `vae`, `activation`) load for that model, which is
 not ported.
 """

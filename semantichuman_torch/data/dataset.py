@@ -1,23 +1,33 @@
-"""Host data pipeline (the port's copy of the array half of
+"""Host data pipeline (the port's copy of
 `semantichuman_tpu/data/dataset.py`).
 
-  * `ArraySource` - a batch source over an [N, V, 3] array;
+  * `MeshData` - one fixed-topology dataset on disk: the memory-mapped
+    `preprocessed/{train,test}.npy` splits (the last n_val train samples
+    are the val split), the template mesh, normalization statistics and
+    the OBJ export of reconstructions;
+  * `ArraySource` - a batch source over an [N, V, 3] array (memmapped or
+    in memory); `FileSource` - one over the per-sample
+    `points_{split}/NNNNNN.npy` layout that `cli/data_generation.py`
+    writes;
   * `compute_stats`, `normalize_batch`, `unnormalize_batch` - the
     substring-matched normalization modes;
   * `BatchLoader` - seeded-shuffle batches with normalization and the dummy
     vertex, the same NumPy shuffles as the JAX package (so both see the
     same batch schedule), `set_epoch` and the resume-safe `cycle(anchor=)`;
-  * `place_batch` - a host batch onto the device.
-
-The DFAUST file layouts (`MeshData`, `FileSource`) are not ported yet.
+  * `place_batch` - a host batch onto the device; `prefetch_to_device` -
+    batches built by a worker thread and copied ahead of the step.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
 from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from ..topology.obj_io import load_obj, save_obj
 
 
 @dataclass
@@ -28,8 +38,50 @@ class ShapeStats:
     scale: np.ndarray | None = None    # 'normal': per-sample 1/bbox-extent
 
 
+class MeshData:
+    """Dataset container for one fixed-topology mesh dataset."""
+
+    def __init__(self, root_dir: str, n_val: int = 0,
+                 normalization: str = "No", mmap: bool = True):
+        self.root_dir = root_dir
+        self.normalization = normalization
+        pre = os.path.join(root_dir, "preprocessed")
+        mode = "r" if mmap else None
+        train = np.load(os.path.join(pre, "train.npy"), mmap_mode=mode)
+        if not 0 <= n_val < len(train):
+            raise ValueError(f"n_val={n_val} out of range for {len(train)} "
+                             f"samples in {pre}/train.npy")
+        self.vertices_train = train[:len(train) - n_val]
+        self.vertices_val = train[len(train) - n_val:]
+        test_path = os.path.join(pre, "test.npy")
+        self.vertices_test = (np.load(test_path, mmap_mode=mode)
+                              if os.path.exists(test_path) else None)
+        self.n_vertex = self.vertices_train.shape[1]
+        self.n_features = self.vertices_train.shape[2]
+        tpl = os.path.join(root_dir, "template", "template.obj")
+        self.template_verts, self.template_faces = load_obj(tpl)
+        self.stats = compute_stats(self.vertices_train, self.vertices_test,
+                                   self.normalization)
+
+    def save_meshes(self, prefix: str, meshes: np.ndarray, indices,
+                    vert_colors=None, kps=None, skl_list=None):
+        """Export reconstructed meshes as OBJ, the 'gass' and 'normal'
+        normalizations undone with the stored stats (reference:
+        shape_data.py:86-145)."""
+        for i in range(len(meshes)):
+            v = meshes[i].reshape(self.n_vertex, self.n_features)
+            if self.normalization == "gass":
+                v = v * self.stats.std + self.stats.mean
+            elif self.normalization == "normal":
+                v = v / self.stats.scale[indices[i]] \
+                    + self.stats.center[indices[i]]
+            save_obj(f"{prefix}_{str(int(indices[i])).zfill(6)}.obj", v,
+                     self.template_faces, vert_colors=vert_colors,
+                     kps=None if kps is None else kps[i], skl_list=skl_list)
+
+
 class ArraySource:
-    """Batch source over an in-memory [N, V, 3] array."""
+    """Batch source over an in-memory or memmapped [N, V, 3] array."""
 
     def __init__(self, verts: np.ndarray, measures: np.ndarray | None = None):
         self.verts = verts
@@ -43,6 +95,34 @@ class ArraySource:
                "idx": idx}
         if self.measures is not None:
             out["measure"] = np.asarray(self.measures[idx], dtype=np.float32)
+        return out
+
+
+class FileSource:
+    """Batch source over the per-sample `points_{split}/` directory
+    layout."""
+
+    def __init__(self, root_dir: str, split: str, measure: bool = False):
+        self.root = root_dir
+        self.split = split
+        self.names = [str(n) for n in
+                      np.load(os.path.join(root_dir, f"paths_{split}.npy"))]
+        self.measure = measure
+
+    def __len__(self):
+        return len(self.names)
+
+    def take(self, idx: np.ndarray) -> dict:
+        pts = np.stack([
+            np.load(os.path.join(self.root, f"points_{self.split}",
+                                 self.names[i] + ".npy"))
+            for i in idx]).astype(np.float32)
+        out = {"verts": pts, "idx": idx}
+        if self.measure:
+            out["measure"] = np.stack([
+                np.load(os.path.join(self.root, f"measure_{self.split}",
+                                     self.names[i] + ".npy"))
+                for i in idx]).astype(np.float32)
         return out
 
 
@@ -183,14 +263,116 @@ class BatchLoader:
             self.epoch += 1
 
 
+def _moves(key, value) -> bool:
+    """Whether place_batch puts a batch entry on the device: every numeric
+    ndarray but the id vectors."""
+    return (isinstance(value, np.ndarray) and value.dtype != object
+            and key not in ("idx", "global_idx"))
+
+
 def place_batch(batch: dict, device) -> dict:
     """Every numeric ndarray of a host batch except the id vectors onto
-    `device` as a tensor; scalars and ids stay on the host."""
+    `device` as a tensor; scalars, ids and tensors stay as they are."""
+    return {k: torch.as_tensor(v, device=device) if _moves(k, v) else v
+            for k, v in batch.items()}
+
+
+def _stage_async(batch: dict, device, stream) -> tuple[dict, object]:
+    """A host batch copied to the card on `stream`: each array pinned and
+    copied with non_blocking, an event recorded after the copies.
+    -> (batch with device tensors, the event)."""
     out = {}
-    for k, v in batch.items():
-        if (isinstance(v, np.ndarray) and v.dtype != object
-                and k not in ("idx", "global_idx")):
-            out[k] = torch.as_tensor(v, device=device)
-        else:
-            out[k] = v
-    return out
+    with torch.cuda.stream(stream):
+        for k, v in batch.items():
+            if _moves(k, v):
+                host = torch.from_numpy(np.ascontiguousarray(v)).pin_memory()
+                out[k] = host.to(device, non_blocking=True)
+            else:
+                out[k] = v
+        done = torch.cuda.Event()
+        done.record(stream)
+    return out, done
+
+
+def _ready(item) -> dict:
+    """The consumer's side of _stage_async: its current stream waits for
+    the copies, and each copied tensor is marked as used there (so the
+    allocator does not hand its memory to the copy stream while the
+    consumer's kernels read it)."""
+    batch, done = item
+    if done is None:
+        return batch
+    cur = torch.cuda.current_stream()
+    cur.wait_event(done)
+    for v in batch.values():
+        if isinstance(v, torch.Tensor) and v.is_cuda:
+            v.record_stream(cur)
+    return batch
+
+
+def prefetch_to_device(iterator, device, size: int = 2):
+    """Stage `size` batches ahead on `device`.
+
+    A worker thread drives the host work (memmap or file reads,
+    normalization, the dummy row) and, on the card, the copies: each
+    batch pinned and copied with non_blocking on a side stream, the
+    consumer's stream made to wait on an event recorded after the copies
+    before it reads them.  numpy kernels and the copies release the GIL,
+    so one thread suffices at these batch sizes.  size <= 0 stages each
+    batch inline in the consumer's thread.  An error in the worker is
+    raised in the consumer; a consumer that stops early (break, close)
+    releases the worker."""
+    device = torch.device(device)
+    if size <= 0:
+        for batch in iterator:
+            yield place_batch(batch, device)
+        return
+
+    import queue as queue_mod
+    import threading
+
+    stream = (torch.cuda.Stream(device) if device.type == "cuda" else None)
+    q: queue_mod.Queue = queue_mod.Queue(maxsize=size)
+    stop = threading.Event()
+    sentinel = object()
+    errors: list[BaseException] = []
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue_mod.Full:
+                continue
+        return False
+
+    def worker():
+        try:
+            with (torch.cuda.device(device) if stream is not None
+                  else contextlib.nullcontext()):
+                for batch in iterator:
+                    item = (_stage_async(batch, device, stream)
+                            if stream is not None
+                            else (place_batch(batch, device), None))
+                    if not put(item):
+                        return
+        except BaseException as e:  # surface loader errors to the consumer
+            errors.append(e)
+        finally:
+            put(sentinel)
+
+    t = threading.Thread(target=worker, name="sh-torch-prefetch",
+                         daemon=True)
+    t.start()
+    try:
+        while True:
+            item = q.get()
+            if item is sentinel:
+                if errors:
+                    raise errors[0]
+                return
+            yield _ready(item)
+    finally:
+        # the consumer finished or abandoned the generator: release the
+        # worker
+        stop.set()

@@ -8,8 +8,9 @@ whose backward is the fixed-order CSR reduce (no `[B, V_f, 3, C]` buffer in
 either direction, no atomics).  `unpool` dispatches
 as the JAX package's does, with the card in the TPU's place: a transition
 whose tables carry a band (`models/tables.py`) takes the banded route
-`unpool_banded` for a CUDA tensor at batch <= 128, every other call the
-take route.  The JAX package's one-hot forms (TPU gather-engine
+`unpool_banded` for a CUDA tensor at a batch its gate lets through (none,
+since the card's measurements closed it), every other call the take
+route.  The JAX package's one-hot forms (TPU gather-engine
 workarounds with the take route's values) are not ported, and neither is
 its banded pool, which its own gate never routes to.
 """
@@ -21,14 +22,16 @@ import torch
 from .banded_gather import BandedGatherFn, BandTable
 from .row_gather import GatherTable, RowGatherFn, gather_rows
 
-# the banded unpool's batch gate: the JAX dispatch's _UNPOOL_BAND_MAX_B,
-# adopted with the card in the TPU's place
-_UNPOOL_BAND_MAX_B = 128
+# the banded unpool's batch gate, set from the card's measurements as the
+# conv's (`ops/spiral_conv.py:_BANDED_MAX_B`): the banded unpool won at no
+# batch measured (1, 16, 64 serving; trunk 12 and 128 training), so it is
+# closed.  The JAX dispatch's gate, 128, was set on the TPU.
+_UNPOOL_BAND_MAX_B = 0
 
 
 def _unpool_band_ok(b: int, device: torch.device) -> bool:
-    """The banded unpool runs on the card at batch <= 128; on the CPU the
-    take route stays."""
+    """The banded unpool runs on the card at batch <= _UNPOOL_BAND_MAX_B
+    (at no batch: the gate is closed); on the CPU the take route stays."""
     return device.type == "cuda" and b <= _UNPOOL_BAND_MAX_B
 
 

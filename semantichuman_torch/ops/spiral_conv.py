@@ -10,10 +10,11 @@ row is set to exactly zero after bias and activation.
 `compute_dtype` follows `spiral_conv_take`: with bfloat16, x and W are cast
 BEFORE the gather; products and sums stay float32 and so does the output.
 
-`spiral_conv` dispatches, as the JAX package's does with the card in the
-TPU's place: a level whose tables carry a band (`models/tables.py`) takes
-the banded route `spiral_conv_banded` for a CUDA tensor at batch <= 16;
-every other call takes the take route through `SpiralConvFn`, an autograd
+`spiral_conv` dispatches as the JAX package's does, with a batch gate
+measured on the card in place of the TPU's: a level whose tables carry a
+band (`models/tables.py`) takes the banded route `spiral_conv_banded` for
+a CUDA tensor at batch <= `_BANDED_MAX_B` (closed: the banded route was
+slower at every batch measured); every other call takes the take route through `SpiralConvFn`, an autograd
 Function whose forward is the hand-written kernel (`csrc/spiral_conv_fwd.cu`,
 counted in `spiral_conv.launches`) for a CUDA tensor and
 `spiral_conv_plain` for a CPU tensor.  The wrapper picks the kernel's tile
@@ -92,15 +93,18 @@ def _dy_prime(dy: torch.Tensor, y: torch.Tensor,
     return out
 
 
-# the banded route's batch gate: the JAX dispatch's _BANDED_MAX_B, adopted
-# with the card in the TPU's place (PERF.md holds the card's numbers for
-# both routes)
-_BANDED_MAX_B = 16
+# the banded route's batch gate, set from the card's measurements: the
+# largest batch at which the banded conv beats the take route on an H100.
+# It won at none (`chip_smoke.py --band-gates`: serving at B = 1, 16, 64,
+# the Trainer at trunk 12 and 128, in turns; PERF.md), so it is closed.
+# The JAX dispatch's gate, 16, was set on the TPU.
+_BANDED_MAX_B = 0
 
 
 def _banded_ok(b: int, device: torch.device) -> bool:
-    """The banded route runs on the card at batch <= 16; on the CPU the
-    take route stays, as the JAX dispatch keeps banding off the CPU."""
+    """The banded route runs on the card at batch <= _BANDED_MAX_B (at no
+    batch: the gate is closed); on the CPU the take route stays, as the
+    JAX dispatch keeps banding off the CPU."""
     return device.type == "cuda" and b <= _BANDED_MAX_B
 
 

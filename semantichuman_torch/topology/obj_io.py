@@ -1,10 +1,33 @@
-"""Wavefront OBJ export (the writer of `semantichuman_tpu/topology/
-obj_io.py`): triangle meshes with optional per-vertex RGB colors (the
-nonstandard `v x y z r g b` form) and skeleton point strips."""
+"""Wavefront OBJ IO in plain NumPy (the port's copy of
+`semantichuman_tpu/topology/obj_io.py`): triangle meshes with optional
+per-vertex RGB colors (the nonstandard `v x y z r g b` form) and skeleton
+point strips."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def load_obj(path: str):
+    """Read an OBJ file. Returns (verts [V,3] float64, faces [F,3] int32).
+
+    Quad faces are fan-triangulated; `v` lines with trailing color channels
+    are accepted (colors ignored on load).
+    """
+    verts: list[list[float]] = []
+    faces: list[list[int]] = []
+    with open(path) as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]),
+                              float(parts[3])])
+            elif line.startswith("f "):
+                idx = [int(tok.split("/")[0]) - 1 for tok in line.split()[1:]]
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return (np.asarray(verts, dtype=np.float64),
+            np.asarray(faces, dtype=np.int32))
 
 
 def save_obj(path: str, verts, faces, vert_colors=None,
@@ -35,3 +58,12 @@ def save_obj(path: str, verts, faces, vert_colors=None,
         lines.append(f"f {f3[0]} {f3[1]} {f3[2]}")
     with open(path, "w") as fp:
         fp.write("\n".join(lines) + "\n")
+
+
+def save_skl(path: str, kps, skl_list, samples_per_bone: int = 1000):
+    """Write a skeleton-only OBJ: the raw keypoints (black vertices) plus
+    dense bone point strips."""
+    kps = np.asarray(kps, dtype=np.float64)
+    save_obj(path, kps, np.zeros((0, 3), dtype=np.int64),
+             vert_colors=np.zeros((len(kps), 3), dtype=np.int32),
+             skl_list=skl_list, kps=kps, samples_per_bone=samples_per_bone)

@@ -29,15 +29,19 @@ other.  Per-step losses stay on the device until the epoch (or chunk)
 ends; validation and evaluation sums accumulate on the device and are read
 once per pass.
 
-The port has no topology compiler: the trainer loads the hierarchy that the
-JAX package's compiler cached as `<workdir>/topology_<ds tag>.npz`, or the
-bundled `assets/topology_synth_full_<tag>.npz` when its compile key matches
-(the default synthetic template).
+Data comes from the synthetic generator (data.synthetic) or from an
+on-disk dataset (`BodyAssets.load`, then `MeshData`'s memmapped splits on
+the stacked layout or `FileSource` on the per-sample one), and the
+hierarchy from the topology compiler, cached as
+`<workdir>/topology_<ds tag>.npz` beside its compile key (the bundled
+`assets/topology_synth_full_<tag>.npz` serves where its key matches, the
+default synthetic template), or from the reference's hierarchy pickle
+(data.reference_hierarchy).  On the loop, a worker thread prepares and
+copies the next train batches (`prefetch_to_device`, data.prefetch).
 """
 
 from __future__ import annotations
 
-import hashlib
 import json
 import os
 import subprocess
@@ -49,12 +53,13 @@ import torch
 
 from ..config import Config
 from ..data.assets import BodyAssets
-from ..data.dataset import (ArraySource, BatchLoader, compute_stats,
-                            place_batch)
+from ..data.dataset import (ArraySource, BatchLoader, FileSource, MeshData,
+                            compute_stats, place_batch, prefetch_to_device)
 from ..data.device_data import (DeviceBatchLoader, DeviceDataSource,
                                 gt_bytes)
 from ..models import build_model
-from ..topology import MeshHierarchy
+from ..topology import MeshHierarchy, compile_topology
+from ..topology.compiler import read_meta, topology_key
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
@@ -66,18 +71,6 @@ from .step import (EpochBuffers, flags_for_epoch, make_epoch_scan_step,
                    make_eval_step, make_train_step, to_device)
 
 BUNDLED_TOPOLOGY_DIR = Path(__file__).resolve().parents[2] / "assets"
-
-
-def topology_key(verts, faces, ds_factors, step_sizes, dilation,
-                 reference_vertex: int) -> str:
-    """The JAX compiler's cache key (the `.meta` sidecar of a compiled
-    hierarchy), for a compile without explicit level meshes."""
-    geom = hashlib.sha1(
-        np.ascontiguousarray(np.asarray(verts, np.float64)).tobytes()
-        + np.ascontiguousarray(np.asarray(faces, np.int64)).tobytes()
-    ).hexdigest()[:16]
-    return repr((geom, tuple(ds_factors), tuple(step_sizes), tuple(dilation),
-                 int(reference_vertex), None))
 
 
 def _not_ported(what: str, item: str):
@@ -112,12 +105,15 @@ class Trainer:
         # --- assets + data ----------------------------------------------------
         self._synthetic = None
         if assets is None:
-            if not cfg.data.synthetic:
-                raise _not_ported("the DFAUST asset files (BodyAssets.load)",
-                                  "the DFAUST data path")
-            assets, self._synthetic = BodyAssets.synthetic(
-                n_theta=cfg.data.synthetic_n_theta,
-                n_phi=cfg.data.synthetic_n_phi)
+            if cfg.data.synthetic:
+                assets, self._synthetic = BodyAssets.synthetic(
+                    n_theta=cfg.data.synthetic_n_theta,
+                    n_phi=cfg.data.synthetic_n_phi)
+            else:
+                assets = BodyAssets.load(
+                    cfg.data.asset_dir,
+                    os.path.join(cfg.data.root_dir, "template",
+                                 "template.obj"))
         elif cfg.data.synthetic and data is None:
             from ..data.synthetic import SyntheticHuman
             self._synthetic = SyntheticHuman(
@@ -168,41 +164,40 @@ class Trainer:
 
     # --- topology ----------------------------------------------------------------
     def _load_topology(self) -> MeshHierarchy:
+        """The reference's hierarchy pickle (data.reference_hierarchy), or
+        the compiler's hierarchy of the assets' template: the bundled one
+        where its compile key matches, else compiled into (or read back
+        from) `<workdir>/topology_<tag>.npz`."""
         m = self.cfg.model
         tag = "".join(str(f) for f in m.ds_factors)
         tv = self.assets.template_verts
-        key = topology_key(tv, self.assets.template_faces, m.ds_factors,
-                           m.step_sizes, m.dilation, min(414, len(tv) - 1))
-        cache = Path(self.workdir) / f"topology_{tag}.npz"
-        bundled = BUNDLED_TOPOLOGY_DIR / f"topology_synth_full_{tag}.npz"
-        for path in (cache, bundled):
-            if not path.exists():
-                continue
-            meta = Path(str(path) + ".meta")
-            saved = meta.read_text() if meta.exists() else None
-            if saved is not None and saved != key:
-                if path == cache:
-                    raise ValueError(
-                        f"{path} was compiled for another template or other "
-                        "compile parameters, and the port has no topology "
-                        "compiler to rebuild it: compile it with "
-                        "semantichuman_tpu.topology.compile_topology")
-                continue
-            hier = MeshHierarchy.load(str(path))
-            if (hier.sizes[0] != len(tv)
-                    or not np.allclose(hier.verts[0], tv)):
-                raise ValueError(f"{path}: its level-0 mesh is not the "
-                                 "template of these assets")
+        ref_vertex = min(414, len(tv) - 1)
+        if self.cfg.data.reference_hierarchy:
+            from ..topology.reference_import import (
+                check_template_match, hierarchy_from_reference_pickle)
+            hier = hierarchy_from_reference_pickle(
+                self.cfg.data.reference_hierarchy, step_sizes=m.step_sizes,
+                dilation=m.dilation, reference_vertex=ref_vertex,
+                cache_path=os.path.join(self.workdir,
+                                        f"topology_ref_{tag}.npz"))
+            check_template_match(hier, tv)
             return hier
-        raise FileNotFoundError(
-            f"no compiled topology at {cache}: the port has no topology "
-            "compiler (ROADMAP.md section 1, 'the topology compiler'); "
-            "compile it with semantichuman_tpu.topology.compile_topology "
-            "(cache_path=...) or copy a compiled hierarchy there")
+        bundled = str(BUNDLED_TOPOLOGY_DIR / f"topology_synth_full_{tag}.npz")
+        key = topology_key(tv, self.assets.template_faces, m.ds_factors,
+                           m.step_sizes, m.dilation, ref_vertex)
+        if os.path.exists(bundled) and read_meta(bundled) == key:
+            return MeshHierarchy.load(bundled)
+        # the workdir cache is trusted only where its .meta holds this key
+        return compile_topology(
+            tv, self.assets.template_faces, ds_factors=m.ds_factors,
+            step_sizes=m.step_sizes, dilation=m.dilation,
+            reference_vertex=ref_vertex,
+            cache_path=os.path.join(self.workdir, f"topology_{tag}.npz"))
 
     # --- data ------------------------------------------------------------------
     def _setup_data(self, data):
         cfg = self.cfg
+        self.mesh_data = None
         if data is not None:
             self.data = data
             self.stats = None
@@ -220,8 +215,7 @@ class Trainer:
             }
             self.stats = compute_stats(train, test, cfg.data.normalization)
         else:
-            raise _not_ported("the DFAUST data files (MeshData, FileSource)",
-                              "the DFAUST data path")
+            self._setup_file_data()
         t = cfg.train
         common = dict(normalization=cfg.data.normalization,
                       j_regressor=self.assets.j_regressor, stats=self.stats)
@@ -237,6 +231,57 @@ class Trainer:
         self.test_loader = BatchLoader(
             self.data["test"], t.batch_test, shuffle=False, seed=0,
             pad_final=True, **common)
+
+    def _setup_file_data(self):
+        """The on-disk dataset under data.root_dir: MeshData's memmapped
+        splits (data.from_stacked) or the per-sample FileSource layout."""
+        cfg = self.cfg
+        root = os.path.join(cfg.data.root_dir, "preprocessed")
+        n_val = cfg.data.n_val
+        val_paths = os.path.join(root, "paths_val.npy")
+        if (cfg.data.from_stacked and n_val == 0
+                and os.path.exists(val_paths)):
+            # the val split data_generation carved: the stacked path must
+            # not train on the val samples
+            n_val = len(np.load(val_paths))
+        md = MeshData(cfg.data.root_dir, n_val, cfg.data.normalization)
+        self.mesh_data = md
+        self.stats = md.stats
+        if not cfg.data.from_stacked:
+            self.data = {
+                split: FileSource(root, split, measure=cfg.data.measure
+                                  and split == "train")
+                for split in ("train", "val", "test")
+                if os.path.exists(os.path.join(root, f"paths_{split}.npy"))}
+            if "train" not in self.data:
+                raise FileNotFoundError(
+                    f"{root}/paths_train.npy is missing (run "
+                    "cli.data_generation, or set data.from_stacked: true)")
+            if "val" not in self.data and "test" not in self.data:
+                raise ValueError(f"no val or test split under {root}")
+            self.data.setdefault("val", self.data.get("test"))
+            self.data.setdefault("test", self.data["val"])
+            return
+        meas = None
+        mpath = os.path.join(root, "train_measurements.npy")
+        if cfg.data.measure:
+            if not os.path.exists(mpath):
+                raise FileNotFoundError(
+                    f"data.measure=True but {mpath} is missing (run "
+                    "cli.obj2npy, or set data.measure: false)")
+            meas = np.load(mpath, mmap_mode="r")
+        self.data = {"train": ArraySource(
+            md.vertices_train,
+            None if meas is None else meas[:len(md.vertices_train)])}
+        if md.vertices_test is not None:
+            self.data["test"] = ArraySource(md.vertices_test)
+        if len(md.vertices_val):
+            self.data["val"] = ArraySource(md.vertices_val)
+        if "val" not in self.data and "test" not in self.data:
+            raise ValueError("no val or test split: provide preprocessed/"
+                             "test.npy or set data.n_val > 0")
+        self.data.setdefault("val", self.data.get("test"))
+        self.data.setdefault("test", self.data["val"])
 
     def _maybe_stage_device_data(self):
         """Stage array splits on the device and swap the loaders for
@@ -254,11 +299,13 @@ class Trainer:
         supported = all(isinstance(s, ArraySource) for s in sources.values())
         n_faces = len(self.assets.template_faces)
         n_vol = self.tables.face_part_mask.shape[1]
+        # a per-sample FileSource holds no array to count (the JAX
+        # Trainer's count raises on one)
         total = sum(
             int(np.prod(s.verts.shape)) * 4
             + (0 if s.measures is None else int(np.prod(s.measures.shape)) * 4)
             + (gt_bytes(len(s), n_faces, n_vol) if sid in train_ids else 0)
-            for sid, s in sources.items())
+            for sid, s in sources.items()) if supported else 0
         budget = float(self.cfg.data.device_resident_max_gb) * 1e9
         if not supported or total > budget:
             if mode is True or mode == "true":
@@ -456,8 +503,9 @@ class Trainer:
         cfg = self.cfg
         step_losses, step_sizes = [], []
         last_batch, metrics = None, {}
-        for batch in self.train_loader:
-            batch = self._put(batch)
+        batches = prefetch_to_device(iter(self.train_loader), self.device,
+                                     size=cfg.data.prefetch)
+        for batch in batches:
             interp_b = self._put(next(interp_iter))
             exc_b = self._put(next(interp_iter))
             variant = self.sampler.sample_exc_variant()

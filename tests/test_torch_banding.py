@@ -225,9 +225,12 @@ def test_gates_keep_take_on_cpu(monkeypatch):
     real = TC.spiral_conv_banded
     monkeypatch.setattr(TC, "spiral_conv_banded",
                         lambda *a, **k: calls.append(1) or real(*a, **k))
+    # the card's measurements closed both gates: no batch bands, on the
+    # card or the CPU
     assert not TC._banded_ok(4, torch.device("cpu"))
-    assert TC._banded_ok(16, torch.device("cuda"))
-    assert not TC._banded_ok(17, torch.device("cuda"))
+    assert TC._BANDED_MAX_B == 0
+    assert not TC._banded_ok(1, torch.device("cuda"))
+    assert not TC._banded_ok(16, torch.device("cuda"))
     ref = TC.spiral_conv(*args, "elu", band=tband)
     assert calls == []
     monkeypatch.setattr(TC, "_banded_ok", lambda *a: True)
@@ -236,8 +239,9 @@ def test_gates_keep_take_on_cpu(monkeypatch):
     torch.testing.assert_close(got, ref, rtol=0, atol=0)
     t32 = torch.zeros(2, 3, 4)
     assert not TS._unpool_band_ok(2, torch.device("cpu"))
-    assert TS._unpool_band_ok(128, torch.device("cuda"))
-    assert not TS._unpool_band_ok(129, torch.device("cuda"))
+    assert TS._UNPOOL_BAND_MAX_B == 0
+    assert not TS._unpool_band_ok(1, torch.device("cuda"))
+    assert not TS._unpool_band_ok(128, torch.device("cuda"))
     monkeypatch.setattr(TS, "unpool_banded",
                         lambda *a: calls.append(2) or "banded")
     table = RG.GatherTable.build(np.zeros((5, 3)), 3, "cpu",

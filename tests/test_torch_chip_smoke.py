@@ -96,17 +96,25 @@ def test_csr_reduce_mode_parses():
 
 def test_launch_literals():
     """The conv forward's count per path is the new kernel's; v1 is
-    counted and expected at 0 everywhere; at the Trainer's batch 12 every
-    dx half of the four take-route convs goes unfused (4 csr_reduce more
-    than the 7 fix-up backwards), and every row gather with a gradient
-    adds one csr_reduce (its backward)."""
+    counted and expected at 0 everywhere; the Trainer's default step at
+    batch 12 is the take route (both gates closed): 9 conv forwards and
+    dW, every dx half of the 8 convs with one unfused (a csr_reduce
+    each), and every row gather with a gradient adds one csr_reduce (its
+    backward); the forced banded arm keeps the counts of the JAX gates:
+    4 take-route convs, 4 unfused dx and 7 fix-up backwards."""
     assert "spiral_conv_fwd_v1" in CS.KERNEL_COUNTS
     assert [CS.SERVE_LAUNCHES[r]["spiral_conv_fwd"]
             for r in ("small", "large", "take")] == [4, 9, 9]
     assert CS.STEP_LAUNCHES["spiral_conv_fwd"] == 9
-    assert CS.TRAIN_LAUNCHES["spiral_conv_fwd"] == 4
+    assert CS.TRAIN_LAUNCHES["spiral_conv_fwd"] == 9
     assert CS.TRAIN_LAUNCHES["spiral_conv_bwd_dx"] == 0
-    assert CS.TRAIN_LAUNCHES["csr_reduce"] == 7 + 4 + (
+    assert CS.TRAIN_LAUNCHES["csr_reduce"] == 8 + (
+        CS.ENCODE_GATHER_GRADS + CS.UNPOOL_GATHERS
+        + CS.LOSS_GATHER_GRADS) == 24
+    assert CS.expect(CS.TRAIN_LAUNCHES)["banded_gather_fwd"] == 0
+    assert CS.expect(CS.VAL_LAUNCHES)["banded_gather_fwd"] == 0
+    assert CS.TRAIN_LAUNCHES_BANDED["spiral_conv_fwd"] == 4
+    assert CS.TRAIN_LAUNCHES_BANDED["csr_reduce"] == 7 + 4 + (
         CS.ENCODE_GATHER_GRADS + CS.LOSS_GATHER_GRADS) == 23
     assert CS.STEP_LAUNCHES["csr_reduce"] == 17
     assert set(CS.YARDSTICKS) == {"spiral_conv_fwd_v1", "part_dist_v1",
@@ -115,7 +123,7 @@ def test_launch_literals():
     assert CS.STEP_LAUNCHES["part_dist_fwd_grad"] == 2
     assert CS.TRAIN_LAUNCHES["part_dist_fwd_grad"] == 2
     for table in (CS.STEP_LAUNCHES, CS.TRAIN_LAUNCHES,
-                  *CS.SERVE_LAUNCHES.values()):
+                  CS.TRAIN_LAUNCHES_BANDED, *CS.SERVE_LAUNCHES.values()):
         for k in CS.YARDSTICKS:
             assert CS.expect(table)[k] == 0
 
@@ -150,8 +158,54 @@ def test_graph_launch_literals():
     so it launches what a loop step that drew 'ori' does, the 'm' draw's
     fewer launches never apply, and the yardsticks stay at 0."""
     assert CS.GRAPH_LAUNCHES == CS.TRAIN_LAUNCHES
-    assert CS.GRAPH_LAUNCHES["row_gather"] == 6 + 8 + 11
-    assert CS.GRAPH_LAUNCHES["csr_reduce"] == 23
+    assert CS.GRAPH_LAUNCHES_BANDED == CS.TRAIN_LAUNCHES_BANDED
+    assert CS.GRAPH_LAUNCHES["row_gather"] == 6 + 4 + 11
+    assert CS.GRAPH_LAUNCHES["csr_reduce"] == 24
+    assert CS.GRAPH_LAUNCHES_BANDED["row_gather"] == 6 + 8 + 11
+    assert CS.GRAPH_LAUNCHES_BANDED["csr_reduce"] == 23
     assert set(CS.M_VARIANT_FEWER) <= set(CS.GRAPH_LAUNCHES)
     for k in CS.YARDSTICKS:
         assert CS.expect(CS.GRAPH_LAUNCHES)[k] == 0
+
+
+@pytest.mark.parametrize("flag,attr", [("--dfaust", "dfaust"),
+                                       ("--band-gates", "band_gates")])
+def test_dfaust_and_gate_modes_parse(flag, attr):
+    args = CS.parse_args([flag])
+    assert getattr(args, attr) and not (args.trainer or args.conv_forward)
+    assert not getattr(CS.parse_args([]), attr)
+    with pytest.raises(SystemExit):
+        CS.parse_args([flag, "--trainer"])
+
+
+def test_forced_gates_are_the_jax_gates_and_the_port_closed_both():
+    """The forced banded arms open the gates the JAX package sets; the
+    port's own gates are closed (the card's measurements)."""
+    from semantichuman_torch.ops import sampling as TS
+    from semantichuman_tpu.ops import sampling as JS
+    import importlib
+    tc = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+    jc = importlib.import_module("semantichuman_tpu.ops.spiral_conv")
+    assert CS.FORCED_GATES == (jc._BANDED_MAX_B, JS._UNPOOL_BAND_MAX_B)
+    assert (tc._BANDED_MAX_B, TS._UNPOOL_BAND_MAX_B) == (0, 0)
+    with CS.band_gates(*CS.FORCED_GATES):
+        assert (tc._BANDED_MAX_B, TS._UNPOOL_BAND_MAX_B) == (16, 128)
+    assert (tc._BANDED_MAX_B, TS._UNPOOL_BAND_MAX_B) == (0, 0)
+
+
+@pytest.mark.parametrize("stacked", [True, False])
+def test_dfaust_config_overrides_only_the_dataset(tmp_path, stacked):
+    """Phase 8's config is configs/train_dfaust.yaml with root_dir,
+    asset_dir and n_val set (and from_stacked off for the per-sample
+    layout): the bf16 trunk, banded_conv off and every other field as
+    the file has them."""
+    from semantichuman_torch.config import Config
+    path = CS.dfaust_config(tmp_path / "DF", tmp_path / "c.yaml", stacked)
+    got = Config.from_yaml(path).to_dict()
+    want = Config.from_yaml(str(CS.DFAUST_CONFIG)).to_dict()
+    want["data"].update(root_dir=str(tmp_path / "DF"),
+                        asset_dir=str(tmp_path / "DF" / "asset"),
+                        n_val=CS.DFAUST_VAL, from_stacked=stacked)
+    assert got == want
+    assert got["model"]["trunk_dtype"] == "bfloat16"
+    assert got["model"]["banded_conv"] is False

@@ -130,5 +130,8 @@ def test_synthetic_assets_equal_jax():
     from semantichuman_tpu.data.assets import part_color_map as jcm
     np.testing.assert_array_equal(tcm(ta.part_dict, len(ta.template_verts)),
                                   jcm(ja.part_dict, len(ja.template_verts)))
-    with pytest.raises(NotImplementedError, match="DFAUST"):
-        TAssets.load("data/asset", "template.obj")
+    # the on-disk loader is ported (tests/test_torch_dfaust_path.py): a
+    # missing template raises as the JAX loader's does
+    for load in (TAssets.load, JAssets.load):
+        with pytest.raises(FileNotFoundError, match="template.obj"):
+            load("data/asset", "no_such_dir/template.obj")

@@ -445,16 +445,20 @@ def test_row_gather_matches_index_select(cuda, n_src, d, n_out, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_banded_routes_match_take(cuda, full_bands, dtype):
-    """spiral_conv at B <= 16 on a banded level and unpool on a banded
-    transition launch rows 5-7 and give the take route's values (f32
-    1e-5, bf16 inputs the same gathered values, so the same tolerance)
-    and x/W/b gradients (1e-5 of the largest entry, dummy row zeroed)."""
+def test_banded_routes_match_take(cuda, full_bands, dtype, monkeypatch):
+    """With the gates forced open to the JAX package's (16 and 128; the
+    card's measurements closed both), spiral_conv at B <= 16 on a banded
+    level and unpool on a banded transition launch rows 5-7 and give the
+    take route's values (f32 1e-5, bf16 inputs the same gathered values,
+    so the same tolerance) and x/W/b gradients (1e-5 of the largest
+    entry, dummy row zeroed)."""
     from semantichuman_torch.models.tables import device_tables
     from semantichuman_torch.ops import banded_gather as BG
     from semantichuman_torch.ops import row_gather as RG
     from semantichuman_torch.ops import sampling as SA
     from semantichuman_torch.topology import MeshHierarchy
+    monkeypatch.setattr(TC, "_BANDED_MAX_B", 16)
+    monkeypatch.setattr(SA, "_UNPOOL_BAND_MAX_B", 128)
     t = device_tables(MeshHierarchy.load(TOPOLOGY), "cuda")
     b, c, co = 12, 16, 32
     v1, s = t.spirals[0].shape
@@ -508,6 +512,77 @@ def test_banded_routes_match_take(cuda, full_bands, dtype):
     g[:, -1] = 0
     r[:, -1] = 0
     torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * float(r.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 12, 16, 64, 128])
+def test_default_routes_take_at_the_measured_batches(cuda, full_bands, b):
+    """At every batch the gates were measured at on the card (serving 1,
+    16, 64; the Trainer's trunk 12 and the fast recipe's 128) a banded
+    level's conv and a banded unpool take the take route: no banded
+    launch, the take route's kernels, its values bit for bit."""
+    from semantichuman_torch.models.tables import device_tables
+    from semantichuman_torch.ops import banded_gather as BG
+    from semantichuman_torch.ops import row_gather as RG
+    from semantichuman_torch.ops import sampling as SA
+    from semantichuman_torch.topology import MeshHierarchy
+    assert not TC._banded_ok(b, cuda) and not SA._unpool_band_ok(b, cuda)
+    t = device_tables(MeshHierarchy.load(TOPOLOGY), "cuda")
+    gen = torch.Generator(device=cuda).manual_seed(b)
+    c, co = 3, 16
+    v1, s = t.spirals[0].shape
+    x = torch.randn((b, v1, c), generator=gen, device=cuda)
+    x[:, -1] = 0
+    w = torch.randn((s * c, co), generator=gen, device=cuda) / (s * c) ** 0.5
+    bias = torch.randn((co,), generator=gen, device=cuda)
+    xc = torch.randn((b, t.sizes[1] + 1, c), generator=gen, device=cuda)
+    xc[:, -1] = 0
+    before = (BG.banded_gather_fwd.launches, TC.spiral_conv.launches,
+              RG.row_gather.launches)
+    y = TC.spiral_conv(x, t.spirals[0], w, bias, "elu",
+                       band=full_bands["conv0"])
+    u = SA.unpool(xc, t.unpool_gather[0], band=full_bands["unpool0"])
+    torch.cuda.synchronize()
+    assert (BG.banded_gather_fwd.launches, TC.spiral_conv.launches,
+            RG.row_gather.launches) == (before[0], before[1] + 1,
+                                        before[2] + 1)
+    assert torch.equal(y, TC.spiral_conv(x, t.spirals[0], w, bias, "elu"))
+    assert torch.equal(u, SA.unpool_take(xc, t.unpool_gather[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [1, 3])
+def test_prefetch_to_device_matches_inline(cuda, size):
+    """The threaded pipeline (pinned batches, non_blocking copies on a
+    side stream) yields exactly the inline batches, in order.  The
+    consumer reads each batch on a stream of its own right after it
+    arrives: its stream waits on the copy's event, so it reads the
+    copied values, never memory the copy has not reached."""
+    from semantichuman_torch.data import dataset as TD
+
+    rng = np.random.default_rng(0)
+    verts = rng.standard_normal((96, 6892, 3)).astype(np.float32)
+    meas = rng.standard_normal((96, 32)).astype(np.float32)
+
+    def batches():
+        return iter(TD.BatchLoader(TD.ArraySource(verts, meas), 16,
+                                   shuffle=True, seed=5))
+
+    inline = list(TD.prefetch_to_device(batches(), cuda, size=0))
+    consumer = torch.cuda.Stream()
+    got = []
+    with torch.cuda.stream(consumer):
+        for batch in TD.prefetch_to_device(batches(), cuda, size=size):
+            assert batch["verts"].is_cuda and batch["measure"].is_cuda
+            # read on the consumer's stream at once: a doubled copy
+            got.append({k: batch[k] * 2 for k in ("verts", "measure")}
+                       | {"idx": batch["idx"]})
+    consumer.synchronize()
+    assert len(got) == len(inline) == 6
+    for a, b in zip(inline, got):
+        np.testing.assert_array_equal(a["idx"], b["idx"])
+        for k in ("verts", "measure"):
+            assert torch.equal(a[k] * 2, b[k])
 
 
 @pytest.mark.cuda

@@ -260,15 +260,29 @@ def test_topology_key_matches_jax_meta(topology_dir, small_human):
 
 
 def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir):
-    """No compiled topology, a stale one, and the pieces that wait for a
-    later slice all raise, naming what is missing; the default device is
-    the card."""
-    with pytest.raises(FileNotFoundError, match="topology compiler"):
-        TorchTrainer(_port_cfg(), str(tmp_path / "empty"), device="cpu")
+    """A workdir without a compiled topology, with a stale one or with one
+    that has no .meta key gets the hierarchy compiled (the JAX compiler's
+    policy: a cache is trusted only where its key matches); the pieces
+    that wait for a later slice raise, naming what is missing; an on-disk
+    dataset that is not there raises naming its file; the default device
+    is the card."""
+    want = np.load(topology_dir / "topology_2222.npz")
+    key = (topology_dir / "topology_2222.npz.meta").read_text()
+    empty = tmp_path / "empty"
     stale = _workdir(tmp_path / "stale", topology_dir)
     Path(stale, "topology_2222.npz.meta").write_text("other")
-    with pytest.raises(ValueError, match="no topology compiler"):
-        TorchTrainer(_port_cfg(), stale, device="cpu")
+    no_meta = _workdir(tmp_path / "no_meta", topology_dir)
+    os.remove(os.path.join(no_meta, "topology_2222.npz.meta"))
+    # a cache with no key, its spirals scrambled: recompiled, not read
+    with np.load(topology_dir / "topology_2222.npz") as z:
+        arrays = dict(z)
+    arrays["spirals_0"] = arrays["spirals_0"][::-1].copy()
+    np.savez(os.path.join(no_meta, "topology_2222.npz"), **arrays)
+    for d in (empty, stale, no_meta):
+        tr = TorchTrainer(_port_cfg(), str(d), device="cpu")
+        np.testing.assert_array_equal(tr.hierarchy.spirals[0],
+                                      want["spirals_0"])
+        assert Path(d, "topology_2222.npz.meta").read_text() == key
     d = _workdir(tmp_path / "ok", topology_dir)
     for over, match in (({"resume_torch": "x.pth.tar"}, "resume_torch"),
                         ({"profile_stop": 5}, "trace window")):
@@ -280,8 +294,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir):
     with pytest.raises(NotImplementedError, match="neural3DMM"):
         TorchTrainer(cfg, d, device="cpu")
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
-        cfg.data, synthetic=False), model=_port_cfg().model)
-    with pytest.raises(NotImplementedError, match="DFAUST"):
+        cfg.data, synthetic=False, asset_dir=str(tmp_path / "no_assets")),
+        model=_port_cfg().model)
+    with pytest.raises(FileNotFoundError, match="template.obj"):
         TorchTrainer(cfg, d, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
