@@ -172,6 +172,26 @@ run:
    both; the port's compile of the bundled synthetic template equals
    assets/topology_synth_full_2222.npz array for array; the seconds of
    the preprocessing and the compiles.
+9. the neural3DMM baseline and reference checkpoints (`phase_baseline`):
+   (a) `cli.train` with configs/train_neural3dmm.yaml (nz 256, B = 16,
+   zeroroot, banded_conv off, f32), only root_dir, asset_dir, n_val and
+   3 epochs set, on phase 8's dataset (preprocessed anew when phase 8 did
+   not run), the launch counts set to 0 just before: finite falling epoch
+   losses, a finite test eval, per step TRAIN_LAUNCHES_N3DMM (9 conv
+   forwards, 9 dW, 0 dx, 9 row gathers, 17 csr_reduce) and per eval
+   batch VAL_LAUNCHES_N3DMM; one loss + gradient through the kernels
+   against the plain conv (rtol 1e-4, each gradient leaf within 1e-4 of
+   its largest entry); ms/step (a synchronize after each step, the median
+   of epoch 3), meshes/s, the idle share and the kernel families of one
+   profiled epoch (the index_add_ family 0).  (b) for each model family,
+   the port's epoch-2 checkpoint (neural3DMM: (a)'s, saved after its
+   second epoch; PartAE: phase 7's loop fit at Config() defaults, resumed
+   on its epoch path) written in the reference's `.pth.tar` layout
+   (`write_reference_checkpoint`: the part heads' pads and their moments
+   must be exactly 0) and resumed for epoch 3 through train.resume_torch
+   and through train.resume: the epoch-3 loss and every parameter tensor
+   equal bit for bit, the launches counted, the host seconds of the
+   reference checkpoint's load printed.
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
@@ -182,7 +202,8 @@ the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
 row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
 reduce's checks and times of phases 4 and 6 with a sweep of its batch
 tile, for tuning those kernels, `--trainer` phase 1 and phase 7,
-`--dfaust` phase 1 and phase 8, and `--band-gates` phase 1 and each
+`--dfaust` phase 1 and phase 8, `--baseline` phase 1 and phase 9, and
+`--band-gates` phase 1 and each
 banded gate measured on its own against the take route in turns (serving
 at B = 1, 16, 64, the Trainer's epoch path at trunk 12 and the fast
 recipe's 128), the measurement that set both gates: they print no result
@@ -321,6 +342,22 @@ STEP_LAUNCHES = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
                  "csr_reduce": 1 + ENCODE_GATHER_GRADS + UNPOOL_GATHERS
                  + LOSS_GATHER_GRADS,
                  "part_dist_fwd_grad": 2}
+# launches per step of the neural3DMM recipe (configs/train_neural3dmm.yaml:
+# B = 16, banded_conv off, so the take route): 9 conv forwards and their
+# 9 dW; the 8 dx halves (all but the first conv's, whose input is data)
+# take the unfused route at batch <= 16, one csr_reduce each; the 4
+# pools', the 4 unpools' and edgereg's face gather of the reconstruction
+# are row gathers with a gradient, one csr_reduce each (the GT edge
+# lengths come staged with the split)
+POOL_GATHERS = 4
+N3DMM_GATHERS = POOL_GATHERS + UNPOOL_GATHERS + 1
+TRAIN_LAUNCHES_N3DMM = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
+                        "spiral_conv_bwd_dx": 0, "row_gather": N3DMM_GATHERS,
+                        "csr_reduce": 8 + N3DMM_GATHERS}
+# a neural3DMM val or test batch (16 meshes): one forward, its pools and
+# unpools
+VAL_LAUNCHES_N3DMM = {"spiral_conv_fwd": 9,
+                      "row_gather": POOL_GATHERS + UNPOOL_GATHERS}
 # H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
@@ -2648,8 +2685,9 @@ def foreach_div_rounding() -> dict:
     return out
 
 
-def phase_trainer():
-    """The Trainer's main paths: the loop (fit with counts, a second fit,
+def phase_trainer(root: Path):
+    """The Trainer's main paths, their workdirs under root: the loop (fit
+    with counts, a second fit,
     the same fit in the forced banded arm with its counts) and the epoch
     path (`phase_trainer_graph`), both routes in turns on both paths
     resumed from the loop's checkpoint on their route (`route_runs`),
@@ -2671,146 +2709,146 @@ def phase_trainer():
     from semantichuman_torch.utils.params import tree_leaves, tree_unflatten
 
     out = {"foreach_div_by_float": foreach_div_rounding()}
-    with tempfile.TemporaryDirectory() as tmp:
-        root = Path(tmp)
-        t0 = time.perf_counter()
-        tr = Trainer(trainer_cfg(), trainer_workdir(root, "fit"),
+    t0 = time.perf_counter()
+    tr = Trainer(trainer_cfg(), trainer_workdir(root, "fit"),
+                 device=DEVICE)
+    out["init_s"] = time.perf_counter() - t0
+    # banded_conv on builds the bands; the closed gates keep the
+    # default route off them (the forced banded arm reads them)
+    t = tr.model.tables
+    require([b is not None for b in t.bands] == [True, True] + [False] * 3
+            and all(b is not None for b in t.unpool_bands),
+            "expected conv bands at levels 0-1 and four unpool bands")
+    require(tr.device_data is not None, "data not staged on the device")
+    require(not tr._epoch_scan_ok(), "epoch_scan False takes the loop")
+    n_steps = len(tr.train_loader) * 3
+    n_val = len(tr.val_loader) * 3
+    require(n_val == 3, "expected one validation batch per epoch")
+
+    # --- the loop: counts from 0, read right after; the exchange
+    # variant of each step recorded -------------------------------------
+    variants, get = [], tr._get_step
+
+    def get_step(epoch, variant):
+        variants.append(variant)
+        return get(epoch, variant)
+
+    tr._get_step = get_step
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    tr.fit()
+    sync()
+    out["fit_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    tr._get_step = get
+    require(len(variants) == n_steps
+            and set(variants) <= {"ori", "m"},
+            f"exchange variants {variants}")
+    n_m = variants.count("m")
+    # a validation batch of 16 is one forward on the B <= 16 routes
+    want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps
+            + VAL_LAUNCHES.get(k, 0) * n_val
+            - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
+    log(f"[trainer] fit: {n_steps} steps ({n_m} with the 'm' exchange), "
+        f"{n_val} val batches, launches {counts}")
+    require(counts == want, f"trainer launches {counts}, want {want}")
+    hist = tr.history
+    losses = [h["train"] for h in hist]
+    log(f"[trainer] epochs {[(h['epoch'], h['train'], h['val'], h['sec']) for h in hist]}")
+    require(all(np.isfinite(losses)) and all(
+        np.isfinite(h["val"]) for h in hist), "non-finite epoch loss")
+    require(losses[2] < losses[1] < losses[0],
+            f"epoch losses not falling: {losses}")
+    out.update(counts=counts, epoch_losses=losses,
+               epoch_val=[h["val"] for h in hist],
+               epoch_s=[h["sec"] for h in hist])
+    ckpt = os.path.join(tr.workdir, "checkpoints")
+    require(os.path.isdir(os.path.join(ckpt, "2")),
+            "no epoch-2 checkpoint")
+    # phase 9 resumes the epoch path from it through the reference layout
+    out["epoch2_checkpoint"] = ckpt
+    final = tree_unflatten(tr.params, [p.detach().clone()
+                                       for p in tree_leaves(tr.params)])
+    del tr
+
+    # --- a second fit from the same seed, default algorithms: the
+    # same bits (no kernel of the path adds with atomics) ---------------
+    tr = Trainer(trainer_cfg(), trainer_workdir(root, "refit"),
+                 device=DEVICE)
+    tr.fit()
+    again = [h["train"] for h in tr.history]
+    same = params_equal(final, tr.params)
+    log(f"[trainer] second fit, default algorithms: epoch losses "
+        f"{again} (first {losses}); {sum(same)} of {len(same)} "
+        "parameter tensors bit-equal")
+    require(again == losses and all(same) and len(same) == 24,
+            "two default-mode fits from one seed differ")
+    out["refit_epoch_losses"] = again
+    del tr
+
+    # --- the forced banded arm (FORCED_GATES): the same fit on the
+    # banded routes, its launches counted; its epoch-2 checkpoint is
+    # where the banded runs below resume ---------------------------------
+    with band_gates(*FORCED_GATES), variant_probe() as variants_b:
+        tr = Trainer(trainer_cfg(), trainer_workdir(root, "banded_fit"),
                      device=DEVICE)
-        out["init_s"] = time.perf_counter() - t0
-        # banded_conv on builds the bands; the closed gates keep the
-        # default route off them (the forced banded arm reads them)
-        t = tr.model.tables
-        require([b is not None for b in t.bands] == [True, True] + [False] * 3
-                and all(b is not None for b in t.unpool_bands),
-                "expected conv bands at levels 0-1 and four unpool bands")
-        require(tr.device_data is not None, "data not staged on the device")
-        require(not tr._epoch_scan_ok(), "epoch_scan False takes the loop")
-        n_steps = len(tr.train_loader) * 3
-        n_val = len(tr.val_loader) * 3
-        require(n_val == 3, "expected one validation batch per epoch")
-
-        # --- the loop: counts from 0, read right after; the exchange
-        # variant of each step recorded -------------------------------------
-        variants, get = [], tr._get_step
-
-        def get_step(epoch, variant):
-            variants.append(variant)
-            return get(epoch, variant)
-
-        tr._get_step = get_step
         sync()
         reset_counts()
-        t0 = time.perf_counter()
         tr.fit()
         sync()
-        out["fit_s"] = time.perf_counter() - t0
-        counts = read_counts()
-        tr._get_step = get
-        require(len(variants) == n_steps
-                and set(variants) <= {"ori", "m"},
-                f"exchange variants {variants}")
-        n_m = variants.count("m")
-        # a validation batch of 16 is one forward on the B <= 16 routes
-        want = {k: TRAIN_LAUNCHES.get(k, 0) * n_steps
-                + VAL_LAUNCHES.get(k, 0) * n_val
-                - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
-        log(f"[trainer] fit: {n_steps} steps ({n_m} with the 'm' exchange), "
-            f"{n_val} val batches, launches {counts}")
-        require(counts == want, f"trainer launches {counts}, want {want}")
-        hist = tr.history
-        losses = [h["train"] for h in hist]
-        log(f"[trainer] epochs {[(h['epoch'], h['train'], h['val'], h['sec']) for h in hist]}")
-        require(all(np.isfinite(losses)) and all(
-            np.isfinite(h["val"]) for h in hist), "non-finite epoch loss")
-        require(losses[2] < losses[1] < losses[0],
-                f"epoch losses not falling: {losses}")
-        out.update(counts=counts, epoch_losses=losses,
-                   epoch_val=[h["val"] for h in hist],
-                   epoch_s=[h["sec"] for h in hist])
-        ckpt = os.path.join(tr.workdir, "checkpoints")
-        require(os.path.isdir(os.path.join(ckpt, "2")),
-                "no epoch-2 checkpoint")
-        final = tree_unflatten(tr.params, [p.detach().clone()
-                                           for p in tree_leaves(tr.params)])
-        del tr
+        counts_b = read_counts()
+    n_m = variants_b.count("m")
+    want = {k: TRAIN_LAUNCHES_BANDED.get(k, 0) * n_steps
+            + VAL_LAUNCHES_BANDED.get(k, 0) * n_val
+            - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
+    losses_b = [h["train"] for h in tr.history]
+    log(f"[trainer] forced banded fit: epoch losses {losses_b}, {n_m} "
+        f"steps with the 'm' exchange, launches {counts_b}")
+    require(len(variants_b) == n_steps and counts_b == want,
+            f"forced banded fit: launches {counts_b}, want {want}")
+    require(all(np.isfinite(losses_b))
+            and losses_b[2] < losses_b[1] < losses_b[0],
+            f"forced banded fit: epoch losses {losses_b}")
+    out.update(banded_counts=counts_b, banded_epoch_losses=losses_b)
+    resume_from = {"banded": (losses_b, os.path.join(tr.workdir,
+                                                     "checkpoints")),
+                   "take": (losses, ckpt)}
+    del tr
 
-        # --- a second fit from the same seed, default algorithms: the
-        # same bits (no kernel of the path adds with atomics) ---------------
-        tr = Trainer(trainer_cfg(), trainer_workdir(root, "refit"),
-                     device=DEVICE)
-        tr.fit()
-        again = [h["train"] for h in tr.history]
-        same = params_equal(final, tr.params)
-        log(f"[trainer] second fit, default algorithms: epoch losses "
-            f"{again} (first {losses}); {sum(same)} of {len(same)} "
-            "parameter tensors bit-equal")
-        require(again == losses and all(same) and len(same) == 24,
-                "two default-mode fits from one seed differ")
-        out["refit_epoch_losses"] = again
-        del tr
+    # --- the epoch path: (a), (c), (d) ----------------------------------
+    graph = phase_trainer_graph(root, losses, final, ckpt)
+    out["graph_counts"] = graph.pop("counts")
+    out["graph"] = graph
+    del final
 
-        # --- the forced banded arm (FORCED_GATES): the same fit on the
-        # banded routes, its launches counted; its epoch-2 checkpoint is
-        # where the banded runs below resume ---------------------------------
-        with band_gates(*FORCED_GATES), variant_probe() as variants_b:
-            tr = Trainer(trainer_cfg(), trainer_workdir(root, "banded_fit"),
-                         device=DEVICE)
-            sync()
-            reset_counts()
-            tr.fit()
-            sync()
-            counts_b = read_counts()
-        n_m = variants_b.count("m")
-        want = {k: TRAIN_LAUNCHES_BANDED.get(k, 0) * n_steps
-                + VAL_LAUNCHES_BANDED.get(k, 0) * n_val
-                - M_VARIANT_FEWER.get(k, 0) * n_m for k in KERNEL_COUNTS}
-        losses_b = [h["train"] for h in tr.history]
-        log(f"[trainer] forced banded fit: epoch losses {losses_b}, {n_m} "
-            f"steps with the 'm' exchange, launches {counts_b}")
-        require(len(variants_b) == n_steps and counts_b == want,
-                f"forced banded fit: launches {counts_b}, want {want}")
-        require(all(np.isfinite(losses_b))
-                and losses_b[2] < losses_b[1] < losses_b[0],
-                f"forced banded fit: epoch losses {losses_b}")
-        out.update(banded_counts=counts_b, banded_epoch_losses=losses_b)
-        resume_from = {"banded": (losses_b, os.path.join(tr.workdir,
-                                                         "checkpoints")),
-                       "take": (losses, ckpt)}
-        del tr
+    # --- (b), (e): both routes, both paths, in turns --------------------
+    out["routes"] = route_runs(root, resume_from)
 
-        # --- the epoch path: (a), (c), (d) ----------------------------------
-        graph = phase_trainer_graph(root, losses, final, ckpt)
-        out["graph_counts"] = graph.pop("counts")
-        out["graph"] = graph
-        del final
-
-        # --- (b), (e): both routes, both paths, in turns --------------------
-        out["routes"] = route_runs(root, resume_from)
-
-        # --- the exact gate, under deterministic algorithms: a fit, then
-        # its epoch 3 repeated from its epoch-2 checkpoint ---------------------
-        with deterministic_torch():
-            for banded in (True, False):
-                name = "banded" if banded else "take"
-                with route_gates(banded):
-                    tr = Trainer(trainer_cfg(),
-                                 trainer_workdir(root, f"held_fit_{name}"),
-                                 device=DEVICE)
-                    tr.fit()
-                    held = [h["train"] for h in tr.history]
-                    held_ckpt = os.path.join(tr.workdir, "checkpoints")
-                    out.update({
-                        f"deterministic_{name}_epoch_losses": held,
-                        f"deterministic_{name}_epoch_s":
-                            [h["sec"] for h in tr.history]})
-                    del tr
-                    tr, _times, loss3 = resumed_epoch(root, f"held_{name}",
-                                                      banded, held_ckpt)
-                log(f"[trainer] resumed {name}, deterministic: epoch 3 loss "
-                    f"{loss3:.9f} (uninterrupted {held[2]:.9f})")
-                np.testing.assert_allclose(loss3, held[2], rtol=1e-4)
-                out[f"resumed_{name}_loss"] = loss3
+    # --- the exact gate, under deterministic algorithms: a fit, then
+    # its epoch 3 repeated from its epoch-2 checkpoint ---------------------
+    with deterministic_torch():
+        for banded in (True, False):
+            name = "banded" if banded else "take"
+            with route_gates(banded):
+                tr = Trainer(trainer_cfg(),
+                             trainer_workdir(root, f"held_fit_{name}"),
+                             device=DEVICE)
+                tr.fit()
+                held = [h["train"] for h in tr.history]
+                held_ckpt = os.path.join(tr.workdir, "checkpoints")
+                out.update({
+                    f"deterministic_{name}_epoch_losses": held,
+                    f"deterministic_{name}_epoch_s":
+                        [h["sec"] for h in tr.history]})
                 del tr
+                tr, _times, loss3 = resumed_epoch(root, f"held_{name}",
+                                                  banded, held_ckpt)
+            log(f"[trainer] resumed {name}, deterministic: epoch 3 loss "
+                f"{loss3:.9f} (uninterrupted {held[2]:.9f})")
+            np.testing.assert_allclose(loss3, held[2], rtol=1e-4)
+            out[f"resumed_{name}_loss"] = loss3
+            del tr
     return out
 
 
@@ -3049,10 +3087,21 @@ def copy_cache(cache: Path, workdir: Path) -> None:
         shutil.copy(str(cache) + suffix, workdir / (cache.name + suffix))
 
 
-def phase_dfaust(card: str) -> dict:
-    """Phase 8: training from an on-disk dataset on the card.  The port's
-    preprocessing CLIs build an SMPL-scale dataset (64 train, 16 test
-    meshes, 8 of the train meshes the val split); cli.train trains
+def dfaust_dataset(tmp: Path) -> tuple:
+    """The SMPL-scale dataset of phases 8 and 9, tmp/DFAUST: built by the
+    port's preprocessing CLIs at first use, reused after.  -> (root, the
+    seconds of each CLI, or None where it was reused)."""
+    root = tmp / "DFAUST"
+    if (root / "preprocessed").is_dir():
+        return root, None
+    return root, preprocess(root)
+
+
+def phase_dfaust(card: str, tmp: Path) -> dict:
+    """Phase 8: training from an on-disk dataset on the card, in the
+    directory tmp.  The port's preprocessing CLIs build an SMPL-scale
+    dataset (64 train, 16 test meshes, 8 of the train meshes the val
+    split; `dfaust_dataset`); cli.train trains
     configs/train_dfaust.yaml (bf16 trunk, banded_conv off, the DFAUST
     recipe's losses) for 2 epochs from (a) the stacked layout (staged: the
     epoch path) and (b) the per-sample layout (data.from_stacked off:
@@ -3067,74 +3116,71 @@ def phase_dfaust(card: str) -> dict:
     from semantichuman_torch.topology import compile_topology
 
     out = {}
-    with tempfile.TemporaryDirectory() as tmpdir:
-        tmp = Path(tmpdir)
-        root = tmp / "DFAUST"
-        out["preprocess_s"] = preprocess(root)
-        log(f"[dfaust] preprocessing {out['preprocess_s']} s")
+    root, out["preprocess_s"] = dfaust_dataset(tmp)
+    log(f"[dfaust] preprocessing {out['preprocess_s']} s")
 
-        tr_a, counts_a, comp_a, caps_a, var_a, secs_a = dfaust_run(
-            root, tmp, "stacked")
-        cache = tmp / "stacked" / "topology_2222.npz"
-        require(comp_a["builds"] == 1 and cache.exists()
-                and Path(str(cache) + ".meta").exists(),
-                f"(a): the topology was not compiled into the workdir "
-                f"({comp_a})")
-        out["stacked"] = dfaust_checks(tr_a, counts_a, caps_a, var_a,
-                                       "stacked")
-        out["stacked"].update(run_s=secs_a, compile_s=comp_a["compile_s"])
+    tr_a, counts_a, comp_a, caps_a, var_a, secs_a = dfaust_run(
+        root, tmp, "stacked")
+    cache = tmp / "stacked" / "topology_2222.npz"
+    require(comp_a["builds"] == 1 and cache.exists()
+            and Path(str(cache) + ".meta").exists(),
+            f"(a): the topology was not compiled into the workdir "
+            f"({comp_a})")
+    out["stacked"] = dfaust_checks(tr_a, counts_a, caps_a, var_a,
+                                   "stacked")
+    out["stacked"].update(run_s=secs_a, compile_s=comp_a["compile_s"])
 
-        copy_cache(cache, tmp / "files")
-        tr_b, counts_b, comp_b, caps_b, var_b, secs_b = dfaust_run(
-            root, tmp, "files")
-        require(comp_b["builds"] == 0, "(b): the cached topology was "
-                f"compiled again ({comp_b})")
-        out["files"] = dfaust_checks(tr_b, counts_b, caps_b, var_b, "files")
-        out["files"].update(run_s=secs_b, compile_s=comp_b["compile_s"])
-        # prefetch's effect on (b): the same run with the batches staged
-        # inline (data.prefetch 0); one run, a record, no gate
-        copy_cache(cache, tmp / "files_inline")
-        tr_c = dfaust_run(root, tmp, "files_inline", prefetch=0)[0]
-        k = len(tr_c.train_loader)
-        out["files_inline_ms_per_step"] = \
-            tr_c.history[-1]["train_sec"] / k * 1e3
-        require([h["train"] for h in tr_c.history]
-                 == out["files"]["epoch_losses"],
-                 "the per-sample layout trains otherwise without prefetch")
-        log(f"[dfaust] files, data.prefetch 0: epoch {DFAUST_EPOCHS} "
-            f"{out['files_inline_ms_per_step']:.3f} ms/step (prefetch "
-            f"{tr_b.cfg.data.prefetch}: {out['files']['ms_per_step']:.3f})")
-        del tr_c
+    copy_cache(cache, tmp / "files")
+    tr_b, counts_b, comp_b, caps_b, var_b, secs_b = dfaust_run(
+        root, tmp, "files")
+    require(comp_b["builds"] == 0, "(b): the cached topology was "
+            f"compiled again ({comp_b})")
+    out["files"] = dfaust_checks(tr_b, counts_b, caps_b, var_b, "files")
+    out["files"].update(run_s=secs_b, compile_s=comp_b["compile_s"])
+    # prefetch's effect on (b): the same run with the batches staged
+    # inline (data.prefetch 0); one run, a record, no gate
+    copy_cache(cache, tmp / "files_inline")
+    tr_c = dfaust_run(root, tmp, "files_inline", prefetch=0)[0]
+    k = len(tr_c.train_loader)
+    out["files_inline_ms_per_step"] = \
+        tr_c.history[-1]["train_sec"] / k * 1e3
+    require([h["train"] for h in tr_c.history]
+             == out["files"]["epoch_losses"],
+             "the per-sample layout trains otherwise without prefetch")
+    log(f"[dfaust] files, data.prefetch 0: epoch {DFAUST_EPOCHS} "
+        f"{out['files_inline_ms_per_step']:.3f} ms/step (prefetch "
+        f"{tr_b.cfg.data.prefetch}: {out['files']['ms_per_step']:.3f})")
+    del tr_c
 
-        host_a = tr_a.train_loader.loader
-        host_a.set_epoch(1)
-        tr_b.train_loader.set_epoch(1)
-        first_a, first_b = next(iter(host_a)), next(iter(tr_b.train_loader))
-        require(all(np.array_equal(first_a[key], first_b[key])
-                    for key in ("verts", "measure", "global_idx")),
-                "the first host batch differs between the layouts")
-        la, lb = (out["stacked"]["epoch_losses"][0],
-                  out["files"]["epoch_losses"][0])
-        gap = abs(la - lb) / abs(lb)
-        log(f"[dfaust] epoch 1 loss: stacked {la!r}, per-sample {lb!r}, "
-            f"relative gap {gap:.3e} (tolerance {DFAUST_LOSS_RTOL})")
-        require(gap <= DFAUST_LOSS_RTOL, f"epoch 1 loss gap {gap:.3e}")
-        out["epoch1_gap"] = gap
-        del tr_a, tr_b
-        torch.cuda.empty_cache()
+    host_a = tr_a.train_loader.loader
+    host_a.set_epoch(1)
+    tr_b.train_loader.set_epoch(1)
+    first_a, first_b = next(iter(host_a)), next(iter(tr_b.train_loader))
+    require(all(np.array_equal(first_a[key], first_b[key])
+                for key in ("verts", "measure", "global_idx")),
+            "the first host batch differs between the layouts")
+    la, lb = (out["stacked"]["epoch_losses"][0],
+              out["files"]["epoch_losses"][0])
+    gap = abs(la - lb) / abs(lb)
+    log(f"[dfaust] epoch 1 loss: stacked {la!r}, per-sample {lb!r}, "
+        f"relative gap {gap:.3e} (tolerance {DFAUST_LOSS_RTOL})")
+    require(gap <= DFAUST_LOSS_RTOL, f"epoch 1 loss gap {gap:.3e}")
+    out["epoch1_gap"] = gap
+    del tr_a, tr_b
+    torch.cuda.empty_cache()
 
-        sh = SyntheticHuman()
-        t0 = time.perf_counter()
-        compile_topology(sh.template_verts, sh.template_faces,
-                         reference_vertex=414,
-                         cache_path=str(tmp / "full.npz"))
-        out["full_compile_s"] = time.perf_counter() - t0
-        with np.load(tmp / "full.npz") as got, np.load(TOPOLOGY) as want:
-            same = sorted(got.files) == sorted(want.files) and all(
-                got[k].dtype == want[k].dtype
-                and np.array_equal(got[k], want[k]) for k in want.files)
-        require(same, "the full-scale compile differs from "
-                f"{TOPOLOGY.name}")
+    sh = SyntheticHuman()
+    t0 = time.perf_counter()
+    compile_topology(sh.template_verts, sh.template_faces,
+                     reference_vertex=414,
+                     cache_path=str(tmp / "full.npz"))
+    out["full_compile_s"] = time.perf_counter() - t0
+    with np.load(tmp / "full.npz") as got, np.load(TOPOLOGY) as want:
+        same = sorted(got.files) == sorted(want.files) and all(
+            got[k].dtype == want[k].dtype
+            and np.array_equal(got[k], want[k]) for k in want.files)
+    require(same, "the full-scale compile differs from "
+            f"{TOPOLOGY.name}")
     a, b = out["stacked"], out["files"]
     log(f"[dfaust] {card}: preprocessing "
         f"{sum(out['preprocess_s'].values()):.2f} s, compile "
@@ -3144,6 +3190,383 @@ def phase_dfaust(card: str) -> dict:
         f"ms/step idle {a['idle_share']}, per-sample {b['ms_per_step']:.3f} "
         f"ms/step idle {b['idle_share']} (inline staging "
         f"{out['files_inline_ms_per_step']:.3f} ms/step)")
+    return out
+
+
+N3DMM_CONFIG = ROOT / "configs" / "train_neural3dmm.yaml"
+N3DMM_EPOCHS = 3
+
+
+def n3dmm_config(root: Path, out: Path) -> str:
+    """configs/train_neural3dmm.yaml with root_dir, asset_dir and n_val set
+    to the preprocessed dataset and N3DMM_EPOCHS epochs, written as a YAML
+    file for cli.train (nz 256, B 16, zeroroot, banded_conv off as the
+    file has them)."""
+    import yaml
+
+    raw = yaml.safe_load(N3DMM_CONFIG.read_text())
+    raw["data"].update(root_dir=str(root), asset_dir=str(root / "asset"),
+                       n_val=DFAUST_VAL)
+    raw["train"]["n_epochs"] = N3DMM_EPOCHS
+    out.write_text(yaml.safe_dump(raw))
+    return str(out)
+
+
+@contextlib.contextmanager
+def loop_probe(save_at: int):
+    """Wrap the loop of every Trainer: a synchronize after each step and
+    its host time in ms, by epoch (from the end of the step before, or the
+    start of the epoch), and the state saved as the epoch-`save_at`
+    checkpoint right after that epoch's steps (what fit() saves at a
+    checkpoint epoch; the recipe's ck_frequency is 100)."""
+    from semantichuman_torch.train.loop import Trainer
+
+    rec = {"step_ms": {}}
+    get, run = Trainer._get_step, Trainer._run_epoch_steps
+    last = [0.0]
+
+    def get_step(self, epoch, variant):
+        step = get(self, epoch, variant)
+
+        def timed(*args):
+            out = step(*args)
+            sync()
+            now = time.perf_counter()
+            rec["step_ms"].setdefault(epoch, []).append((now - last[0]) * 1e3)
+            last[0] = now
+            return out
+        return timed
+
+    def run_epoch(self, epoch, interp_iter):
+        last[0] = time.perf_counter()
+        out = run(self, epoch, interp_iter)
+        if epoch == save_at:
+            self.save(epoch)
+        return out
+
+    Trainer._get_step, Trainer._run_epoch_steps = get_step, run_epoch
+    try:
+        yield rec
+    finally:
+        Trainer._get_step, Trainer._run_epoch_steps = get, run
+
+
+def part_pads(tree, model) -> list:
+    """The zero pads of PartAE's batched part heads in a tree shaped like
+    its parameters (the parameters or an Adam moment): the encoder rows
+    past a part's n_p x C, the decoder columns past n_p x C0, the keypoint
+    rows past 3 x its group's size."""
+    c, c0 = model.enc_out_c, model.dec_in_c
+    out = []
+    for p, (n_p, grp) in enumerate(zip(model.part_sizes,
+                                       model.kps_index_list)):
+        out += [tree["enc_heads"]["w"][p, n_p * c:],
+                tree["dec_heads"]["w"][p, :, n_p * c0:],
+                tree["dec_heads"]["b"][p, n_p * c0:],
+                tree["kps_heads"]["w"][p, len(grp) * 3:]]
+    return out
+
+
+def reference_state_dict(tree, model) -> dict:
+    """A tree shaped like the model's parameters (the parameters or an
+    Adam moment) in the reference's layout, as CPU tensors: weights [out,
+    in], the transpose of the port's; the part heads without their pads.
+    PartAE's keys in the order of `benchmarks/torch_baseline.py:
+    reference_state_dict` (conv, dconv, fc_latent_enc_list, kps_enc_list,
+    fc_latent_dec_list), SpiralAE's in the order neural3DMM's
+    SpiralAutoencoder registers them (conv, fc_latent_enc, fc_latent_dec,
+    dconv)."""
+    sd = {}
+
+    def cpu(t):
+        return t.detach().to("cpu").clone(memory_format=torch.contiguous_format)
+
+    def lin(name, w, b):
+        sd[f"{name}.weight"] = cpu(w.t())
+        sd[f"{name}.bias"] = cpu(b)
+
+    def convs(name, layers):
+        for i, layer in enumerate(layers):
+            lin(f"{name}.{i}.conv", layer["w"], layer["b"])
+
+    convs("conv", tree["conv"])
+    if not hasattr(model, "kps_encode"):
+        lin("fc_latent_enc", tree["fc_enc"]["w"], tree["fc_enc"]["b"])
+        lin("fc_latent_dec", tree["fc_dec"]["w"], tree["fc_dec"]["b"])
+        convs("dconv", tree["dconv"])
+        return sd
+    convs("dconv", tree["dconv"])
+    c, c0 = model.enc_out_c, model.dec_in_c
+    enc, dec, kps = tree["enc_heads"], tree["dec_heads"], tree["kps_heads"]
+    for p, n_p in enumerate(model.part_sizes):
+        lin(f"fc_latent_enc_list.{p}", enc["w"][p, :n_p * c], enc["b"][p])
+    for p, grp in enumerate(model.kps_index_list):
+        lin(f"kps_enc_list.{p}", kps["w"][p, :len(grp) * 3], kps["b"][p])
+    for p, n_p in enumerate(model.part_sizes):
+        lin(f"fc_latent_dec_list.{p}", dec["w"][p, :, :n_p * c0],
+            dec["b"][p, :n_p * c0])
+    return sd
+
+
+def write_reference_checkpoint(path: str, state: dict, model,
+                               train_cfg) -> None:
+    """The port's checkpoint `state` ({"params", "opt_state", "epoch",
+    "step"}, `utils/checkpoint.py`) as the reference's `.pth.tar`
+    (train_funcs.py:450-455): `autoencoder_state_dict`
+    (reference_state_dict), `optimizer_state_dict` laid out as
+    torch.optim.Adam.state_dict() (integer keys in the state dict's
+    order, each {"step", "exp_avg", "exp_avg_sq"}; one param group),
+    `scheduler_state_dict` with the configured gamma, and the epoch.  The
+    part heads' pads and their moments must be exactly 0 (else the
+    reference layout cannot carry the state), and Adam's count the
+    schedule's step, epoch x steps_per_epoch."""
+    from semantichuman_torch.utils.params import tree_unflatten
+
+    params, opt = state["params"], state["opt_state"]
+    trees = {"params": params,
+             "exp_avg": tree_unflatten(params, list(opt["mu"])),
+             "exp_avg_sq": tree_unflatten(params, list(opt["nu"]))}
+    if hasattr(model, "kps_encode"):
+        for name, tree in trees.items():
+            bad = sum(int(torch.count_nonzero(t))
+                      for t in part_pads(tree, model))
+            require(bad == 0, f"{bad} entries of the part heads' pads of "
+                    f"the {name} are not 0")
+    require(opt.get("schedule_offset", 0) == 0
+            and opt["notfinite_count"] == 0
+            and opt["count"] == state["step"],
+            f"Adam's count {opt['count']} is not the schedule's step "
+            f"{state['step']}")
+    sd, m, v = (reference_state_dict(t, model) for t in trees.values())
+    epoch = int(state["epoch"])
+    t = train_cfg
+    torch.save({
+        "epoch": epoch,
+        "autoencoder_state_dict": sd,
+        "optimizer_state_dict": {
+            "state": {i: {"step": torch.tensor(float(opt["count"])),
+                          "exp_avg": m[k], "exp_avg_sq": v[k]}
+                      for i, k in enumerate(sd)},
+            "param_groups": [{"lr": t.lr * t.lr_decay ** epoch,
+                              "betas": (0.9, t.adam_b2), "eps": 1e-8,
+                              "weight_decay": t.weight_decay,
+                              "amsgrad": False,
+                              "params": list(range(len(sd)))}]},
+        "scheduler_state_dict": {"gamma": t.lr_decay, "last_epoch": epoch},
+    }, path)
+
+
+def resume_round_trip(name: str, cfg, workdir, ckpt: str, tmp: Path,
+                      want_fn) -> dict:
+    """Phase 9 (b) for one model family: the port's epoch-2 checkpoint
+    under `ckpt`, written in the reference's layout
+    (write_reference_checkpoint), resumed for epoch 3 once through
+    train.resume_torch and once through train.resume; the epoch-3 loss and
+    every parameter tensor must be equal, and each resumed fit launch
+    want_fn(trainer).  workdir(tag) makes a Trainer's workdir."""
+    import dataclasses
+
+    from semantichuman_torch.train.loop import Trainer
+    from semantichuman_torch.utils.checkpoint import restore_checkpoint
+    from semantichuman_torch.utils.import_torch import \
+        load_reference_training_state
+    from semantichuman_torch.utils.params import tree_leaves
+
+    t = cfg.train
+
+    def trainer(tag, **train):
+        c = dataclasses.replace(cfg, train=dataclasses.replace(t, **train))
+        return Trainer(c, workdir(tag), device=DEVICE)
+
+    out = {}
+    native = trainer("resume", resume=ckpt)
+    require(native.start_epoch == 3, f"{name}: resumed at epoch "
+            f"{native.start_epoch}")
+    state, step = restore_checkpoint(ckpt, device=DEVICE)
+    pth = tmp / f"{name}_checkpoint{step}.pth.tar"
+    write_reference_checkpoint(str(pth), state, native.model, t)
+    del state
+    out["pth_mb"] = pth.stat().st_size / 2 ** 20
+    sync()
+    t0 = time.perf_counter()
+    load_reference_training_state(str(pth), native.model,
+                                  native.steps_per_epoch, lr_decay=t.lr_decay)
+    sync()
+    out["load_s"] = time.perf_counter() - t0
+    ref = trainer("resume_torch", resume_torch=str(pth))
+    pth.unlink()
+    got = (ref.start_epoch, ref.global_step, ref.opt_state.count,
+           ref.opt_state.schedule_offset)
+    want = (3, native.global_step, native.opt_state.count, 0)
+    require(got == want, f"{name}: resume_torch at (epoch, step, count, "
+            f"offset) {got}, the native resume at {want}")
+    counts = {}
+    for tag, tr in (("resume", native), ("resume_torch", ref)):
+        sync()
+        reset_counts()
+        tr.fit()
+        sync()
+        counts[tag] = read_counts()
+        require(counts[tag] == want_fn(tr), f"{name} {tag}: launches "
+                f"{counts[tag]}, want {want_fn(tr)}")
+    losses = [native.history[0]["train"], ref.history[0]["train"]]
+    same = params_equal(native.params, ref.params)
+    diffs = [float((a - b).abs().max()) for a, b in
+             zip(tree_leaves(native.params), tree_leaves(ref.params))]
+    log(f"[baseline] (b) {name}: reference checkpoint "
+        f"{out['pth_mb']:.1f} MiB, loaded in {out['load_s']:.3f} s (host); "
+        f"epoch 3 loss resume_torch {losses[1]!r}, resume {losses[0]!r}; "
+        f"{sum(same)} of {len(same)} parameter tensors bit-equal, largest "
+        f"difference {max(diffs):.3e}")
+    require(losses[0] == losses[1] and all(same),
+            f"{name}: resume_torch differs from the native resume")
+    out.update(epoch3_loss=losses[1], counts=counts["resume_torch"])
+    return out
+
+
+def phase_baseline(card: str, tmp: Path, partae_ckpt: str | None) -> dict:
+    """Phase 9, in the directory tmp: (a) cli.train with
+    configs/train_neural3dmm.yaml (n3dmm_config) for N3DMM_EPOCHS epochs
+    on phase 8's dataset (`dfaust_dataset`), its gates and times; (b)
+    resume_torch bit-equal to a native resume for both model families: the
+    neural3DMM run of (a) on the loop from the checkpoint loop_probe saves
+    at epoch 2, and PartAE at Config() defaults on its epoch path from
+    `partae_ckpt` (phase 7's epoch-2 checkpoint; None: a 2-epoch fit makes
+    one)."""
+    from semantichuman_torch.cli import train as train_cli
+    from semantichuman_torch.config import Config
+    from semantichuman_torch.models import SpiralAE
+    from semantichuman_torch.ops.spiral_conv import spiral_conv_plain
+    from semantichuman_torch.train.loop import Trainer
+    from semantichuman_torch.train.step import (flags_for_epoch,
+                                                make_baseline_loss_fn,
+                                                value_and_grad)
+    from semantichuman_torch.utils.params import tree_leaves
+
+    t_phase = time.perf_counter()
+    out = {}
+    root, out["preprocess_s"] = dfaust_dataset(tmp)
+    wd = tmp / "p9_n3dmm"
+    cache = tmp / "stacked" / "topology_2222.npz"
+    if cache.exists():
+        copy_cache(cache, wd)           # phase 8 compiled this template
+    cfg_path = n3dmm_config(root, tmp / "train_neural3dmm.yaml")
+
+    # --- (a) the recipe through cli.train, counts from 0 ------------------
+    with loop_probe(save_at=2) as probe:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(["--config", cfg_path, "--workdir", str(wd),
+                             "--device", DEVICE])
+        sync()
+        out["run_s"] = time.perf_counter() - t0
+        counts = read_counts()
+    require(isinstance(tr.model, SpiralAE) and tr.model.latent_size == 256
+            and tr.cfg.train.batch_train == 16
+            and tr.cfg.data.normalization == "zeroroot"
+            and not tr.model.tables.banded_conv
+            and tr.model.compute_dtype is None and not tr._epoch_scan_ok()
+            and tr.device_data is not None,
+            "(a) is not the neural3DMM recipe (nz 256, B 16, zeroroot, "
+            "f32 take route) on staged data through the loop")
+    hist = tr.history
+    losses = [h["train"] for h in hist]
+    log(f"[baseline] (a) epochs {[(h['epoch'], h['train'], h['val'], h['sec']) for h in hist]}")
+    require(len(losses) == N3DMM_EPOCHS and all(np.isfinite(losses))
+            and all(np.isfinite(h["val"]) for h in hist)
+            and losses[2] < losses[1] < losses[0],
+            f"(a): epoch losses {losses}")
+    report = Path(tr.workdir, "checkpoints", "train_params.txt").read_text()
+    l1 = float(re.findall(r"autoencoder: L1 loss (\S+)", report)[-1])
+    mm = float(re.findall(r"euclidean distance in mm (\S+)", report)[-1])
+    preds = np.load(Path(tr.workdir, "predictions", "predictions.npy"))
+    require(np.isfinite(l1) and np.isfinite(mm)
+            and bool(np.isfinite(preds).all())
+            and preds.shape[0] == DFAUST_TEST,
+            f"(a): test eval l1 {l1} mm {mm}, predictions {preds.shape}")
+    n_steps = len(tr.train_loader) * N3DMM_EPOCHS
+    n_eval = len(tr.val_loader) * N3DMM_EPOCHS + len(tr.test_loader)
+    want = {k: TRAIN_LAUNCHES_N3DMM.get(k, 0) * n_steps
+            + VAL_LAUNCHES_N3DMM.get(k, 0) * n_eval for k in KERNEL_COUNTS}
+    want["row_gather"] += STAGE_GATHERS
+    log(f"[baseline] (a) {n_steps} steps, {n_eval} eval batches, launches "
+        f"{counts}")
+    require(counts == want, f"(a): launches {counts}, want {want}")
+
+    # one loss + gradient through the kernels against the plain conv
+    batch = tr._step_view(next(iter(tr.train_loader)))
+    flags = flags_for_epoch(tr.cfg.train, N3DMM_EPOCHS)
+    plain = copy.copy(tr.model)
+    plain.conv_fn = spiral_conv_plain
+    got = value_and_grad(make_baseline_loss_fn(tr.model, tr.tables, flags),
+                         tr.params, batch)
+    ref = value_and_grad(make_baseline_loss_fn(plain, tr.tables, flags),
+                         tr.params, batch)
+    require(sorted(got[1]) == sorted(ref[1]) == ["edgereg", "loss", "rec"],
+            f"metrics {sorted(got[1])}")
+    for k in ref[1]:
+        torch.testing.assert_close(got[1][k], ref[1][k], rtol=1e-4, atol=0,
+                                   msg=lambda m: f"(a) metric {k}: {m}")
+    grad_errs = [rel_err(g, r) for g, r in zip(tree_leaves(got[2]),
+                                               tree_leaves(ref[2]))]
+    log(f"[baseline] (a) kernels against the plain conv: loss "
+        f"{float(got[0]):.7f} / {float(ref[0]):.7f}, per-leaf gradient "
+        f"error max {max(grad_errs):.3e} over {len(grad_errs)} leaves")
+    require(max(grad_errs) <= 1e-4, f"(a) gradient errors {grad_errs}")
+    del got, ref, plain
+
+    ms = float(np.median(probe["step_ms"][N3DMM_EPOCHS]))
+    prof = profile_epoch(tr)
+    busy = prof.get("device_busy_ms")
+    idle = None if busy is None else max(0.0, 1 - busy / ms)
+    b = tr.cfg.train.batch_train
+    out.update(epoch_losses=losses, epoch_val=[h["val"] for h in hist],
+               test_l1=l1, test_mm=mm, ms_per_step=ms,
+               step_ms=probe["step_ms"], meshes_per_s=b / ms * 1e3,
+               device_busy_ms=busy, idle_share=idle,
+               grad_rel_err_max=max(grad_errs), counts=counts,
+               profile=prof)
+    log(f"[baseline] (a) {card}: epoch {N3DMM_EPOCHS} {ms:.3f} ms/step "
+        f"(median of {len(probe['step_ms'][N3DMM_EPOCHS])}, a synchronize "
+        f"after each), {b / ms * 1e3:.1f} meshes/s, device busy {busy} ms "
+        f"a step, idle share {idle}; test eval l1 {l1:.6f}, {mm:.3f} mm")
+    n3dmm_ckpt = str(wd / "checkpoints")
+    del tr
+    torch.cuda.empty_cache()
+
+    # --- (b) resume_torch against the native resume, both families --------
+    def n3dmm_workdir(tag):
+        d = tmp / f"p9_n3dmm_{tag}"
+        copy_cache(wd / "topology_2222.npz", d)
+        return str(d)
+
+    out["n3dmm_resume"] = resume_round_trip(
+        "neural3DMM", Config.from_yaml(cfg_path), n3dmm_workdir, n3dmm_ckpt,
+        tmp, lambda t: {k: TRAIN_LAUNCHES_N3DMM.get(k, 0)
+                        * len(t.train_loader)
+                        + VAL_LAUNCHES_N3DMM.get(k, 0) * len(t.val_loader)
+                        for k in KERNEL_COUNTS})
+    if partae_ckpt is None:
+        fit = Trainer(trainer_cfg(epoch_scan=True),
+                      trainer_workdir(tmp, "p9_partae_fit"), device=DEVICE)
+        fit.fit(2)
+        partae_ckpt = os.path.join(fit.workdir, "checkpoints")
+        del fit
+
+    def partae_want(t):
+        require(t._epoch_scan_ok(), "the PartAE resume takes the loop")
+        # the two warm-up steps and the captured one, then validation
+        return {k: GRAPH_LAUNCHES.get(k, 0) * 3
+                + VAL_LAUNCHES.get(k, 0) * len(t.val_loader)
+                for k in KERNEL_COUNTS}
+
+    out["partae_resume"] = resume_round_trip(
+        "PartAE", trainer_cfg(epoch_scan=True),
+        lambda tag: trainer_workdir(tmp, f"p9_partae_{tag}"), partae_ckpt,
+        tmp, partae_want)
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[baseline] phase 9: {out['phase_s']:.1f} s")
     return out
 
 
@@ -3177,6 +3600,10 @@ def parse_args(argv):
                       help="phase 1 and phase 8 alone (the preprocessing "
                       "CLIs and cli.train on configs/train_dfaust.yaml, "
                       "both layouts)")
+    mode.add_argument("--baseline", action="store_true",
+                      help="phase 1 and phase 9 alone (cli.train on "
+                      "configs/train_neural3dmm.yaml, resume_torch against "
+                      "the native resume for both model families)")
     mode.add_argument("--band-gates", action="store_true",
                       help="phase 1 and the banded routes' batch gates, "
                       "each on its own against the take route, in turns "
@@ -3205,7 +3632,8 @@ def main(argv=None) -> int:
     card = phase_build()
     if args.dfaust:
         # the on-disk dataset's phase alone: no result line
-        dfaust = phase_dfaust(card)
+        with tempfile.TemporaryDirectory() as tmp:
+            dfaust = phase_dfaust(card, Path(tmp))
         for layout in ("stacked", "files"):
             dfaust[layout].pop("profile")
         log(json.dumps({"dfaust": dfaust}))
@@ -3213,7 +3641,16 @@ def main(argv=None) -> int:
         return 0
     if args.trainer:
         # the Trainer's phase alone, for work on its paths: no result line
-        log(json.dumps({"trainer": phase_trainer()}))
+        with tempfile.TemporaryDirectory() as tmp:
+            log(json.dumps({"trainer": phase_trainer(Path(tmp))}))
+        log(card)
+        return 0
+    if args.baseline:
+        # the baseline's and resume_torch's phase alone: no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            baseline = phase_baseline(card, Path(tmp), None)
+        baseline.pop("profile")
+        log(json.dumps({"baseline": baseline}))
         log(card)
         return 0
 
@@ -3302,15 +3739,25 @@ def main(argv=None) -> int:
     train = phase_train(human, hier)
     step_counts = train.pop("counts")
     torch.cuda.empty_cache()
-    trainer = phase_trainer()
-    trainer_counts = trainer.pop("counts")
-    graph_counts = trainer.pop("graph_counts")
-    banded_counts = trainer.pop("banded_counts")
-    banded_graph_counts = trainer["routes"].pop("banded_counts")
-    torch.cuda.empty_cache()
-    dfaust = phase_dfaust(card)
-    dfaust_counts = {layout: dfaust[layout].pop("counts")
-                     for layout in ("stacked", "files")}
+    # phases 7-9 share a directory: phase 9 trains on phase 8's dataset and
+    # resumes from phase 7's checkpoint
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer = phase_trainer(Path(tmp))
+        trainer_counts = trainer.pop("counts")
+        graph_counts = trainer.pop("graph_counts")
+        banded_counts = trainer.pop("banded_counts")
+        banded_graph_counts = trainer["routes"].pop("banded_counts")
+        torch.cuda.empty_cache()
+        dfaust = phase_dfaust(card, Path(tmp))
+        dfaust_counts = {layout: dfaust[layout].pop("counts")
+                         for layout in ("stacked", "files")}
+        torch.cuda.empty_cache()
+        baseline = phase_baseline(card, Path(tmp),
+                                  trainer["epoch2_checkpoint"])
+    baseline_counts = {
+        "neural3dmm": baseline.pop("counts"),
+        "neural3dmm_resume_torch": baseline["n3dmm_resume"].pop("counts"),
+        "partae_resume_torch": baseline["partae_resume"].pop("counts")}
 
     # trainer_graph: the epoch path's fit, whose wrappers count its
     # warm-up steps, the captured step and the validation passes (a
@@ -3319,14 +3766,15 @@ def main(argv=None) -> int:
     # trainer_banded_graph (the launches recorded while the epoch path's
     # step is captured): the forced banded arms (FORCED_GATES), the only
     # runs of rows 5-6 on a path a user drives, since the card's
-    # measurements closed both gates
+    # measurements closed both gates; neural3dmm: phase 9 (a)'s cli.train;
+    # *_resume_torch: the epoch 3 resumed from a reference checkpoint
     paths = {"serve": serve, "serve_banded": serve_banded,
              "serve_take": serve_take, "train_step": step_counts,
              "trainer": trainer_counts, "trainer_graph": graph_counts,
              "trainer_banded": banded_counts,
              "trainer_banded_graph": banded_graph_counts,
              "dfaust_stacked": dfaust_counts["stacked"],
-             "dfaust_files": dfaust_counts["files"]}
+             "dfaust_files": dfaust_counts["files"], **baseline_counts}
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -3536,6 +3984,7 @@ def main(argv=None) -> int:
                 f"{k}: no launch on the {path} path")
     log(json.dumps({"trainer": trainer}))
     log(json.dumps({"dfaust": dfaust}, default=str))
+    log(json.dumps({"baseline": baseline}, default=str))
     log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))

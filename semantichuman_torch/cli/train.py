@@ -2,17 +2,20 @@
 `semantichuman_tpu/cli/train.py`).
 
   python -m semantichuman_torch.cli.train --config configs/train_dfaust.yaml \
-      --workdir results/run1 [--epochs N] [--synthetic] [--resume DIR] \
-      [--finetune] [--device cpu]
+      --workdir results/run1 [--epochs N] [--synthetic] \
+      [--resume DIR | --resume_torch FILE.pth.tar] [--finetune] [--device cpu]
 
 Runs the Trainer on the card (on the CPU only with --device cpu): the
 topology compile (cached in the workdir), the epoch loop with checkpoints,
 then, with train.eval_flag, the final eval and prediction export.  The
 dataset is the config's data.root_dir and data.asset_dir, as the
 preprocessing CLIs write them (make_synthetic -> obj2npy ->
-data_generation), or the synthetic generator with --synthetic.  The JAX
-CLI's --resume_torch and --distributed are not ported (ROADMAP.md section
-1, 'import_torch and resume_torch' and 'DDP and the trace window').
+data_generation), or the synthetic generator with --synthetic.
+`--config configs/train_neural3dmm.yaml` trains the neural3DMM baseline.
+--resume_torch continues from a reference `.pth.tar` (weights, Adam
+moments and the schedule's position; with --finetune the weights alone).
+The JAX CLI's --distributed is not ported (ROADMAP.md section 1, 'DDP and
+the trace window').
 """
 
 from __future__ import annotations
@@ -31,9 +34,12 @@ def main(argv=None):
                     help="override cfg.train.n_epochs")
     ap.add_argument("--resume", default=None,
                     help="checkpoint dir to resume from")
+    ap.add_argument("--resume_torch", default=None,
+                    help="reference .pth.tar to resume from (weights + "
+                         "Adam moments + schedule position)")
     ap.add_argument("--finetune", action="store_true",
-                    help="with --resume: load weights only and restart the "
-                         "schedule from epoch 1")
+                    help="with --resume/--resume_torch: load weights only "
+                         "and restart the schedule from epoch 1")
     ap.add_argument("--synthetic", action="store_true",
                     help="use the synthetic dataset (no DFAUST needed)")
     ap.add_argument("--device", default="cuda",
@@ -51,10 +57,17 @@ def main(argv=None):
         # on the config, not just fit(): the lr schedule reads n_epochs
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(cfg.train, n_epochs=args.epochs))
-    if args.resume or args.finetune:
+    if args.resume or args.resume_torch or args.finetune:
+        # a resume flag replaces the config's resume pair whole: a yaml
+        # with train.resume set would else trip the resume-xor-resume_torch
+        # check with no CLI way to clear it
+        if args.resume or args.resume_torch:
+            resume, resume_torch = args.resume, args.resume_torch
+        else:
+            resume, resume_torch = cfg.train.resume, cfg.train.resume_torch
         cfg = dataclasses.replace(
             cfg, train=dataclasses.replace(
-                cfg.train, resume=args.resume or cfg.train.resume,
+                cfg.train, resume=resume, resume_torch=resume_torch,
                 finetune=args.finetune or cfg.train.finetune))
 
     trainer = Trainer(cfg, args.workdir, device=args.device)

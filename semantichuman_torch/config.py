@@ -27,8 +27,8 @@ gates let them (`ops/spiral_conv.py:_BANDED_MAX_B`,
 measured slower on the card at every batch).  The topology fields
 (`ds_factors`, `step_sizes`, `dilation`) are the compile parameters of the
 hierarchy the trainer compiles (`topology/compiler.py`).  The
-neural3DMM fields (`nz`, `vae`, `activation`) load for that model, which is
-not ported.
+neural3DMM fields (`nz`, `vae`) shape the baseline SpiralAE; `activation`
+loads and has no effect, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -41,7 +41,7 @@ from typing import Any, Optional
 @dataclass
 class ModelConfig:
     model_name: str = "dfaust_multiz8_partkps8"
-    # 'multiz+partkps' (paper flagship); 'neural3DMM' is not ported
+    # 'multiz+partkps' (paper flagship) | 'neural3DMM' (baseline)
     model_type: str = "multiz+partkps"
     ds_factors: list = field(default_factory=lambda: [2, 2, 2, 2])
     step_sizes: list = field(default_factory=lambda: [2, 2, 1, 1, 1])
@@ -133,7 +133,7 @@ class TrainConfig:
     ck_keep: Optional[int] = None     # keep only the newest N checkpoints
     ck_name: str = "checkpoint"
     resume: Optional[str] = None      # checkpoint dir to resume from
-    resume_torch: Optional[str] = None  # reference .pth.tar: not ported
+    resume_torch: Optional[str] = None  # reference .pth.tar to resume
     finetune: bool = False            # load weights only, restart schedule
     eval_flag: bool = True
     val_every: int = 1                # val pass every N epochs

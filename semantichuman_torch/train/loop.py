@@ -18,8 +18,16 @@ one of two paths, as the JAX Trainer does:
     (`graph.py`) and replayed once per step; on the CPU the same step
     runs uncaptured.  A capture that fails raises: the Trainer does not
     fall back to the loop.
-  * the loop (epoch_scan off, or data that is not staged): eager steps,
-    their batches and edit specs moved to the device one step at a time.
+  * the loop (epoch_scan off, data that is not staged, or the neural3DMM
+    baseline): eager steps, their batches and edit specs moved to the
+    device one step at a time.
+
+The model is PartAE ('multiz+partkps') or the baseline SpiralAE
+('neural3DMM', whose step is reconstruction and edgereg alone).  A run
+starts from train.seed, from the port's checkpoint (train.resume), or
+from a reference `.pth.tar` (train.resume_torch, `utils/import_torch.py`:
+its weights, and unless train.finetune its Adam moments, Adam's count and
+the lr schedule's position, epoch x steps_per_epoch).
 
 Both paths reseed the batch shuffle, the edit sampler and the interp/exc
 cycle from the epoch number, so they replay the JAX Trainer's batch,
@@ -63,12 +71,14 @@ from ..topology.compiler import read_meta, topology_key
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
+from ..utils.params import tree_paths
 from . import graph as G
 from . import losses as L
 from .edits import EditSampler
 from .optim import AdamState, make_optimizer
-from .step import (EpochBuffers, flags_for_epoch, make_epoch_scan_step,
-                   make_eval_step, make_train_step, to_device)
+from .step import (EpochBuffers, flags_for_epoch, make_baseline_train_step,
+                   make_epoch_scan_step, make_eval_step, make_train_step,
+                   to_device)
 
 BUNDLED_TOPOLOGY_DIR = Path(__file__).resolve().parents[2] / "assets"
 
@@ -86,12 +96,9 @@ class Trainer:
         self.workdir = workdir
         self.device = resolve_device(device)
         t = cfg.train
-        if t.resume_torch:
-            raise _not_ported("train.resume_torch (reference checkpoints)",
-                              "import_torch and resume_torch")
-        if cfg.model.model_type != "multiz+partkps":
-            raise _not_ported(f"model_type {cfg.model.model_type!r}",
-                              "neural3DMM and the baseline steps")
+        if t.resume and t.resume_torch:
+            raise ValueError("set train.resume OR train.resume_torch, "
+                             "not both")
         if t.profile_stop > t.profile_start:
             raise _not_ported("the profiling window (TraceWindow)",
                               "the trace window")
@@ -99,6 +106,7 @@ class Trainer:
                 and torch.distributed.is_initialized()
                 and torch.distributed.get_world_size() > 1):
             raise _not_ported("data-parallel training", "DDP")
+        self.is_part_model = cfg.model.model_type == "multiz+partkps"
         for sub in ("checkpoints", "summaries", "samples", "predictions"):
             os.makedirs(os.path.join(workdir, sub), exist_ok=True)
 
@@ -148,6 +156,8 @@ class Trainer:
         self.global_step = 0
         if t.resume:
             self._resume(t.resume, t.finetune)
+        elif t.resume_torch:
+            self._resume_torch(t.resume_torch, t.finetune)
         self.device_data = None
         self._maybe_stage_device_data()
 
@@ -352,6 +362,32 @@ class Trainer:
             self.start_epoch = int(state["epoch"]) + 1
             self.global_step = int(state["step"])
 
+    def _resume_torch(self, path: str, finetune: bool):
+        """Continue from a reference `.pth.tar`: the weights always; Adam's
+        moments, its count and the lr schedule's position unless finetune
+        (reference main.py:277-292: finetune loads weights only and
+        restarts from epoch 1)."""
+        from ..utils.import_torch import load_reference_training_state
+        params, opt_state, epoch = load_reference_training_state(
+            path, self.model, self.steps_per_epoch,
+            lr_decay=self.cfg.train.lr_decay)
+        # the moments follow the imported tree's leaf order: it must be
+        # the Trainer's own
+        if tree_paths(params) != tree_paths(self.params):
+            raise ValueError(f"{path}: the imported parameters' key paths "
+                             "differ from the model's")
+        self.params = params
+        if finetune:
+            return
+        if opt_state is None:
+            raise ValueError(
+                f"{path} carries no optimizer state — pass "
+                "train.finetune=True to start a fresh schedule from its "
+                "weights")
+        self.opt_state = opt_state
+        self.start_epoch = epoch + 1
+        self.global_step = epoch * self.steps_per_epoch
+
     def save(self, epoch: int):
         save_checkpoint(self._ckpt_dir(), epoch, {
             "params": self.params,
@@ -364,8 +400,12 @@ class Trainer:
         flags = flags_for_epoch(self.cfg.train, epoch)
         key = (flags, variant)
         if key not in self._step_cache:
-            self._step_cache[key] = make_train_step(
-                self.model, self.tables, self.optimizer, flags, variant)
+            if self.is_part_model:
+                self._step_cache[key] = make_train_step(
+                    self.model, self.tables, self.optimizer, flags, variant)
+            else:
+                self._step_cache[key] = make_baseline_train_step(
+                    self.model, self.tables, self.optimizer, flags)
         return self._step_cache[key]
 
     def _get_eval_step(self, mm_constant: float = 1000.0):
@@ -421,7 +461,7 @@ class Trainer:
             raise ValueError(
                 f"train split has {len(self.data['train'])} samples, fewer "
                 f"than batch_train={cfg.train.batch_train} (drop_last)")
-        if len(self.interp_loader) == 0:
+        if self.is_part_model and len(self.interp_loader) == 0:
             raise ValueError(
                 f"train split has {len(self.data['train'])} samples, fewer "
                 f"than batch_interp={cfg.train.batch_interp} (drop_last)")
@@ -506,16 +546,21 @@ class Trainer:
         batches = prefetch_to_device(iter(self.train_loader), self.device,
                                      size=cfg.data.prefetch)
         for batch in batches:
-            interp_b = self._put(next(interp_iter))
-            exc_b = self._put(next(interp_iter))
-            variant = self.sampler.sample_exc_variant()
-            spec = to_device(self.sampler.sample_interp(
-                epoch, interp_b["verts"].shape[0],
-                measure=self._interp_measure(interp_b)), self.device)
-            step = self._get_step(epoch, variant)
-            self.params, self.opt_state, metrics = step(
-                self.params, self.opt_state, self._step_view(batch),
-                self._step_view(interp_b), self._step_view(exc_b), spec)
+            if self.is_part_model:
+                interp_b = self._put(next(interp_iter))
+                exc_b = self._put(next(interp_iter))
+                variant = self.sampler.sample_exc_variant()
+                spec = to_device(self.sampler.sample_interp(
+                    epoch, interp_b["verts"].shape[0],
+                    measure=self._interp_measure(interp_b)), self.device)
+                step = self._get_step(epoch, variant)
+                self.params, self.opt_state, metrics = step(
+                    self.params, self.opt_state, self._step_view(batch),
+                    self._step_view(interp_b), self._step_view(exc_b), spec)
+            else:
+                step = self._get_step(epoch, "ori")
+                self.params, self.opt_state, metrics = step(
+                    self.params, self.opt_state, self._step_view(batch))
             step_losses.append(metrics["loss"])
             step_sizes.append(batch["verts"].shape[0])
             self.global_step += 1
@@ -531,13 +576,14 @@ class Trainer:
     # --- the epoch path ---------------------------------------------------------
     def _epoch_scan_ok(self) -> bool:
         """The epoch path applies with the JAX Trainer's prerequisites: the
-        flag on, the part model, one process, no trace window, and
-        device-resident train and interp loaders over one source."""
+        flag on, the part model (the baseline trains through the loop),
+        one process, no trace window, and device-resident train and interp
+        loaders over one source."""
         t = self.cfg.train
         dist = torch.distributed
         return bool(
             t.epoch_scan
-            and self.cfg.model.model_type == "multiz+partkps"
+            and self.is_part_model
             and not (dist.is_available() and dist.is_initialized()
                      and dist.get_world_size() > 1)
             and not t.profile_stop > t.profile_start
@@ -620,8 +666,8 @@ class Trainer:
                 self.params, max(cfg.train.scan_epochs, 1)
                 * self.steps_per_epoch, self.device)
         buf = self._epoch_buffers
-        buf.stage(sched, self.optimizer.step_scalars(self.opt_state.count,
-                                                     k))
+        buf.stage(sched, self.optimizer.step_scalars(
+            self.opt_state.count, k, self.opt_state.schedule_offset))
         run, step = self._get_scan_step(e0,
                                         "dynamic" if exc_dyn else variant)
         buf.load(self.params, self.opt_state)

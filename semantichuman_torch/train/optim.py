@@ -18,6 +18,12 @@ the step's lr and bias corrections come in as device tensors, and
 take those three numbers from `step_scalars` (the schedule and the bias
 corrections in double, rounded once to float32) as a float32 tensor, so
 the two give the same bits.
+
+The state keeps optax's two counters: `count` (Adam's, which drives the
+bias corrections) and the lr schedule's step, `count + schedule_offset`.
+They advance together, so the offset is 0 unless a reference checkpoint
+set them apart (`utils/import_torch.py`: Adam's count is the torch
+`step`, the schedule's is epoch x steps_per_epoch).
 """
 
 from __future__ import annotations
@@ -59,10 +65,12 @@ def make_schedule(lr: float, lr_decay: float, steps_per_epoch: int,
 
 @dataclass(frozen=True)
 class AdamState:
-    count: int            # Adam steps taken (also the schedule's step)
+    count: int            # Adam steps taken (the bias corrections' t - 1)
     mu: list
     nu: list
     notfinite_count: int = 0
+    # the lr schedule's step minus count (a state saved without it: 0)
+    schedule_offset: int = 0
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -106,21 +114,24 @@ class Adam:
                                               for g in grads]),
                         replace(state, notfinite_count=bad))
             state = replace(state, notfinite_count=bad)
-        scalars = torch.from_numpy(self.step_scalars(state.count, 1)[0])
+        scalars = torch.from_numpy(self.step_scalars(
+            state.count, 1, state.schedule_offset)[0])
         mu, nu, updates = self._moments(grads, params, state.mu, state.nu,
                                         scalars.to(grads[0].device))
         return (tree_unflatten(tree, updates),
                 replace(state, count=state.count + 1, mu=mu, nu=nu))
 
-    def step_scalars(self, count: int, k: int) -> np.ndarray:
+    def step_scalars(self, count: int, k: int,
+                     schedule_offset: int = 0) -> np.ndarray:
         """[k, 3] float32: (-lr, 1 - b1^t, 1 - b2^t) of the k Adam steps
-        that start at state.count = count, computed in double precision
-        and rounded once to float32."""
+        that start at state.count = count (the lr at schedule step count +
+        schedule_offset), computed in double precision and rounded once
+        to float32."""
         out = np.empty((k, 3), np.float32)
         for j in range(k):
             c = count + j
-            out[j] = (-self.schedule(c), 1.0 - self.B1 ** (c + 1),
-                      1.0 - self.b2 ** (c + 1))
+            out[j] = (-self.schedule(c + schedule_offset),
+                      1.0 - self.B1 ** (c + 1), 1.0 - self.b2 ** (c + 1))
         return out
 
     def update_(self, grads, params, mu, nu, scalars, bad=None):

@@ -1,8 +1,10 @@
 """Train and eval steps (counterpart of `semantichuman_tpu/train/step.py`).
 
-One step runs the three branches (main rec, interp edit, skeleton
+One step of PartAE runs the three branches (main rec, interp edit, skeleton
 exchange) as one encode and one decode over the concatenated segments,
-every loss term, the backward and the optimizer.  PyTorch runs it eagerly:
+every loss term, the backward and the optimizer; the neural3DMM
+baseline's step (`make_baseline_train_step`) runs reconstruction and the
+edge regularizer alone.  PyTorch runs them eagerly:
 the kernels of the path (the spiral conv forward and its CSR-reduce
 backward, the part_dist forward+gradient) launch on a CUDA tensor, and
 their plain versions run on a CPU one.
@@ -21,7 +23,7 @@ every step of every epoch.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
@@ -259,12 +261,15 @@ def make_train_step(model, tables: L.LossTables, optimizer,
     -> (params, opt_state, metrics), metrics with the raw gradient's
     global norm `gnorm`.  New parameter tensors are returned; the inputs
     are not changed."""
-    loss_fn = make_loss_fn(model, tables, flags, exc_variant, sums_fn)
+    return _optimizer_step(
+        make_loss_fn(model, tables, flags, exc_variant, sums_fn), optimizer)
 
-    def step(params, opt_state, batch, interp_batch, exc_batch, edit_spec):
-        _, metrics, grads = value_and_grad(loss_fn, params, batch,
-                                           interp_batch, exc_batch,
-                                           edit_spec)
+
+def _optimizer_step(loss_fn, optimizer):
+    """step(params, opt_state, *loss inputs) -> (params, opt_state,
+    metrics): the loss's gradient, its global norm `gnorm`, one update."""
+    def step(params, opt_state, *inputs):
+        _, metrics, grads = value_and_grad(loss_fn, params, *inputs)
         metrics["gnorm"] = global_norm(tree_leaves(grads))
         updates, opt_state = optimizer.update(grads, opt_state, params)
         new = [p.detach() + u for p, u in zip(tree_leaves(params),
@@ -272,6 +277,38 @@ def make_train_step(model, tables: L.LossTables, optimizer,
         return tree_unflatten(params, new), opt_state, metrics
 
     return step
+
+
+def make_baseline_loss_fn(model, tables: L.LossTables, flags: StepFlags):
+    """The neural3DMM baseline's loss: reconstruction plus the edge
+    regularizer under flags.edgereg (reference train_funcs.py:474-583):
+    (params, batch) -> (loss, metrics).  The VAE trains on its mean, as in
+    the JAX package (no sample, no KL term)."""
+    faces = tables.faces
+
+    def loss_fn(params, batch):
+        tx = batch["verts"]
+        rec, _z = model(params, tx)
+        rec_l = L.rec_loss(tx, rec)
+        loss = rec_l
+        metrics = {"rec": rec_l}
+        if flags.edgereg:
+            e = L.edgereg_loss(tx[:, :-1], rec[:, :-1], faces,
+                               gt_edges=batch.get("gt_face_edges"))
+            loss = loss + flags.edgereg_w * e
+            metrics["edgereg"] = e
+        metrics["loss"] = loss
+        return loss, metrics
+
+    return loss_fn
+
+
+def make_baseline_train_step(model, tables: L.LossTables, optimizer,
+                             flags: StepFlags):
+    """step(params, opt_state, batch) -> (params, opt_state, metrics), the
+    baseline's loss through make_train_step's gradient and Adam update."""
+    return _optimizer_step(make_baseline_loss_fn(model, tables, flags),
+                           optimizer)
 
 
 class EpochBuffers:
@@ -342,10 +379,10 @@ class EpochBuffers:
         """Copies of the parameters and the Adam state (the buffers stay
         the graph's)."""
         params = tree_unflatten(self.params, [p.clone() for p in self.leaves])
-        return params, AdamState(count=opt_state.count + applied,
-                                 mu=[m.clone() for m in self.mu],
-                                 nu=[n.clone() for n in self.nu],
-                                 notfinite_count=bad)
+        return params, replace(opt_state, count=opt_state.count + applied,
+                               mu=[m.clone() for m in self.mu],
+                               nu=[n.clone() for n in self.nu],
+                               notfinite_count=bad)
 
 
 def make_epoch_scan_step(model, tables: L.LossTables, optimizer,
@@ -394,15 +431,21 @@ def make_epoch_scan_step(model, tables: L.LossTables, optimizer,
 
 def make_eval_step(model, tables: L.LossTables, mm_constant: float = 1000.0):
     """Per-sample eval metrics: mean L1 and mean per-vertex Euclidean error
-    in mm, dummy row excluded."""
+    in mm, dummy row excluded.  The baseline (a model without a keypoint
+    encoder) has no z_kps: [B, 0, 0]."""
     jreg = tables.j_regressor
     kps_keep = tables.kps_keep
+    part_model = hasattr(model, "kps_encode")
 
     @torch.no_grad()
     def step(params, batch):
         tx = batch["verts"]
-        kps = L.regress_kps(tx[:, :-1], jreg)
-        rec, z, z_kps = model(params, tx, gather_rows(kps, kps_keep))
+        if part_model:
+            kps = L.regress_kps(tx[:, :-1], jreg)
+            rec, z, z_kps = model(params, tx, gather_rows(kps, kps_keep))
+        else:
+            rec, z = model(params, tx)
+            z_kps = tx.new_zeros((tx.shape[0], 0, 0))
         x, xr = tx[:, :-1], rec[:, :-1]
         l1 = torch.mean(torch.abs(xr - x), dim=(1, 2))
         l2mm = torch.mean(torch.sqrt(torch.sum(

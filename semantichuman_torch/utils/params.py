@@ -1,8 +1,9 @@
 """Parameters between the two packages.
 
-Both keep PartAE parameters as a nested dict with the same keys
-(`conv`/`dconv` lists of {"w", "b"}, `enc_heads`/`dec_heads`/`kps_heads`
-{"w", "b"}) and the same shapes, so moving them is a leaf-wise copy.
+Both keep a model's parameters as a nested dict with the same keys
+(`conv`/`dconv` lists of {"w", "b"}, then PartAE's `enc_heads`/
+`dec_heads`/`kps_heads` or SpiralAE's `fc_enc`/`fc_dec`, each {"w", "b"})
+and the same shapes, so moving them is a leaf-wise copy.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ def tree_map(fn, tree):
 
 def params_from_jax(np_params, device="cuda") -> dict:
     """The JAX parameter tree with numpy leaves (e.g. `jax.tree.map(
-    np.asarray, params)`) -> the port's tree of float32 tensors on
-    `device`."""
+    np.asarray, params)`) -> the port's tree of contiguous float32 tensors
+    on `device` (torch.tensor keeps a transposed array's strides, and a
+    matmul over other strides rounds otherwise)."""
     dev = resolve_device(device)
     return tree_map(
-        lambda a: torch.tensor(np.asarray(a, np.float32), device=dev),
+        lambda a: torch.tensor(np.ascontiguousarray(a, np.float32),
+                               device=dev),
         np_params)
 
 
@@ -44,6 +47,18 @@ def tree_leaves(tree) -> list:
     if isinstance(tree, (list, tuple)):
         return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
+
+
+def tree_paths(tree, prefix: tuple = ()) -> list:
+    """The key path (dict keys and list positions) of every leaf, in
+    tree_leaves' order."""
+    if isinstance(tree, dict):
+        return [p for k, v in tree.items() for p in tree_paths(v, prefix
+                                                              + (k,))]
+    if isinstance(tree, (list, tuple)):
+        return [p for i, v in enumerate(tree)
+                for p in tree_paths(v, prefix + (i,))]
+    return [prefix]
 
 
 def tree_unflatten(like, leaves) -> dict:

@@ -5,9 +5,12 @@ batches at which phase 2 checks the conv forward."""
 import re
 from pathlib import Path
 
+import numpy as np
 import pytest
+import torch
 
 import chip_smoke as CS
+from tests.test_torch_trainer import topology_dir  # noqa: F401
 
 CSRC = Path(__file__).resolve().parents[1] / "semantichuman_torch" / "csrc"
 
@@ -209,3 +212,198 @@ def test_dfaust_config_overrides_only_the_dataset(tmp_path, stacked):
     assert got == want
     assert got["model"]["trunk_dtype"] == "bfloat16"
     assert got["model"]["banded_conv"] is False
+
+
+def test_baseline_mode_parses():
+    args = CS.parse_args(["--baseline"])
+    assert args.baseline and not (args.trainer or args.dfaust)
+    assert not CS.parse_args([]).baseline
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--baseline", "--dfaust"])
+
+
+def test_n3dmm_config_overrides_only_the_dataset(tmp_path):
+    """Phase 9's config is configs/train_neural3dmm.yaml with root_dir,
+    asset_dir, n_val and the epochs set: nz 256, B 16, zeroroot and
+    banded_conv off as the file has them."""
+    from semantichuman_torch.config import Config
+    path = CS.n3dmm_config(tmp_path / "DF", tmp_path / "c.yaml")
+    got = Config.from_yaml(path).to_dict()
+    want = Config.from_yaml(str(CS.N3DMM_CONFIG)).to_dict()
+    want["data"].update(root_dir=str(tmp_path / "DF"),
+                        asset_dir=str(tmp_path / "DF" / "asset"),
+                        n_val=CS.DFAUST_VAL)
+    want["train"]["n_epochs"] = CS.N3DMM_EPOCHS
+    assert got == want
+    assert (got["model"]["model_type"], got["model"]["nz"],
+            got["train"]["batch_train"], got["data"]["normalization"],
+            got["model"]["banded_conv"]) == ("neural3DMM", 256, 16,
+                                             "zeroroot", False)
+
+
+def test_n3dmm_launch_literals():
+    """A neural3DMM step at B = 16: 9 conv forwards and dW, every dx half
+    of the 8 convs with one on the unfused route (a csr_reduce each), 9 row
+    gathers (4 pools, 4 unpools, edgereg's face gather), each with a
+    gradient; a val batch 9 forwards and 8 gathers; no part_dist, banded
+    or yardstick launch."""
+    t, v = CS.TRAIN_LAUNCHES_N3DMM, CS.VAL_LAUNCHES_N3DMM
+    assert (t["spiral_conv_fwd"], t["spiral_conv_bwd_dw"],
+            t["spiral_conv_bwd_dx"], t["row_gather"],
+            t["csr_reduce"]) == (9, 9, 0, 9, 17)
+    assert (v["spiral_conv_fwd"], v["row_gather"]) == (9, 8)
+    for table in (t, v):
+        for k in CS.KERNEL_COUNTS:
+            if k.startswith(("part_dist", "banded")) or k in CS.YARDSTICKS:
+                assert CS.expect(table)[k] == 0
+
+
+@pytest.fixture(scope="module")
+def small_models(small_hierarchy, small_human, tmp_path_factory):
+    """(port PartAE, port SpiralAE) of the small test size."""
+    import dataclasses
+
+    from semantichuman_torch.config import ModelConfig
+    from semantichuman_torch.models import build_model
+    from semantichuman_torch.topology import MeshHierarchy
+    from tests.conftest import SMALL_MODEL_OVERRIDES
+
+    path = tmp_path_factory.mktemp("writer") / "hier.npz"
+    small_hierarchy.save(str(path))
+    hier = MeshHierarchy.load(str(path))
+    fields = {f.name for f in dataclasses.fields(ModelConfig)}
+    over = {k: v for k, v in SMALL_MODEL_OVERRIDES.items() if k in fields}
+    return (build_model(ModelConfig(**over), hier, small_human.part_dict,
+                        device="cpu"),
+            build_model(ModelConfig(**over, model_type="neural3DMM", nz=16),
+                        hier, device="cpu"))
+
+
+def test_baseline_step_gathers_match_the_launch_literals(small_models,
+                                                         small_human,
+                                                         monkeypatch):
+    """One baseline step on staged GT edge lengths runs as many row
+    gathers and gather backwards as TRAIN_LAUNCHES_N3DMM counts on the
+    card (its csr_reduce launches but the 8 unfused dx halves')."""
+    from semantichuman_torch.ops import row_gather as RG
+    from semantichuman_torch.ops.distance import face_edge_lengths
+    from semantichuman_torch.train import losses as TL
+    from semantichuman_torch.train import step as TS
+    from semantichuman_torch.train.optim import make_optimizer
+
+    _, model = small_models
+    tables = TL.build_loss_tables(small_human.template_faces,
+                                  small_human.J_regressor,
+                                  small_human.part_dict, device="cpu")
+    meshes = small_human.sample_meshes(2, seed=5).astype(np.float32)
+    v = torch.from_numpy(np.concatenate(
+        [meshes, np.zeros((2, 1, 3), np.float32)], 1))
+    with torch.no_grad():
+        batch = {"verts": v,
+                 "gt_face_edges": face_edge_lengths(v[:, :-1], tables.faces)}
+    opt = make_optimizer(1e-3, 5e-5, 0.99, steps_per_epoch=1)
+    step = TS.make_baseline_train_step(model, tables, opt, TS.StepFlags())
+    params = model.init(0)
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = RG.gather_rows_fwd, RG.csr_reduce
+
+    def count(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(RG, "gather_rows_fwd", count("fwd", fwd))
+    monkeypatch.setattr(RG, "csr_reduce", count("bwd", bwd))
+    _p, _s, metrics = step(params, opt.init(params), batch)
+    assert np.isfinite(float(metrics["loss"]))
+    assert calls["fwd"] == CS.TRAIN_LAUNCHES_N3DMM["row_gather"] == 9
+    assert calls["bwd"] == CS.TRAIN_LAUNCHES_N3DMM["csr_reduce"] - 8
+
+
+def test_reference_writer_matches_the_fixture_layout(small_models,
+                                                     small_hierarchy,
+                                                     small_human):
+    """Phase 9's reference-layout writer gives
+    `benchmarks/torch_baseline.reference_state_dict`'s keys, key order and
+    shapes on the small topology, and its output imports back to the same
+    contiguous parameters, for both model families."""
+    from benchmarks.torch_baseline import (build_torch_model,
+                                           reference_state_dict)
+    from semantichuman_torch.utils import import_torch as TI
+    from semantichuman_torch.utils.params import tree_leaves
+    from semantichuman_tpu.constants import KPS_INDEX_LIST
+
+    part, spiral = small_models
+    fixture = build_torch_model(
+        small_hierarchy,
+        small_hierarchy.downsample_part_indices(small_human.part_dict),
+        KPS_INDEX_LIST, enc_filters=[3, 8, 8, 16, 16],
+        dec_filters=[16, 16, 8, 8, 8])
+    want = reference_state_dict(fixture)
+    for model, importer in ((part, TI.import_part_ae_state),
+                            (spiral, TI.import_spiral_ae_state)):
+        params = model.init(3)
+        got = CS.reference_state_dict(params, model)
+        if model is part:
+            assert [(k, tuple(t.shape)) for k, t in got.items()] == \
+                [(k, tuple(t.shape)) for k, t in want.items()]
+        else:
+            assert list(got)[-2:] == ["dconv.4.conv.weight",
+                                      "dconv.4.conv.bias"]
+            assert list(got)[8:12] == [
+                "fc_latent_enc.weight", "fc_latent_enc.bias",
+                "fc_latent_dec.weight", "fc_latent_dec.bias"]
+        assert all(t.is_contiguous() for t in got.values())
+        back = importer(got, model)
+        for a, b in zip(tree_leaves(back), tree_leaves(params)):
+            assert a.is_contiguous() and torch.equal(a, b)
+
+
+def _small_trainer_cfg(family, **train):
+    from semantichuman_torch.config import Config
+    from tests.conftest import SMALL_MODEL_OVERRIDES
+    model = dict(SMALL_MODEL_OVERRIDES, banded_conv=False)
+    if family == "neural3DMM":
+        model.update(model_type="neural3DMM", nz=16)
+    return Config.from_dict({
+        "model": model,
+        "data": {"synthetic": True, "synthetic_train": 8,
+                 "synthetic_test": 4, "synthetic_n_theta": 16,
+                 "synthetic_n_phi": 36, "normalization": "zeroroot"},
+        "train": {"n_epochs": 3, "batch_train": 4, "batch_interp": 4,
+                  "batch_test": 4, "ck_frequency": 2, "save_recons": False,
+                  "epoch_scan": family != "neural3DMM", **train}})
+
+
+@pytest.mark.parametrize("family", ["multiz+partkps", "neural3DMM"])
+def test_resume_round_trip_is_bit_equal_on_the_cpu(tmp_path, topology_dir,
+                                                   family, monkeypatch):
+    """Phase 9 (b) at the small size on the CPU: a 2-epoch fit's
+    checkpoint written in the reference's layout and resumed through
+    train.resume_torch repeats the native resume's epoch 3 bit for bit
+    (loss and parameters); the writer refuses a part-head pad that is
+    not 0."""
+    from semantichuman_torch.train.loop import Trainer
+    from semantichuman_torch.utils.checkpoint import restore_checkpoint
+    from tests.test_torch_trainer import _workdir
+
+    monkeypatch.setattr(CS, "DEVICE", "cpu")
+    fit = Trainer(_small_trainer_cfg(family),
+                  _workdir(tmp_path / "fit", topology_dir), device="cpu")
+    fit.fit(2)
+    ckpt = str(Path(fit.workdir) / "checkpoints")
+    out = CS.resume_round_trip(
+        family, _small_trainer_cfg(family),
+        lambda tag: _workdir(tmp_path / tag, topology_dir), ckpt, tmp_path,
+        lambda tr: CS.read_counts())
+    assert out["epoch3_loss"] > 0 and not list(tmp_path.glob("*.pth.tar"))
+    if family == "multiz+partkps":
+        state, _ = restore_checkpoint(ckpt)
+        m = fit.model
+        p = next(i for i, n in enumerate(m.part_sizes) if n < m.n_max)
+        state["params"]["enc_heads"]["w"][p, -1, 0] = 1.0
+        with pytest.raises(CS.SmokeFailure, match="pads of the params"):
+            CS.write_reference_checkpoint(str(tmp_path / "x.pth.tar"),
+                                          state, fit.model,
+                                          fit.cfg.train)

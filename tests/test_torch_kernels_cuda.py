@@ -1228,3 +1228,57 @@ def test_capture_with_a_host_copy_raises(cuda, tmp_path):
     assert tr.global_step == 0 and tr.history == []
     for a, b in zip(before, tree_leaves(tr.params)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [2, 16])
+def test_spiral_ae_through_the_kernels_matches_plain(cuda, b):
+    """The neural3DMM SpiralAE (the default filters, nz 256) on the bundled
+    topology: forward and the baseline loss's gradient through the conv,
+    row gather and CSR reduce kernels against the same model with the
+    plain conv, rtol 1e-4 on the reconstruction and loss, every gradient
+    leaf within 1e-4 of its largest entry (f32 sums in another order); the
+    dummy row exactly 0; the conv and gather kernels counted."""
+    import copy
+
+    from semantichuman_torch.config import ModelConfig
+    from semantichuman_torch.data.synthetic import SyntheticHuman
+    from semantichuman_torch.models import build_model
+    from semantichuman_torch.ops.row_gather import row_gather
+    from semantichuman_torch.topology import MeshHierarchy
+    from semantichuman_torch.train import losses as TL
+    from semantichuman_torch.train import step as TS
+    from semantichuman_torch.utils.params import tree_leaves
+
+    human = SyntheticHuman()
+    model = build_model(ModelConfig(model_type="neural3DMM",
+                                    banded_conv=False),
+                        MeshHierarchy.load(TOPOLOGY), device=cuda)
+    plain = copy.copy(model)
+    plain.conv_fn = TC.spiral_conv_plain
+    params = model.init(0)
+    tables = TL.build_loss_tables(human.template_faces, human.J_regressor,
+                                  human.part_dict, device=cuda)
+    m = human.sample_meshes(b, seed=4).astype(np.float32)
+    x = torch.from_numpy(np.concatenate(
+        [m, np.zeros((b, 1, 3), np.float32)], 1)).to(cuda)
+    convs, gathers = TC.spiral_conv.launches, row_gather.launches
+    with torch.no_grad():
+        rec, z = model(params, x)
+    torch.cuda.synchronize()
+    assert TC.spiral_conv.launches - convs == 9
+    assert row_gather.launches - gathers == 8
+    with torch.no_grad():
+        rec_p, z_p = plain(params, x)
+    torch.testing.assert_close(rec, rec_p, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(z, z_p, rtol=1e-4, atol=1e-5)
+    assert torch.count_nonzero(rec[:, -1]) == 0
+    flags = TS.StepFlags()
+    got = TS.value_and_grad(TS.make_baseline_loss_fn(model, tables, flags),
+                            params, {"verts": x})
+    ref = TS.value_and_grad(TS.make_baseline_loss_fn(plain, tables, flags),
+                            params, {"verts": x})
+    torch.testing.assert_close(got[0], ref[0], rtol=1e-4, atol=0)
+    for g, r in zip(tree_leaves(got[2]), tree_leaves(ref[2])):
+        err = (g - r).abs().max() / r.abs().max().clamp_min(1e-30)
+        assert float(err) <= 1e-4

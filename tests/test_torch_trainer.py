@@ -259,13 +259,17 @@ def test_topology_key_matches_jax_meta(topology_dir, small_human):
                         414) == bundled.read_text()
 
 
-def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir):
+def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir,
+                                            small_human, monkeypatch):
     """A workdir without a compiled topology, with a stale one or with one
     that has no .meta key gets the hierarchy compiled (the JAX compiler's
     policy: a cache is trusted only where its key matches); the pieces
-    that wait for a later slice raise, naming what is missing; an on-disk
-    dataset that is not there raises naming its file; the default device
-    is the card."""
+    that wait for a later slice (the trace window, DDP) raise, naming what
+    is missing, and the ported ones build: a reference checkpoint through
+    train.resume_torch (weights only: with finetune, else it raises for
+    the missing optimizer state) and model_type neural3DMM (the loop); an
+    on-disk dataset that is not there raises naming its file; the default
+    device is the card."""
     want = np.load(topology_dir / "topology_2222.npz")
     key = (topology_dir / "topology_2222.npz.meta").read_text()
     empty = tmp_path / "empty"
@@ -284,15 +288,42 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir):
                                       want["spirals_0"])
         assert Path(d, "topology_2222.npz.meta").read_text() == key
     d = _workdir(tmp_path / "ok", topology_dir)
-    for over, match in (({"resume_torch": "x.pth.tar"}, "resume_torch"),
-                        ({"profile_stop": 5}, "trace window")):
-        with pytest.raises(NotImplementedError, match=match):
-            TorchTrainer(_port_cfg(**over), d, device="cpu")
-    cfg = _port_cfg()
+    with pytest.raises(NotImplementedError, match="trace window"):
+        TorchTrainer(_port_cfg(profile_stop=5), d, device="cpu")
+    with monkeypatch.context() as mp:
+        mp.setattr(torch.distributed, "is_initialized", lambda: True)
+        mp.setattr(torch.distributed, "get_world_size", lambda: 2)
+        with pytest.raises(NotImplementedError, match="DDP"):
+            TorchTrainer(_port_cfg(), d, device="cpu")
+
+    from benchmarks.torch_baseline import (build_torch_model,
+                                           reference_state_dict)
+    from semantichuman_torch.constants import KPS_INDEX_LIST
+    from semantichuman_torch.utils.import_torch import import_part_ae_state
+    from semantichuman_tpu.topology.compiler import MeshHierarchy
+    hier = MeshHierarchy.load(str(topology_dir / "topology_2222.npz"))
+    fixture = build_torch_model(
+        hier, hier.downsample_part_indices(small_human.part_dict),
+        KPS_INDEX_LIST, enc_filters=[3, 8, 8, 16, 16],
+        dec_filters=[16, 16, 8, 8, 8])
+    ckpt = str(tmp_path / "weights.pth.tar")
+    torch.save({"epoch": 5,
+                "autoencoder_state_dict": reference_state_dict(fixture)},
+               ckpt)
+    with pytest.raises(ValueError, match="no optimizer state"):
+        TorchTrainer(_port_cfg(resume_torch=ckpt), d, device="cpu")
+    tr = TorchTrainer(_port_cfg(resume_torch=ckpt, finetune=True), d,
+                      device="cpu")
+    assert (tr.start_epoch, tr.global_step, tr.opt_state.count) == (1, 0, 0)
+    want = import_part_ae_state(reference_state_dict(fixture), tr.model)
+    for a, b in zip(tree_leaves(tr.params), tree_leaves(want)):
+        assert torch.equal(a, b)
+    cfg = _port_cfg(epoch_scan=True)
     cfg = dataclasses.replace(cfg, model=dataclasses.replace(
         cfg.model, model_type="neural3DMM"))
-    with pytest.raises(NotImplementedError, match="neural3DMM"):
-        TorchTrainer(cfg, d, device="cpu")
+    tr = TorchTrainer(cfg, d, device="cpu")
+    assert type(tr.model).__name__ == "SpiralAE"
+    assert not tr.is_part_model and not tr._epoch_scan_ok()
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, synthetic=False, asset_dir=str(tmp_path / "no_assets")),
         model=_port_cfg().model)
