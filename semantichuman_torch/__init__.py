@@ -8,7 +8,9 @@ nor the JAX package, and runs on an NVIDIA Hopper card (H100):
                  the spiral-conv trunk.
   * `ops`      — spiral conv (hand-written CUDA kernel in `csrc/`, built on
                  first use, beside its plain PyTorch version), pool/unpool.
-  * `serving`  — export / ServingBundle.
+  * `edit`     — the Editor and run_demo: semantic edits on a trained model.
+  * `serving`  — export_inference / ServingBundle: `torch.export` programs
+                 with a captured forward at small batch on the card.
 
 Entry points take `device=` and default to "cuda"; on a host without a card
 they raise unless the caller passes device="cpu".  Importing the package

@@ -6,9 +6,12 @@
 
 `gather_rows_fwd` launches the hand-written kernel (`csrc/row_gather.cu`)
 for a CUDA tensor and counts the launch in `row_gather.launches`; for a CPU
-tensor it runs `gather_rows_plain`.  `row_gather(x [N, D], idx [n])` is the
-case B = 1, T = 1, unweighted: the banded routes' out-of-band fix-up gather
-(`ops/spiral_conv.py:spiral_conv_banded`, `ops/sampling.py:unpool_banded`).
+tensor it runs `gather_rows_plain`.  `GatherRowsFn` reaches it through the
+custom op `semantichuman::gather_rows` (`gather_rows_op`), so that
+`torch.export` traces the gather as one node.  `row_gather(x [N, D],
+idx [n])` is the case B = 1, T = 1, unweighted: the banded routes'
+out-of-band fix-up gather (`ops/spiral_conv.py:spiral_conv_banded`,
+`ops/sampling.py:unpool_banded`).
 
 A `GatherTable` holds an index, its optional weights and the inverse as a
 CSR table, built once, on the host.  `gather_rows(x, table)`
@@ -32,7 +35,7 @@ import numpy as np
 import torch
 
 from .csr_reduce import CSRTable, csr_reduce, inverse_csr
-from .kernels import build
+from .kernels import LIB, build
 
 _UNITS = (16, 8, 4, 2)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -209,6 +212,23 @@ def gather_rows_fwd(x: torch.Tensor, idx: torch.Tensor,
     return out
 
 
+# `gather_rows_fwd` as the custom op `semantichuman::gather_rows`, so that
+# `torch.export` traces it as one node: the body reads the concrete batch
+# and the pointers (the copy unit, the batch tile, the batch stride) and
+# counts the launch; the fake gives the output's shape alone.
+LIB.define("gather_rows(Tensor x, Tensor idx, Tensor? w) -> Tensor")
+LIB.impl("gather_rows", lambda x, idx, w: gather_rows_fwd(x, idx, w),
+         "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("semantichuman::gather_rows", lib=LIB)
+def _(x, idx, w):
+    return x.new_empty((x.shape[0], idx.shape[0], x.shape[2]))
+
+
+gather_rows_op = torch.ops.semantichuman.gather_rows.default
+
+
 def row_gather_plain(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """The plain PyTorch version of the 2-D gather: index_select of the
     rows."""
@@ -247,7 +267,7 @@ class GatherRowsFn(torch.autograd.Function):
         ctx.n = x.shape[1]
         if x.stride(2) != 1 or x.stride(1) != x.shape[2]:
             x = x.contiguous()          # the kernel reads packed rows
-        return gather_rows_fwd(x, table.idx, table.w)
+        return gather_rows_op(x, table.idx, table.w)
 
     @staticmethod
     def backward(ctx, dout):

@@ -15,10 +15,12 @@ measured on the card in place of the TPU's: a level whose tables carry a
 band (`models/tables.py`) takes the banded route `spiral_conv_banded` for
 a CUDA tensor at batch <= `_BANDED_MAX_B` (closed: the banded route was
 slower at every batch measured); every other call takes the take route through `SpiralConvFn`, an autograd
-Function whose forward is the hand-written kernel (`csrc/spiral_conv_fwd.cu`,
-counted in `spiral_conv.launches`) for a CUDA tensor and
-`spiral_conv_plain` for a CPU tensor.  The wrapper picks the kernel's tile
-from the shape (`_fwd_plan`).  The port's first forward kernel
+Function whose forward is the custom op `semantichuman::spiral_conv_fwd`
+(`spiral_conv_fwd_op`, so that `torch.export` traces it as one node):
+the hand-written kernel (`csrc/spiral_conv_fwd.cu`, counted in
+`spiral_conv.launches`) for a CUDA tensor and `spiral_conv_plain` for a
+CPU tensor.  The wrapper picks the kernel's tile from the shape
+(`_fwd_plan`).  The port's first forward kernel
 (`csrc/spiral_conv.cu`) stays as the yardstick, `spiral_conv_fwd_v1`, which
 a table keyed by the conv's static shape (`_FWD_V1`, empty) would send a
 shape to where the new kernel measured slower.  Its backward takes the activation's
@@ -40,7 +42,7 @@ import torch.nn.functional as F
 
 from .banded_gather import BandedGatherFn, BandTable
 from .csr_reduce import LONG_ROW, CSRTable, csr_reduce, csr_reduce_plain
-from .kernels import build
+from .kernels import LIB, build
 from .row_gather import RowGatherFn
 
 ACTIVATIONS = {
@@ -339,6 +341,30 @@ def _forward(x, spiral_idx, w, bias, activation, tile=None) -> torch.Tensor:
     return y
 
 
+# The forward as the custom op `semantichuman::spiral_conv_fwd`, so that
+# `torch.export` traces it as one node: its body, `_forward`, reads the
+# concrete batch and the pointers (the tile plan, the alignment checks) and
+# counts the launch, which a fake tensor cannot; the fake gives the
+# output's shape alone.  Registered through `torch.library.Library`
+# (`kernels/__init__.py:LIB`) rather than `torch.library.custom_op`, whose
+# wrapper costs about four times the dispatch (PERF.md, PR 13).
+LIB.define("spiral_conv_fwd(Tensor x, Tensor spiral_idx, Tensor w, "
+           "Tensor bias, str activation) -> Tensor")
+LIB.impl("spiral_conv_fwd",
+         lambda x, spiral_idx, w, bias, activation: _forward(
+             x, spiral_idx, w, bias, activation),
+         "CompositeExplicitAutograd")
+
+
+@torch.library.register_fake("semantichuman::spiral_conv_fwd", lib=LIB)
+def _(x, spiral_idx, w, bias, activation):
+    return x.new_empty((x.shape[0], spiral_idx.shape[0], w.shape[1]),
+                       dtype=torch.float32)
+
+
+spiral_conv_fwd_op = torch.ops.semantichuman.spiral_conv_fwd.default
+
+
 # --- the backward: dW and dx -------------------------------------------------
 
 def spiral_conv_bwd_dw_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
@@ -582,7 +608,7 @@ class SpiralConvFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, bias, spiral_idx, csr, activation):
-        y = _forward(x, spiral_idx, w, bias, activation)
+        y = spiral_conv_fwd_op(x, spiral_idx, w, bias, activation)
         ctx.save_for_backward(x, w, y)
         ctx.spiral_idx, ctx.csr, ctx.activation = spiral_idx, csr, activation
         return y

@@ -88,6 +88,39 @@ def _not_ported(what: str, item: str):
                                f"section 1, '{item}'")
 
 
+def load_topology(cfg: Config, assets: BodyAssets,
+                  workdir: str) -> MeshHierarchy:
+    """The reference's hierarchy pickle (data.reference_hierarchy), or the
+    compiler's hierarchy of the assets' template: the bundled one where its
+    compile key matches, else compiled into (or read back from)
+    `<workdir>/topology_<tag>.npz`.  The Trainer and `cli/export.py` load
+    their hierarchy here, so an exported bundle has its checkpoint's."""
+    m = cfg.model
+    tag = "".join(str(f) for f in m.ds_factors)
+    tv = assets.template_verts
+    ref_vertex = min(414, len(tv) - 1)
+    if cfg.data.reference_hierarchy:
+        from ..topology.reference_import import (
+            check_template_match, hierarchy_from_reference_pickle)
+        hier = hierarchy_from_reference_pickle(
+            cfg.data.reference_hierarchy, step_sizes=m.step_sizes,
+            dilation=m.dilation, reference_vertex=ref_vertex,
+            cache_path=os.path.join(workdir, f"topology_ref_{tag}.npz"))
+        check_template_match(hier, tv)
+        return hier
+    bundled = str(BUNDLED_TOPOLOGY_DIR / f"topology_synth_full_{tag}.npz")
+    key = topology_key(tv, assets.template_faces, m.ds_factors,
+                       m.step_sizes, m.dilation, ref_vertex)
+    if os.path.exists(bundled) and read_meta(bundled) == key:
+        return MeshHierarchy.load(bundled)
+    # the workdir cache is trusted only where its .meta holds this key
+    return compile_topology(
+        tv, assets.template_faces, ds_factors=m.ds_factors,
+        step_sizes=m.step_sizes, dilation=m.dilation,
+        reference_vertex=ref_vertex,
+        cache_path=os.path.join(workdir, f"topology_{tag}.npz"))
+
+
 class Trainer:
     def __init__(self, cfg: Config, workdir: str,
                  assets: BodyAssets | None = None, data=None,
@@ -138,7 +171,7 @@ class Trainer:
         self._setup_data(data)
 
         # --- topology, model, losses, optimizer -------------------------------
-        self.hierarchy = self._load_topology()
+        self.hierarchy = load_topology(cfg, assets, workdir)
         self.model = build_model(cfg.model, self.hierarchy, assets.part_dict,
                                  device=self.device)
         self.tables = L.build_loss_tables(
@@ -171,38 +204,6 @@ class Trainer:
         self._eval_steps: dict = {}
         self._epoch_buffers = None      # the epoch path's static tensors
         self._graph_pool = None         # one memory pool for its graphs
-
-    # --- topology ----------------------------------------------------------------
-    def _load_topology(self) -> MeshHierarchy:
-        """The reference's hierarchy pickle (data.reference_hierarchy), or
-        the compiler's hierarchy of the assets' template: the bundled one
-        where its compile key matches, else compiled into (or read back
-        from) `<workdir>/topology_<tag>.npz`."""
-        m = self.cfg.model
-        tag = "".join(str(f) for f in m.ds_factors)
-        tv = self.assets.template_verts
-        ref_vertex = min(414, len(tv) - 1)
-        if self.cfg.data.reference_hierarchy:
-            from ..topology.reference_import import (
-                check_template_match, hierarchy_from_reference_pickle)
-            hier = hierarchy_from_reference_pickle(
-                self.cfg.data.reference_hierarchy, step_sizes=m.step_sizes,
-                dilation=m.dilation, reference_vertex=ref_vertex,
-                cache_path=os.path.join(self.workdir,
-                                        f"topology_ref_{tag}.npz"))
-            check_template_match(hier, tv)
-            return hier
-        bundled = str(BUNDLED_TOPOLOGY_DIR / f"topology_synth_full_{tag}.npz")
-        key = topology_key(tv, self.assets.template_faces, m.ds_factors,
-                           m.step_sizes, m.dilation, ref_vertex)
-        if os.path.exists(bundled) and read_meta(bundled) == key:
-            return MeshHierarchy.load(bundled)
-        # the workdir cache is trusted only where its .meta holds this key
-        return compile_topology(
-            tv, self.assets.template_faces, ds_factors=m.ds_factors,
-            step_sizes=m.step_sizes, dilation=m.dilation,
-            reference_vertex=ref_vertex,
-            cache_path=os.path.join(self.workdir, f"topology_{tag}.npz"))
 
     # --- data ------------------------------------------------------------------
     def _setup_data(self, data):

@@ -407,3 +407,196 @@ def test_resume_round_trip_is_bit_equal_on_the_cpu(tmp_path, topology_dir,
             CS.write_reference_checkpoint(str(tmp_path / "x.pth.tar"),
                                           state, fit.model,
                                           fit.cfg.train)
+
+
+# --- phase 10: editing and deployment -----------------------------------------
+
+def test_deploy_mode_parses():
+    """--deploy runs phase 1 and phase 10 alone; it excludes the other
+    modes, and a run without arguments runs every phase."""
+    args = CS.parse_args(["--deploy"])
+    assert args.deploy and not (args.trainer or args.baseline
+                                or args.dfaust or args.conv_forward)
+    assert not CS.parse_args([]).deploy
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--deploy", "--baseline"])
+
+
+def test_deploy_launch_literals():
+    """An encode and a decode make one forward; run_demo's calls (7
+    encodes, 5 decodes, 2 keypoint encodes) give its launches, rows 1 and
+    7 alone; a capture counts its warm-ups and itself."""
+    enc, dec = CS.expect(CS.ENCODE_LAUNCHES), CS.expect(CS.DECODE_LAUNCHES)
+    take = CS.expect(CS.SERVE_LAUNCHES["take"])
+    assert {k: enc[k] + dec[k] for k in CS.KERNEL_COUNTS} == take
+    demo = CS.demo_launches()
+    assert (demo["spiral_conv_fwd"], demo["row_gather"]) == (
+        7 * 4 + 5 * 5, 7 * 6 + 5 * 4 + 2)
+    assert all(n == 0 for k, n in demo.items()
+               if k not in ("spiral_conv_fwd", "row_gather"))
+    assert CS.GRAPH_WARMUPS == 2
+    assert CS.EDIT_BATCHES == (1, 4)
+
+
+def test_run_demo_launches_match_the_literals(small_models, small_human,
+                                              tmp_path, monkeypatch):
+    """One run_demo on the CPU calls the conv forward and the row gather
+    as often as phase 10 counts their launches on the card (the small
+    model has the default model's 4 encoder and 5 decoder convs)."""
+    from semantichuman_torch.data.assets import BodyAssets
+    from semantichuman_torch.edit import Editor, run_demo
+    from semantichuman_torch.ops import row_gather as RG
+    import importlib
+    sc = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+
+    model = small_models[0]
+    assert (len(model.enc_plan), len(model.dec_plan)) == (4, 5)
+    assets = BodyAssets(
+        template_verts=small_human.template_verts,
+        template_faces=small_human.template_faces,
+        j_regressor=small_human.J_regressor,
+        part_dict=small_human.part_dict,
+        girth_edges=small_human.girth_edges,
+        girth_factors=small_human.girth_factors)
+    editor = Editor(model, model.init(0), assets, device="cpu")
+    calls = {"spiral_conv_fwd": 0, "row_gather": 0}
+
+    def count(key, fn):
+        def wrapped(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    monkeypatch.setattr(sc, "_forward", count("spiral_conv_fwd",
+                                              sc._forward))
+    monkeypatch.setattr(RG, "gather_rows_fwd", count("row_gather",
+                                                     RG.gather_rows_fwd))
+    meshes = small_human.sample_meshes(4, seed=2).astype(np.float32)
+    run_demo(editor, meshes, str(tmp_path))
+    demo = CS.demo_launches()
+    assert calls == {k: demo[k] for k in calls}
+
+
+@pytest.mark.parametrize("runs, gate", [
+    ({1: ([2.0, 2.2], [0.3, 0.3]), 16: ([2.5, 2.3], [0.9, 0.9]),
+      64: ([2.33, 2.33], [2.29, 2.29])}, 64),
+    ({1: ([2.0, 2.2], [0.3, 0.3]), 16: ([2.5, 2.3], [0.9, 0.9]),
+      64: ([2.3, 2.3], [2.4, 2.3])}, 16),
+    ({1: ([2.0, 2.0], [0.3, 0.3]), 16: ([1.0, 1.0], [1.1, 1.1]),
+      64: ([3.0, 3.0], [2.0, 2.0])}, 1),
+    ({1: ([0.2, 0.2], [0.3, 0.3]), 16: ([1.0, 1.0], [0.5, 0.5])}, 0),
+])
+def test_graph_gate_rule(runs, gate):
+    """_GRAPH_MAX_B's rule: the largest batch at which the captured
+    forward's mean beats the eager program's there and at every smaller
+    batch measured; the serving constant is such a batch."""
+    from semantichuman_torch import serving as SV
+
+    assert CS.graph_gate({b: {"eager": e, "graph": g}
+                          for b, (e, g) in runs.items()}) == gate
+    assert SV._GRAPH_MAX_B in (0,) + CS.SERVE_BATCHES
+
+
+def test_no_plain_on_card_counts_cuda_calls_only(small_models):
+    """The phase's fallback probe counts plain-version calls on CUDA
+    tensors alone and restores both functions."""
+    import importlib
+
+    from semantichuman_torch.ops import row_gather as RG
+    sc = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+    saved = sc.spiral_conv_plain, RG.gather_rows_plain
+    model = small_models[0]
+    x = torch.zeros((1, model.tables.sizes[0] + 1, 3))
+    kps = torch.zeros((1, 32, 3))
+    with CS.no_plain_on_card() as calls, torch.no_grad():
+        model(model.init(0), x, kps)
+    assert calls == {"spiral_conv_plain": 0, "gather_rows_plain": 0}
+    assert (sc.spiral_conv_plain, RG.gather_rows_plain) == saved
+
+
+def test_device_ms_takes_the_larger_of_two_windows(monkeypatch):
+    """An empty profiling window is taken again with twice the calls; the
+    time is the larger of two windows' times a call (a window whose events
+    the profiler dropped in part reads low)."""
+    import types
+
+    import torch.profiler as TP
+
+    # events of 10 us per window, at 20, 20 and 40 calls
+    windows = iter([10, 0, 80])
+
+    class FakeProfile:
+        def __init__(self, *a, **k):
+            n = next(windows)
+            self._events = [types.SimpleNamespace(
+                device_type=torch.autograd.DeviceType.CUDA,
+                time_range=types.SimpleNamespace(elapsed_us=lambda: 10.0))
+                for _ in range(n)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self._events
+
+    monkeypatch.setattr(CS, "DEVICE", "cuda")
+    monkeypatch.setattr(TP, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    calls = []
+    # 0.005 ms a call in the first window, 0.02 in the third
+    assert CS.device_ms(lambda: calls.append(1)) == pytest.approx(0.02)
+    assert len(calls) == 1 + 20 + 20 + 40
+    windows = iter([0, 0, 40])
+    with pytest.raises(CS.SmokeFailure, match="device time in 1 of 3"):
+        CS.device_ms(lambda: None, attempts=3)
+
+
+def test_device_by_name_takes_the_larger_of_two_windows(monkeypatch):
+    """Per kernel name, the larger of two windows' times a call; an empty
+    window is taken again."""
+    import types
+
+    import torch.profiler as TP
+
+    windows = iter([{"a": 2, "b": 3}, {}, {"a": 3, "b": 1}])
+
+    class FakeProfile:
+        def __init__(self, *a, **k):
+            self._events = [types.SimpleNamespace(
+                name=name, device_type=torch.autograd.DeviceType.CUDA,
+                time_range=types.SimpleNamespace(elapsed_us=lambda: 10.0))
+                for name, n in next(windows).items() for _ in range(n)]
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            return self._events
+
+    monkeypatch.setattr(TP, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    got = CS.device_by_name(lambda: None, reps=10)
+    assert got == pytest.approx({"a": 0.003, "b": 0.003})
+
+
+def test_deploy_paths_join_the_kernels_line():
+    """Phase 10's four counted paths (one run_demo, the eager programs,
+    the captures, cli.eval_reference on the card) go into the kernels
+    line's launches_by_path beside the other phases' paths, and the
+    yardsticks are held at 0 on them as on every path."""
+    import inspect
+
+    deploy = inspect.getsource(CS.phase_deploy)
+    counts = deploy[deploy.index('out["counts"] = {'):]
+    counts = counts[:counts.index("}")]
+    assert re.findall(r'"(\w+)":', counts) == [
+        "edit", "export_serve", "graph_serve", "eval_reference"]
+    main = inspect.getsource(CS.main)
+    assert "**deploy_counts}" in main
+    assert "for k in KERNEL_COUNTS:" in main and "YARDSTICKS" in main

@@ -1282,3 +1282,88 @@ def test_spiral_ae_through_the_kernels_matches_plain(cuda, b):
     for g, r in zip(tree_leaves(got[2]), tree_leaves(ref[2])):
         err = (g - r).abs().max() / r.abs().max().clamp_min(1e-30)
         assert float(err) <= 1e-4
+
+
+# --- the custom ops and the exported bundle on the card ----------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_custom_ops_pass_opcheck_on_the_card(cuda, dtype):
+    """torch.library.opcheck of both ops with CUDA tensors: the real
+    implementation launches the kernels, the fake gives their shapes."""
+    from semantichuman_torch.ops import row_gather as RG
+
+    for shape in (SHAPES[0], SHAPES[2]):
+        x, idx, w, bias = _case(shape, cuda)
+        torch.library.opcheck(TC.spiral_conv_fwd_op,
+                              (x.to(dtype), idx, w.to(dtype), bias, "elu"))
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((3, 40, 16)).astype(
+        np.float32)).to(cuda, dtype)
+    for taps, weighted in ((1, False), (3, True)):
+        idx = rng.integers(0, 40, (25, taps) if taps > 1 else (25,))
+        w = rng.uniform(size=idx.shape) if weighted else None
+        table = RG.GatherTable.build(idx, 40, cuda, w=w)
+        torch.library.opcheck(RG.gather_rows_op, (x, table.idx, table.w))
+
+
+def _served(tmp_path, cuda):
+    """A narrow PartAE on the bundled topology, exported on the card."""
+    from semantichuman_torch.config import ModelConfig
+    from semantichuman_torch.data.synthetic import SyntheticHuman
+    from semantichuman_torch.models import build_model
+    from semantichuman_torch.serving import ServingBundle, export_inference
+    from semantichuman_torch.topology import MeshHierarchy
+
+    human = SyntheticHuman()
+    model = build_model(
+        ModelConfig(filter_sizes_enc=[[3, 8, 8, 16, 16], [[]] * 5],
+                    filter_sizes_dec=[[16, 16, 8, 8, 8],
+                                      [[], [], [], [], 3]]),
+        MeshHierarchy.load(TOPOLOGY), human.part_dict, device=cuda)
+    manifest = export_inference(model, model.init(0), human.J_regressor,
+                                str(tmp_path))
+    assert manifest["symbolic_batch"]
+    assert manifest["artifacts"]["forward"]["platforms"] == ["cuda"]
+    m = human.sample_meshes(32, seed=6).astype(np.float32)
+    verts = torch.from_numpy(np.concatenate(
+        [m, np.zeros((32, 1, 3), np.float32)], 1)).to(cuda)
+    return ServingBundle(str(tmp_path), device=cuda), verts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1, 16])
+def test_graph_replay_equals_the_eager_program(cuda, tmp_path, b):
+    """At B = 1 and 16 the captured forward, encode and decode give the
+    eager program's bits, replay after replay."""
+    from semantichuman_torch import serving as TSV
+
+    bundle, verts = _served(tmp_path, cuda)
+    assert b <= TSV._GRAPH_MAX_B
+    x = verts[:b]
+    for name, args in (("forward", (x,)), ("encode", (x,))):
+        eager = bundle.call(name, *args, graph=False)
+        for _ in range(2):
+            got = bundle.call(name, *args)
+            assert all(torch.equal(g, e) for g, e in zip(got, eager))
+    z, z_kps, _dummy = bundle.call("encode", x, graph=False)
+    eager = bundle.call("decode", z, z_kps, graph=False)
+    assert torch.equal(bundle.call("decode", z, z_kps), eager)
+    assert {(n, b) for n in ("forward", "encode", "decode")} \
+        <= set(bundle._captured)
+
+
+@pytest.mark.cuda
+def test_graph_replays_return_their_own_outputs(cuda, tmp_path):
+    """Two successive calls with different inputs: the second leaves the
+    first call's result as it was (the replays return clones of the
+    static outputs)."""
+    bundle, verts = _served(tmp_path, cuda)
+    a, b = verts[:4], verts[4:8]
+    first = bundle.forward(a)
+    kept = [t.clone() for t in first]
+    second = bundle.forward(b)
+    assert all(torch.equal(f, k) for f, k in zip(first, kept))
+    assert not torch.equal(first[0], second[0])
+    eager = bundle.call("forward", b, graph=False)
+    assert all(torch.equal(s, e) for s, e in zip(second, eager))
