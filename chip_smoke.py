@@ -224,6 +224,30 @@ run:
    after resume_torch of the same file to rtol 1e-6; `cli.demo
    --checkpoint_torch` on it writes the five OBJs.
 
+11. data parallelism, the trace window, geometry and the serving dtype A/B
+   (`phase_parallel`): (a) two ranks joined by gloo, both on cuda:0 (NCCL
+   refuses two ranks on one card), each a `tools/dp_fit.py` process
+   through `cli.train --distributed`, the full-width default model at
+   global batches of 8 (the paper recipe's 4 a rank), 24 train and 16 test
+   synthetic meshes, one epoch of the loop, against the same run in this
+   process without a process group: per-step losses within rtol 2e-4,
+   parameters within rtol 1e-4, atol 1e-6, the two ranks' parameters bit
+   for bit, the val loss within rtol 1e-4, one checkpoint and one
+   configuration dump (rank 0 alone writes), and that checkpoint resumed
+   by two ranks for epoch 2 within the same tolerances; (b) one rank
+   under NCCL bit-equal to the run without a process group; every rank
+   within DP_TIMEOUT s, or the phase fails and its processes are killed;
+   (c) the B = 4 loop with a trace window over global steps [2, 5): the
+   trace file names the kernels of rows 1, 3, 7 and 8 and no plain
+   version's or yardstick's, the logged losses equal the untraced fit's
+   bit for bit, the window's cost in ms a step; (d) `ops/geometry.py`
+   and distance.py's vertex normals and volumes on icosphere(3) (with
+   the spectral basis and the biharmonic distance) and on the full-scale
+   synthetic template, card against CPU within the CPU tests' tolerances,
+   with times; (e) `tools/serving_accuracy.py` on phase 7's epoch-2
+   checkpoint: f32 and bf16 arms, each with its own Trainer and inputs,
+   a nonzero delta.
+
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
 before printing any result.  `python3 chip_smoke.py --conv-forward` runs
@@ -234,7 +258,7 @@ row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
 reduce's checks and times of phases 4 and 6 with a sweep of its batch
 tile, for tuning those kernels, `--trainer` phase 1 and phase 7,
 `--dfaust` phase 1 and phase 8, `--baseline` phase 1 and phase 9,
-`--deploy` phase 1 and phase 10, and
+`--deploy` phase 1 and phase 10, `--parallel` phase 1 and phase 11, and
 `--band-gates` phase 1 and each
 banded gate measured on its own against the take route in turns (serving
 at B = 1, 16, 64, the Trainer's epoch path at trunk 12 and the fast
@@ -1627,28 +1651,8 @@ def reset_counts():
 
 
 def read_counts() -> dict:
-    from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
-                                                       banded_gather_fwd)
-    from semantichuman_torch.ops.csr_reduce import csr_reduce, csr_reduce_v1
-    from semantichuman_torch.ops.part_dist import (part_dist_sums,
-                                                   part_dist_v1)
-    from semantichuman_torch.ops.row_gather import row_gather
-    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
-                                                     spiral_conv_bwd_dw,
-                                                     spiral_conv_bwd_dx,
-                                                     spiral_conv_fwd_v1)
-
-    return {"spiral_conv_fwd": spiral_conv.launches,
-            "spiral_conv_fwd_v1": spiral_conv_fwd_v1.launches,
-            "spiral_conv_bwd_dw": spiral_conv_bwd_dw.launches,
-            "spiral_conv_bwd_dx": spiral_conv_bwd_dx.launches,
-            "csr_reduce": csr_reduce.launches,
-            "csr_reduce_v1": csr_reduce_v1.launches,
-            **{f"part_dist_{m}": n for m, n in part_dist_sums.launches.items()},
-            "part_dist_v1": part_dist_v1.launches,
-            "banded_gather_fwd": banded_gather_fwd.launches,
-            "banded_gather_bwd": banded_gather_bwd.launches,
-            "row_gather": row_gather.launches}
+    from semantichuman_torch.ops import launches
+    return launches.read()
 
 
 def counts_diff(after: dict, before: dict) -> dict:
@@ -2312,30 +2316,8 @@ def graph_probe():
 
 def restore_counts(counts: dict) -> None:
     """Set every launch counter to `counts` (read_counts' keys)."""
-    from semantichuman_torch.ops.banded_gather import (banded_gather_bwd,
-                                                       banded_gather_fwd)
-    from semantichuman_torch.ops.csr_reduce import csr_reduce, csr_reduce_v1
-    from semantichuman_torch.ops.part_dist import (part_dist_sums,
-                                                   part_dist_v1)
-    from semantichuman_torch.ops.row_gather import row_gather
-    from semantichuman_torch.ops.spiral_conv import (spiral_conv,
-                                                     spiral_conv_bwd_dw,
-                                                     spiral_conv_bwd_dx,
-                                                     spiral_conv_fwd_v1)
-
-    for name, fn in (("spiral_conv_fwd", spiral_conv),
-                     ("spiral_conv_fwd_v1", spiral_conv_fwd_v1),
-                     ("spiral_conv_bwd_dw", spiral_conv_bwd_dw),
-                     ("spiral_conv_bwd_dx", spiral_conv_bwd_dx),
-                     ("csr_reduce", csr_reduce),
-                     ("csr_reduce_v1", csr_reduce_v1),
-                     ("part_dist_v1", part_dist_v1),
-                     ("banded_gather_fwd", banded_gather_fwd),
-                     ("banded_gather_bwd", banded_gather_bwd),
-                     ("row_gather", row_gather)):
-        fn.launches = counts[name]
-    for mode in part_dist_sums.launches:
-        part_dist_sums.launches[mode] = counts[f"part_dist_{mode}"]
+    from semantichuman_torch.ops import launches
+    launches.restore(counts)
 
 
 @contextlib.contextmanager
@@ -4082,6 +4064,580 @@ def phase_deploy(card: str, tmp: Path, ckpt: str | None) -> dict:
     return out
 
 
+# --- phase 11: data parallelism, the trace window, geometry, serving A/B -----
+
+DP_WORLD = 2
+DP_STEPS = 3                # steps an epoch of phase 11's run
+# seconds every rank of a launch may take together; a hung rank fails the
+# phase there and is killed
+DP_TIMEOUT = 300
+# tests/test_parallel.py's tolerances for the JAX package's own mesh
+DP_LOSS_RTOL = 2e-4
+DP_PARAM_RTOL, DP_PARAM_ATOL = 1e-4, 1e-6
+DP_VAL_RTOL = 1e-4
+# the first step's gradient (both runs from the same parameters) within
+# this share of each tensor's largest entry (the CPU test's per-term
+# gradient tolerance).  The parameters after Adam, and the later steps'
+# gradients that follow from them, are reported beside the tolerances
+# above and not held to them: Adam divides each gradient entry by its own
+# size, and where the coupled L2 gradient (data + DP_DECAY * p) crosses
+# zero it turns the last bits that a split batch sums otherwise into
+# ~2e-5 on a few weights (on the card 6 of 65 536 of dconv/0/w, whose
+# first coupled gradient is ~1e-9, a tenth of Adam's eps; none on the CPU)
+DP_GRAD_TOL = 1e-5
+DP_DECAY = 5e-5             # Config().train.weight_decay
+# global steps [start, stop) the trace window records
+TRACE_WINDOW = (2, 5)
+# kernel families the window's trace must name: row 1 (forward and dW),
+# row 3 (part_dist fwd_grad), row 7, row 8 (PROFILE_GROUPS)
+TRACE_FAMILIES = ("conv_fwd", "conv_bwd_dw", "part_dist", "row_gather",
+                  "csr_reduce")
+# families of a plain version or a yardstick: none may run in the window
+TRACE_ABSENT = ("index_add", "conv_fwd_v1", "csr_reduce_v1", "part_dist_v1")
+# the CPU tests' tolerances (tests/test_torch_geometry.py): operators
+# within GEO_OP_TOL of the output's largest entry; on icosphere(3) the
+# geodesic field and the biharmonic distances within GEO_FIELD_TOL of
+# their largest value.  On the full template (an elongated mesh, its poles
+# 64-valent) the geodesic field is held as tests/test_geometry.py holds
+# the elongated mesh's (finite, bounded) and its card-to-CPU difference is
+# reported: 200 CG iterations that do not converge amplify the last bits
+# in which the card's CSR reduce sums a row longer than LONG_ROW (a chunk
+# tree) and the plain version (in order) differ
+GEO_OP_TOL = 1e-5
+GEO_FIELD_TOL = 1e-3
+GEO_EIG_RTOL = 1e-4
+# the unit sphere's eigenspaces l = 0, 1, 2 (multiplicity 2l + 1)
+GEO_CLUSTERS = ((0, 1), (1, 4), (4, 9))
+
+
+def dp_raw(epochs: int) -> dict:
+    """Phase 11's data-parallel run: the full-width default model,
+    Config() otherwise, global batches of 8 (the paper recipe's 4 on each
+    of two ranks), 24 train and 16 test synthetic meshes (3 steps an
+    epoch), the loop, every step logged, a checkpoint every epoch."""
+    return {"data": {"synthetic": True, "synthetic_train": 24,
+                     "synthetic_test": 16},
+            "train": {"batch_train": 8, "batch_interp": 8, "batch_test": 8,
+                      "n_epochs": epochs, "epoch_scan": False,
+                      "log_every": 1, "ck_frequency": 1,
+                      "save_recons": False}}
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_argvs(tmp: Path, name: str, cfg: str, world: int, backend: str,
+             *extra) -> list:
+    """One `tools/dp_fit.py` process per rank: cli.train --distributed on
+    the card with `backend`, its results into tmp/<name>_out with the
+    gradients of its first DP_STEPS steps."""
+    port = free_port()
+    return [[sys.executable, "-m", "semantichuman_torch.tools.dp_fit",
+             "--out", str(tmp / f"{name}_out"), "--save_grads",
+             str(DP_STEPS), "--", "--config", cfg,
+             "--workdir", str(tmp / name), "--device", "cuda",
+             "--distributed", "--coordinator", f"tcp://localhost:{port}",
+             "--num_processes", str(world), "--process_id", str(r),
+             "--backend", backend, *extra] for r in range(world)]
+
+
+@contextlib.contextmanager
+def dp_launch(jobs: dict):
+    """Start every job's rank processes at once (name -> argvs); yields
+    wait(), which waits for them all within DP_TIMEOUT seconds and returns
+    {name: [(rank json, rank npz arrays), ...]}.  A rank that exits
+    non-zero or hangs fails the phase; every process is stopped on the
+    way out."""
+    procs = {name: [subprocess.Popen(a, cwd=str(ROOT),
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+                    for a in argvs] for name, argvs in jobs.items()}
+    t0 = time.perf_counter()
+
+    def wait() -> dict:
+        for name, ps in procs.items():
+            for r, p in enumerate(ps):
+                left = DP_TIMEOUT - (time.perf_counter() - t0)
+                try:
+                    out, _ = p.communicate(timeout=max(left, 1.0))
+                except subprocess.TimeoutExpired:
+                    raise SmokeFailure(f"[parallel] {name}: rank {r} still "
+                                       f"running after {DP_TIMEOUT} s")
+                require(p.returncode == 0, f"[parallel] {name}: rank {r} "
+                        f"exited {p.returncode}:\n{out[-4000:]}")
+        res = {}
+        for name, argvs in jobs.items():
+            d = Path(argvs[0][argvs[0].index("--out") + 1])
+            res[name] = [(json.loads((d / f"rank{r}.json").read_text()),
+                          dict(np.load(d / f"rank{r}.npz")))
+                         for r in range(len(argvs))]
+        log(f"[parallel] {', '.join(jobs)}: {time.perf_counter() - t0:.1f} "
+            "s with start-up")
+        return res
+
+    try:
+        yield wait
+    finally:
+        for ps in procs.values():
+            for p in ps:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+
+
+def step_metrics(workdir) -> dict:
+    """{global step: {metric: value}} from a run's metrics.jsonl (every
+    step logged, log_every 1)."""
+    out = {}
+    with open(Path(workdir, "summaries", "metrics.jsonl")) as f:
+        for line in f:
+            r = json.loads(line)
+            if "loss" in r:
+                out[r["step"]] = {k: v for k, v in r.items()
+                                  if k not in ("step", "time")}
+    return out
+
+
+def param_arrays(params) -> dict:
+    """{"param:<key path>": numpy} as tools/dp_fit.py writes them."""
+    from semantichuman_torch.utils.params import tree_leaves, tree_paths
+    return {"param:" + "/".join(map(str, p)): t.detach().cpu().numpy()
+            for p, t in zip(tree_paths(params), tree_leaves(params))}
+
+
+def dp_compare(name: str, ranks: list, workdir, ref: dict, steps,
+               exact: bool = False, same_start: bool = True) -> dict:
+    """The ranks' run (its rank-0 log in `workdir`, its npz with the
+    gradients of its first steps, `tools/dp_fit.py --save_grads`) against
+    the one-process run `ref` (its step metrics, its gradient of each
+    step, its parameters after the steps and the val loss after them):
+    the losses of `steps` within rtol DP_LOSS_RTOL, the first step's
+    gradient (where same_start: both runs start from the same parameters)
+    within DP_GRAD_TOL of each tensor's largest entry, the val loss within
+    rtol DP_VAL_RTOL (exact: every step's gradient, the losses, the val
+    loss and the parameters bit for bit); every rank's gradients and
+    parameters equal rank 0's bit for bit.  Otherwise the gradients and
+    the parameters are reported: the parameters beyond rtol 1e-4, atol
+    1e-6 with, at the largest difference, the one-process run's gradient
+    of each step and the weight decay's term of the coupled L2 gradient.
+    -> results, with the checks that failed under "failures"."""
+    j0, a0 = ranks[0]
+    mine = step_metrics(workdir)
+    got = [mine[s]["loss"] for s in steps]
+    want = [ref["metrics"][s]["loss"] for s in steps]
+    worst = max(abs(g - w) / max(abs(w), 1e-30) for g, w in zip(got, want))
+    fails = [f"{name}: step {s} logged {sorted(mine[s])}, the one-process "
+             f"run {sorted(ref['metrics'][s])}" for s in steps
+             if sorted(mine[s]) != sorted(ref["metrics"][s])]
+    metric_rel = {}
+    for s in steps:
+        for k, w in ref["metrics"][s].items():
+            if k in mine[s]:
+                metric_rel[k] = max(metric_rel.get(k, 0.0),
+                                    abs(mine[s][k] - w) / max(abs(w), 1e-30))
+    grad_rel = {}       # step -> tensor -> share of its largest entry
+    for i, s in enumerate(steps, start=1):
+        grad_rel[s] = {}
+        for path, w in ref["grads"][s].items():
+            d = float(np.abs(a0[f"grad{i}:{path}"] - w).max())
+            grad_rel[s][path] = d / max(float(np.abs(w).max()), 1e-30)
+    held = steps if exact else steps[:1] if same_start else ()
+    bad_grads = {(s, k): v for s in held for k, v in grad_rel[s].items()
+                 if (v > 0 if exact else v > DP_GRAD_TOL)}
+    if bad_grads:
+        fails.append(f"{name}: gradients beyond "
+                     f"{'equality' if exact else DP_GRAD_TOL} of their "
+                     f"largest entry: {bad_grads}")
+    if exact:
+        if got != want:
+            fails.append(f"{name}: losses {got} != {want}")
+        if j0["val"] != ref["val"][steps[-1]]:
+            fails.append(f"{name}: val {j0['val']} != "
+                         f"{ref['val'][steps[-1]]}")
+    else:
+        if worst > DP_LOSS_RTOL:
+            fails.append(f"{name}: step losses {got} vs {want} (rel "
+                         f"{worst:.3g})")
+        if abs(j0["val"] - ref["val"][steps[-1]]) > (
+                DP_VAL_RTOL * abs(ref["val"][steps[-1]])):
+            fails.append(f"{name}: val {j0['val']} vs "
+                         f"{ref['val'][steps[-1]]}")
+    beyond = {}
+    for path, v in ref["params"][steps[-1]].items():
+        d = np.abs(a0["param:" + path] - v)
+        off = d > 0 if exact else d > DP_PARAM_ATOL + DP_PARAM_RTOL * np.abs(v)
+        if off.any():
+            at = np.unravel_index(int(d.argmax()), d.shape)
+            start = ref["params"][steps[0] - 1][path][at]
+            beyond[path] = {
+                "n": int(off.sum()), "of": int(off.size),
+                "max_abs": float(d.max()), "ref": float(v[at]),
+                "ref_grads": [float(ref["grads"][s][path][at])
+                              for s in steps],
+                "decay_term": float(DP_DECAY * start)}
+    if beyond and exact:
+        fails.append(f"{name}: parameters differ: {beyond}")
+    for j, a in ranks[1:]:
+        bad = [k for k in a0 if k != "preds"
+               and not np.array_equal(a0[k], a[k])]
+        if bad:
+            fails.append(f"{name}: rank {j['rank']}'s gradients or "
+                         f"parameters differ from rank 0's: {bad[:3]}")
+        if j["start_epoch"] != j0["start_epoch"]:
+            fails.append(f"{name}: the ranks' start epochs differ")
+    grad_max = {s: max(g.values()) for s, g in grad_rel.items()}
+    log(f"[parallel] {name}: losses {got} vs {want}; metrics' max rel "
+        f"{ {k: float(f'{v:.3g}') for k, v in metric_rel.items()} }; "
+        f"each step's gradient, its largest difference over the largest "
+        f"entry of its tensor "
+        f"{ {s: float(f'{v:.3g}') for s, v in grad_max.items()} }; "
+        f"parameter tensors beyond rtol {DP_PARAM_RTOL}, atol "
+        f"{DP_PARAM_ATOL}: {beyond or 'none'}")
+    return {"losses": got, "ref_losses": want, "loss_max_rel": worst,
+            "metric_max_rel": metric_rel, "grad_max_rel": grad_max,
+            "grad_rel": grad_rel,
+            "params_beyond": beyond, "val": j0["val"],
+            "ref_val": ref["val"][steps[-1]],
+            "start_epoch": j0["start_epoch"], "world": j0["world"],
+            "devices": [j["device"] for j, _a in ranks], "failures": fails}
+
+
+def rank_counts(ranks: list) -> dict:
+    """The launches of a run's ranks, summed (each counted from its
+    process's start)."""
+    return {k: sum(j["launches"][k] for j, _a in ranks)
+            for k in KERNEL_COUNTS}
+
+
+def dp_reference(tmp: Path) -> dict:
+    """Phase 11's run without a process group, two epochs in this process:
+    its step metrics, each step's gradient as the optimizer receives it
+    (`tools/dp_fit.py:recording_grads`), its parameters before the first
+    step and after each epoch (by key path) and its val loss after each
+    epoch, and its checkpoint directory."""
+    from semantichuman_torch.config import Config
+    from semantichuman_torch.tools.dp_fit import recording_grads
+    from semantichuman_torch.train.loop import Trainer
+
+    wd = trainer_workdir(tmp, "dp_ref")
+    t0 = time.perf_counter()
+    tr = Trainer(Config.from_dict(dp_raw(2)), wd, device=DEVICE)
+    require(not tr.data_parallel, "the one-process run is data-parallel")
+    steps = tr.steps_per_epoch
+    params = {0: param_arrays(tr.params)}
+    with recording_grads(2 * steps) as grads:
+        for epoch in (1, 2):
+            tr.fit(epoch)
+            tr.start_epoch = epoch + 1
+            params[epoch * steps] = param_arrays(tr.params)
+    sync()
+    paths = [k[len("param:"):] for k in params[0]]
+    params = {s: {k[len("param:"):]: v for k, v in p.items()}
+              for s, p in params.items()}
+    return {"fit_s": time.perf_counter() - t0,
+            "ckdir": os.path.join(wd, "checkpoints"),
+            "metrics": step_metrics(wd), "params": params,
+            "grads": {s: dict(zip(paths, g))
+                      for s, g in enumerate(grads, start=1)},
+            "val": {h["epoch"] * steps: h["val"] for h in tr.history}}
+
+
+def phase_dp(tmp: Path) -> tuple:
+    """(a) two ranks under gloo on cuda:0 and (b) one rank under NCCL,
+    each through cli.train --distributed (`tools/dp_fit.py`), against the
+    same run in this process without a process group; then (a)'s
+    checkpoint resumed by two ranks for epoch 2.  (a) is held by its
+    losses, its first step's gradient and the val loss; its parameters
+    after Adam are reported (DP_GRAD_TOL says why).  -> (results,
+    {path: launches}, the one-process run's checkpoint directory)."""
+    import yaml
+    cfg1, cfg2 = tmp / "dp1.yaml", tmp / "dp2.yaml"
+    cfg1.write_text(yaml.safe_dump(dp_raw(1)))
+    cfg2.write_text(yaml.safe_dump(dp_raw(2)))
+    out = {}
+    jobs = {"dp_gloo": dp_argvs(tmp, "dp_gloo", str(cfg1), DP_WORLD,
+                                "gloo"),
+            "dp_nccl1": dp_argvs(tmp, "dp_nccl1", str(cfg1), 1, "nccl")}
+    with dp_launch(jobs) as wait:
+        ref = dp_reference(tmp)         # while the ranks run
+        res = wait()
+    out["ref_fit_s"] = ref["fit_s"]
+    out["gloo"] = dp_compare("(a) gloo", res["dp_gloo"], tmp / "dp_gloo",
+                             ref, (1, 2, 3))
+    out["nccl1"] = dp_compare("(b) nccl, world 1", res["dp_nccl1"],
+                              tmp / "dp_nccl1", ref, (1, 2, 3), exact=True)
+    gl = tmp / "dp_gloo"
+    require(sorted(os.listdir(gl / "checkpoints"))
+            == ["1", "train_params.txt"],
+            f"(a) checkpoints: {os.listdir(gl / 'checkpoints')}")
+    dumps = (gl / "checkpoints" / "train_params.txt").read_text()
+    require(dumps.count('"git_sha"') == 1,
+            "(a) the configuration was dumped by more than one rank")
+    # both ranks resume (a)'s checkpoint and train epoch 2
+    jobs = {"dp_resume": dp_argvs(tmp, "dp_resume", str(cfg2), DP_WORLD,
+                                  "gloo", "--resume",
+                                  str(gl / "checkpoints"))}
+    with dp_launch(jobs) as wait:
+        res.update(wait())
+    # from (a)'s epoch-1 parameters, which are not the one-process run's
+    out["resume"] = dp_compare("(a) resumed", res["dp_resume"],
+                               tmp / "dp_resume", ref, (4, 5, 6),
+                               same_start=False)
+    require(out["resume"]["start_epoch"] == 2,
+            f"(a) resumed at epoch {out['resume']['start_epoch']}")
+    out["failures"] = [f for k in ("gloo", "nccl1", "resume")
+                       for f in out[k].pop("failures")]
+    counts = {"dp_gloo": rank_counts(res["dp_gloo"] + res["dp_resume"]),
+              "dp_nccl1": rank_counts(res["dp_nccl1"])}
+    for path, c in counts.items():
+        for k in ("spiral_conv_fwd", "spiral_conv_bwd_dw", "row_gather",
+                  "csr_reduce", "part_dist_fwd_grad"):
+            require(c[k] > 0, f"[parallel] {path}: no {k} launch")
+        require(all(c[k] == 0 for k in YARDSTICKS),
+                f"[parallel] {path}: a yardstick launched: {c}")
+    ranks = res["dp_gloo"]
+    require(ranks[0][0]["launches"] == ranks[1][0]["launches"],
+            "(a) the two ranks launched different kernels: "
+            f"{ranks[0][0]['launches']} vs {ranks[1][0]['launches']}")
+    return out, counts, ref["ckdir"]
+
+
+def trace_families(path: str) -> dict:
+    """{family: kernel events} of a Chrome trace, by PROFILE_GROUPS."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    return {label: sum(key in n for n in names)
+            for label, key in PROFILE_GROUPS.items()}
+
+
+def phase_trace(tmp: Path) -> tuple:
+    """(c) the B = 4 loop (the paper recipe, one epoch of 16 steps) with a
+    trace window over TRACE_WINDOW and without: the trace names the
+    kernels of rows 1, 3, 7 and 8 and no plain version or yardstick, the
+    logged losses are bit-equal, and the window's cost in ms a step.
+    -> (results, launches of the traced fit)."""
+    from semantichuman_torch.train.loop import Trainer
+
+    lo, hi = TRACE_WINDOW
+    runs = {}
+    for name, over in (("plain", {}), ("window", {"profile_start": lo,
+                                                  "profile_stop": hi})):
+        wd = trainer_workdir(tmp, f"trace_{name}")
+        tr = Trainer(trainer_cfg(n_epochs=1, log_every=1, **over), wd,
+                     device=DEVICE)
+        times = timed_steps(tr)
+        sync()
+        reset_counts()
+        tr.fit()
+        sync()
+        runs[name] = (tr, wd, times, read_counts())
+    (tr, wd, times, counts) = runs["window"]
+    plain_times = runs["plain"][2]
+    fam = trace_families(tr.trace_window.path)
+    for label in TRACE_FAMILIES:
+        require(fam[label] > 0, f"(c) no {label} kernel in the trace")
+    for label in TRACE_ABSENT:
+        require(fam[label] == 0, f"(c) {label} in the trace: {fam[label]}")
+    with open(Path(runs["plain"][1], "summaries", "metrics.jsonl")) as f:
+        plain = [{k: v for k, v in json.loads(x).items() if k != "time"}
+                 for x in f]
+    with open(Path(wd, "summaries", "metrics.jsonl")) as f:
+        traced = [{k: v for k, v in json.loads(x).items() if k != "time"}
+                  for x in f]
+    require(plain == traced, "(c) the traced fit's losses differ from the "
+            "fit without a window")
+    # times[j] is the loop iteration that ends with step j + 1: times[lo-1]
+    # holds the profiler's start and step lo, times[lo:hi-1] the steps
+    # inside the window, times[hi-1] its stop, the export and step hi
+    require(len(times) >= hi and len(plain_times) >= hi,
+            f"(c) the fit ran {len(times) + 1} steps, the window ends at {hi}")
+    d = np.asarray(times[:hi]) - np.asarray(plain_times[:hi])
+    cost = {"start_ms": float(d[lo - 1]),
+            "per_step_ms": float(d[lo:hi - 1].mean()),
+            "stop_export_ms": float(d[hi - 1])}
+    out = {"trace": os.path.relpath(tr.trace_window.path, tmp),
+           "trace_bytes": os.path.getsize(tr.trace_window.path),
+           "families": fam, "window_ms": times[lo - 1:hi],
+           "plain_ms": plain_times[lo - 1:hi], **cost}
+    log(f"[trace] (c) window over steps [{lo}, {hi}): kernel events by "
+        f"family {fam}; losses bit-equal to the untraced fit; the window "
+        f"costs {cost['per_step_ms']:.3f} ms a step, its start "
+        f"{cost['start_ms']:.1f} ms, its stop and export "
+        f"{cost['stop_export_ms']:.1f} ms "
+        f"({np.round(times[lo - 1:hi], 3).tolist()} against "
+        f"{np.round(plain_times[lo - 1:hi], 3).tolist()} ms); trace "
+        f"{out['trace_bytes'] / 2**20:.1f} MiB")
+    return out, counts
+
+
+def geometry_case(name: str, verts: np.ndarray, faces: np.ndarray,
+                  spectral: bool) -> tuple:
+    """(d) one mesh: every operator of ops/geometry.py (the spectral ones
+    where `spectral`) and distance.py's vertex normals and volumes on the
+    card against the CPU within the CPU tests' tolerances; card and CPU
+    times.  -> (results, launches of the checks)."""
+    from semantichuman_torch.ops import distance as D
+    from semantichuman_torch.ops import geometry as G
+
+    n = len(verts)
+    rng = np.random.default_rng(0)
+    x_np = rng.standard_normal((n, 5)).astype(np.float32)
+    src_np = np.zeros(n, np.float32)
+    src_np[0] = 1.0
+
+    def ops(dev):
+        mt = G.MeshTables.build(faces, n, dev)
+        v = torch.as_tensor(verts, dtype=torch.float32, device=dev)
+        x = torch.as_tensor(x_np, device=dev)
+        res = {"areas": G.face_areas_normals(v, mt)[0],
+               "normals": G.face_areas_normals(v, mt)[1],
+               "cotan": G.cotan_weights(v, mt),
+               "mass": G.lumped_mass(v, mt),
+               "laplacian": G.laplacian_apply(v, mt, x),
+               "laplacian_vec": G.laplacian_apply(v, mt, x[:, 0]),
+               "volume": G.mesh_volume(v, mt)[None],
+               "vertex_normals": D.vertex_normals(v[None], mt.corners),
+               "total_volume": D.total_mesh_volume(v[None], mt.corners)}
+        fields = {"geodesic": G.geodesics_in_heat(
+            v, mt, torch.as_tensor(src_np, device=dev))}
+        if spectral:
+            res["laplacian_dense"] = G.laplacian_dense(v, mt)
+            w, phi = G.spectral_basis(v, mt, 9)
+            res["eigenvalues"] = w
+            fields["biharmonic"] = G.biharmonic_distance(v, mt, k=36)
+            fields["eigenvectors"] = phi
+        return ({k: t.cpu().numpy() for k, t in res.items()},
+                {k: t.cpu().numpy() for k, t in fields.items()}, mt, v, x)
+
+    cpu, cpu_fields, mt_c, v_c, x_c = ops("cpu")
+    sync()
+    reset_counts()
+    card, card_fields, mt_g, v_g, x_g = ops(DEVICE)
+    sync()
+    counts = read_counts()
+    errs = {}
+    for k, want in cpu.items():
+        err = float(np.abs(card[k] - want).max())
+        scale = max(float(np.abs(want).max()), 1e-30)
+        tol = (GEO_EIG_RTOL if k == "eigenvalues" else GEO_OP_TOL) * scale
+        errs[k] = err / scale
+        require(err <= tol, f"(d) {name} {k}: card vs cpu {err:.3g} > "
+                f"{tol:.3g}")
+    for k in ("geodesic", "biharmonic"):
+        if k in cpu_fields:
+            want = cpu_fields[k]
+            err = float(np.abs(card_fields[k] - want).max())
+            errs[k] = err / float(want.max())
+            if spectral:
+                require(err <= GEO_FIELD_TOL * float(want.max()),
+                        f"(d) {name} {k}: card vs cpu {errs[k]:.3g} of "
+                        "its largest value")
+    if not spectral:
+        # tests/test_geometry.py's check of an elongated mesh: finite and
+        # bounded by 4 bounding-box diagonals (see GEO_FIELD_TOL)
+        diag = float(np.linalg.norm(np.ptp(verts, axis=0)))
+        for f in (cpu_fields["geodesic"], card_fields["geodesic"]):
+            require(np.isfinite(f).all() and f.max() < 4 * diag,
+                    f"(d) {name} geodesic unbounded: max {f.max():.3g}, "
+                    f"diagonal {diag:.3g}")
+    if spectral:
+        m = cpu["mass"]
+        for lo, hi in GEO_CLUSTERS:
+            cos = np.linalg.svd(card_fields["eigenvectors"][:, lo:hi].T
+                                @ (m[:, None]
+                                   * cpu_fields["eigenvectors"][:, lo:hi]),
+                                compute_uv=False)
+            require(np.all(np.abs(cos - 1.0) <= GEO_EIG_RTOL),
+                    f"(d) {name} eigenvectors {lo}:{hi}: cosines {cos}")
+    src_g = torch.as_tensor(src_np, device=DEVICE)
+    src_c = torch.as_tensor(src_np)
+    times = {
+        "laplacian_ms": time_ms(lambda: G.laplacian_apply(v_g, mt_g, x_g)),
+        "laplacian_cpu_ms": host_ms(lambda: G.laplacian_apply(v_c, mt_c,
+                                                              x_c), reps=5),
+        "geodesics_ms": host_ms(lambda: G.geodesics_in_heat(v_g, mt_g,
+                                                            src_g), reps=2,
+                                warmup=1),
+        "geodesics_cpu_ms": host_ms(lambda: G.geodesics_in_heat(
+            v_c, mt_c, src_c), reps=1, warmup=0)}
+    log(f"[geometry] (d) {name} ({n} vertices, {len(faces)} faces): card "
+        f"against cpu, the largest difference over each output's scale "
+        f"{ {k: float(f'{v:.3g}') for k, v in errs.items()} }; laplacian "
+        f"{times['laplacian_ms']:.4f} ms on the card, "
+        f"{times['laplacian_cpu_ms']:.3f} ms on the cpu; geodesics "
+        f"{times['geodesics_ms']:.1f} / {times['geodesics_cpu_ms']:.1f} ms")
+    return {"vertices": n, "faces": len(faces), "max_rel_err": errs,
+            **times}, counts
+
+
+def phase_geometry() -> tuple:
+    """(d) on icosphere(3) (with the spectral tools) and on the full-scale
+    synthetic template (the bundled topology's level 0).  -> (results,
+    launches of the checks)."""
+    from semantichuman_torch.data.synthetic import SyntheticHuman, icosphere
+
+    v, f = icosphere(3)
+    ico, c1 = geometry_case("icosphere(3)", v, f, spectral=True)
+    sh = SyntheticHuman()
+    full, c2 = geometry_case("full template", sh.template_verts,
+                             sh.template_faces, spectral=False)
+    require(c1["csr_reduce"] > 0 and c1["row_gather"] > 0,
+            f"(d) geometry launched no row 7 / row 8 kernel: {c1}")
+    return ({"icosphere3": ico, "full_template": full},
+            {k: c1[k] + c2[k] for k in c1})
+
+
+def phase_serving_ab(ckpt: str) -> tuple:
+    """(e) tools/serving_accuracy.py on the card from the checkpoint
+    `ckpt` (its train_params.txt beside it): f32 and bf16 arms, each with
+    its own Trainer and inputs; a finite, nonzero delta.  -> (results,
+    launches)."""
+    from semantichuman_torch.tools import serving_accuracy
+
+    sync()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = serving_accuracy.main(["--resume", ckpt, "--device", DEVICE])
+    sync()
+    res["tool_s"] = time.perf_counter() - t0
+    counts = read_counts()
+    require(np.isfinite([res[k] for k in ("f32_mm", "bf16_mm", "f32_l1",
+                                          "bf16_l1")]).all(),
+            f"(e) non-finite serving accuracy {res}")
+    require(res["delta_mm"] != 0.0, f"(e) the bf16 delta reads 0: {res}")
+    require(counts["spiral_conv_fwd"] > 0 and counts["row_gather"] > 0,
+            f"(e) the eval launched no conv or gather: {counts}")
+    log(f"[serving] (e) f32 {res['f32_mm']:.4f} mm, bf16 "
+        f"{res['bf16_mm']:.4f} mm, delta {res['delta_mm']:.4g} mm")
+    return res, counts
+
+
+def phase_parallel(card: str, tmp: Path, ckpt: str | None) -> dict:
+    """Phase 11 in the directory tmp: (a)-(b) data parallelism, (c) the
+    trace window, (d) geometry, (e) the serving dtype A/B on phase 7's
+    epoch-2 checkpoint `ckpt` (None: the one-process run of (a)'s).
+    -> results with their launches under "counts"."""
+    t_phase = time.perf_counter()
+    out = {"card": card}
+    out["dp"], counts, dp_ckpt = phase_dp(tmp)
+    out["trace"], counts["trace"] = phase_trace(tmp)
+    out["geometry"], counts["geometry"] = phase_geometry()
+    out["serving_ab"], counts["serving_ab"] = phase_serving_ab(
+        ckpt or dp_ckpt)
+    out["counts"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[parallel] phase 11 ({card}): {out['phase_s']:.1f} s")
+    # (a)-(b)'s comparisons fail the phase here, once (c)-(e) have run
+    fails = out["dp"].pop("failures")
+    require(not fails, "[parallel] " + "; ".join(fails))
+    return out
+
+
 def parse_args(argv):
     """No argument: every phase, the gates and the result line.  The two
     tuning modes run phase 1 and one kernel's phase alone, with a profile
@@ -4120,6 +4676,10 @@ def parse_args(argv):
                       help="phase 1 and phase 10 alone (the Editor, the "
                       "exported bundle and its captured forward, "
                       "cli.export, cli.eval_reference and cli.demo)")
+    mode.add_argument("--parallel", action="store_true",
+                      help="phase 1 and phase 11 alone (data-parallel "
+                      "training over gloo and NCCL, the trace window, "
+                      "geometry, the serving dtype A/B)")
     mode.add_argument("--band-gates", action="store_true",
                       help="phase 1 and the banded routes' batch gates, "
                       "each on its own against the take route, in turns "
@@ -4167,6 +4727,15 @@ def main(argv=None) -> int:
             deploy = phase_deploy(card, Path(tmp), None)
         deploy.pop("counts")
         log(json.dumps({"deploy": deploy}, default=str))
+        log(card)
+        return 0
+    if args.parallel:
+        # data parallelism, the trace window, geometry and the serving A/B
+        # alone: no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            par = phase_parallel(card, Path(tmp), None)
+        par.pop("counts")
+        log(json.dumps({"parallel": par}, default=str))
         log(card)
         return 0
     if args.baseline:
@@ -4280,7 +4849,11 @@ def main(argv=None) -> int:
                                   trainer["epoch2_checkpoint"])
         torch.cuda.empty_cache()
         deploy = phase_deploy(card, Path(tmp), trainer["epoch2_checkpoint"])
+        torch.cuda.empty_cache()
+        parallel = phase_parallel(card, Path(tmp),
+                                  trainer["epoch2_checkpoint"])
     deploy_counts = deploy.pop("counts")
+    parallel_counts = parallel.pop("counts")
     baseline_counts = {
         "neural3dmm": baseline.pop("counts"),
         "neural3dmm_resume_torch": baseline["n3dmm_resume"].pop("counts"),
@@ -4298,7 +4871,10 @@ def main(argv=None) -> int:
     # phase 10: edit (one run_demo), export_serve (the eager programs),
     # graph_serve (per batch the two warm-ups and the capture; a replay
     # counts nothing, phase 10 holds the replays to the profiler),
-    # eval_reference (cli.eval_reference on the card)
+    # eval_reference (cli.eval_reference on the card); phase 11: dp_gloo
+    # (both ranks of (a) and of its resume, each counted in its own
+    # process), dp_nccl1, trace (the windowed fit), geometry (the card's
+    # checks), serving_ab (the tool's two arms)
     paths = {"serve": serve, "serve_banded": serve_banded,
              "serve_take": serve_take, "train_step": step_counts,
              "trainer": trainer_counts, "trainer_graph": graph_counts,
@@ -4306,7 +4882,7 @@ def main(argv=None) -> int:
              "trainer_banded_graph": banded_graph_counts,
              "dfaust_stacked": dfaust_counts["stacked"],
              "dfaust_files": dfaust_counts["files"], **baseline_counts,
-             **deploy_counts}
+             **deploy_counts, **parallel_counts}
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -4518,6 +5094,7 @@ def main(argv=None) -> int:
     log(json.dumps({"dfaust": dfaust}, default=str))
     log(json.dumps({"baseline": baseline}, default=str))
     log(json.dumps({"deploy": deploy}, default=str))
+    log(json.dumps({"parallel": parallel}, default=str))
     log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))

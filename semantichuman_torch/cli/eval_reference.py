@@ -19,10 +19,12 @@ through `utils/import_torch.py`, runs the test split through
 line with mean L1 and mean per-vertex mm error.  When the torch run's own
 numbers are supplied (--torch_l1/--torch_mm), it also prints the relative
 delta (the <= 0.5 % north-star check) and exits 1 if the mm delta exceeds
---max_delta_pct.  The JAX CLI's replication of the parameters over a
-device mesh waits for data-parallel training (ROADMAP.md section 1,
-'DDP and the trace window'); its `enable_cache()` (JAX's compilation
-cache) has no counterpart here.
+--max_delta_pct.  Under torchrun (or --coordinator/--num_processes/
+--process_id) with --distributed, each process evaluates its rows of every
+test batch and the sums are taken over the processes, as the JAX CLI's
+mesh branch shards the batch: the imported parameters are broadcast from
+rank 0 and rank 0 prints the line.  The JAX CLI's `enable_cache()` (JAX's
+compilation cache) has no counterpart here.
 """
 
 from __future__ import annotations
@@ -64,7 +66,19 @@ def main(argv=None):
                     help="fail (exit 1) if |mm delta| exceeds this percent")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a process group first (torchrun's "
+                         "environment, or the three flags below)")
+    ap.add_argument("--coordinator", default=None,
+                    help="rank 0's address, tcp://host:port")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
     args = ap.parse_args(argv)
+
+    if args.distributed or args.coordinator:
+        from ..parallel.distributed import initialize_distributed
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, device=args.device)
 
     from ..config import Config
     from ..train.loop import Trainer
@@ -88,8 +102,11 @@ def main(argv=None):
                                            batch_test=args.batch_test))
 
     trainer = Trainer(cfg, args.workdir, device=args.device)
-    trainer.params, epoch = load_reference_checkpoint(args.checkpoint,
-                                                      trainer.model)
+    params, epoch = load_reference_checkpoint(args.checkpoint, trainer.model)
+    if trainer.data_parallel:
+        from ..parallel.mesh import put_replicated
+        put_replicated(params)
+    trainer.params = params
 
     unnormalize = False if args.normalized_metrics else None
     _p, _z, _zk, _tx, l1, mm = trainer.evaluate(
@@ -104,7 +121,8 @@ def main(argv=None):
     if args.torch_mm is not None:
         out["mm_delta_pct"] = 100.0 * (mm - args.torch_mm) / args.torch_mm
         fail = abs(out["mm_delta_pct"]) > args.max_delta_pct
-    print(json.dumps(out))
+    if trainer._is_main:
+        print(json.dumps(out))
     return 1 if fail else 0
 
 

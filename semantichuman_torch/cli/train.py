@@ -14,8 +14,16 @@ data_generation), or the synthetic generator with --synthetic.
 `--config configs/train_neural3dmm.yaml` trains the neural3DMM baseline.
 --resume_torch continues from a reference `.pth.tar` (weights, Adam
 moments and the schedule's position; with --finetune the weights alone).
-The JAX CLI's --distributed is not ported (ROADMAP.md section 1, 'DDP and
-the trace window').
+
+Data parallel, one process a card (`parallel/distributed.py`):
+
+  torchrun --nproc_per_node N -m semantichuman_torch.cli.train \
+      --distributed --config ... --workdir ...
+
+or each process started by hand with --coordinator tcp://HOST:PORT
+--num_processes N --process_id R.  The backend is NCCL on the card and gloo
+with --device cpu (--backend overrides it).  Every batch size of the config
+is global and must divide by N.
 """
 
 from __future__ import annotations
@@ -44,7 +52,24 @@ def main(argv=None):
                     help="use the synthetic dataset (no DFAUST needed)")
     ap.add_argument("--device", default="cuda",
                     help="torch device (default: the card)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join a process group before training: torchrun's "
+                         "environment, or --coordinator/--num_processes/"
+                         "--process_id")
+    ap.add_argument("--coordinator", default=None,
+                    help="rank 0's address, tcp://host:port")
+    ap.add_argument("--num_processes", type=int, default=None)
+    ap.add_argument("--process_id", type=int, default=None)
+    ap.add_argument("--backend", default=None, choices=("nccl", "gloo"),
+                    help="process-group backend (default: nccl on the "
+                         "card, gloo on the cpu)")
     args = ap.parse_args(argv)
+
+    if args.distributed or args.coordinator:
+        from ..parallel.distributed import initialize_distributed
+        initialize_distributed(args.coordinator, args.num_processes,
+                               args.process_id, backend=args.backend,
+                               device=args.device)
 
     from ..config import Config
     from ..train.loop import Trainer
@@ -74,8 +99,9 @@ def main(argv=None):
     trainer.fit()
     if cfg.train.eval_flag:
         _p, _z, _zk, _tx, l1, l2mm = trainer.export_predictions()
-        print(f"test L1: {l1:.6f}")
-        print(f"test per-vertex euclidean (mm): {l2mm:.4f}")
+        if trainer._is_main:
+            print(f"test L1: {l1:.6f}")
+            print(f"test per-vertex euclidean (mm): {l2mm:.4f}")
     return trainer
 
 

@@ -5,14 +5,16 @@ file in `configs/` loads into either package).
     cfg = Config.from_yaml("configs/train_dfaust.yaml")
     cfg = Config()          # code defaults: the paper recipe
 
-Fields that select a mechanism of the JAX package's TPU runtime load and
-have no effect in the port:
+`model.use_pallas` selects a mechanism of the JAX package's TPU runtime;
+it loads and has no effect in the port, whose kernels are its only
+implementation.
 
-  * `model.use_pallas`: the port's kernels are its only implementation;
-  * `train.data_parallel`: one process drives one card; a distributed run
-    raises (data parallelism is not ported);
-  * `train.profile_start` / `profile_stop`: at their default (0, 0);
-    a profiling window raises (the trace window is not ported).
+`train.data_parallel` (on by default) trains data-parallel when the
+process has joined a process group (`parallel/distributed.py`, `cli/train.py
+--distributed`): one process a card, each on its rows of every global
+batch.  `train.profile_start` < `profile_stop` records global steps
+[start, stop) with torch.profiler into <workdir>/profile
+(`utils/profiling.py:TraceWindow`).
 
 `train.epoch_scan` (on by default) and `train.scan_epochs` mean what they
 mean in the JAX package: the Trainer runs chunks of up to scan_epochs
@@ -138,12 +140,12 @@ class TrainConfig:
     eval_flag: bool = True
     val_every: int = 1                # val pass every N epochs
     save_recons: bool = True
-    data_parallel: bool = True        # no effect in the port (one card)
+    data_parallel: bool = True        # under a process group: DP
     epoch_scan: bool = True           # the epoch path (a CUDA graph a step)
     scan_epochs: int = 1              # epochs per chunk of the epoch path
     log_every: int = 0                # extra step-level logging (0 = off)
     profile_start: int = 0
-    profile_stop: int = 0             # > profile_start: not ported, raises
+    profile_stop: int = 0             # > profile_start: a trace window
 
 
 @dataclass

@@ -195,7 +195,8 @@ class BatchLoader:
                  seed: int = 0, normalization: str = "No",
                  j_regressor: np.ndarray | None = None,
                  stats: ShapeStats | None = None, dummy_node: bool = True,
-                 drop_last: bool = False, pad_final: bool = False):
+                 drop_last: bool = False, pad_final: bool = False,
+                 process_slice: tuple[int, int] | None = None):
         self.source = source
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -207,6 +208,13 @@ class BatchLoader:
         self.dummy_node = dummy_node
         self.drop_last = drop_last
         self.pad_final = pad_final
+        # (rank, world): every process walks the same global batch order
+        # (same seed and epoch) and keeps its contiguous slice of each
+        # batch, rows [rank*per, (rank+1)*per)
+        self.process_slice = process_slice
+        if process_slice is not None and batch_size % process_slice[1]:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"{process_slice[1]} processes")
         self.epoch = 0
 
     def __len__(self):
@@ -238,9 +246,23 @@ class BatchLoader:
                 valid[-pad:] = 0.0
             yield {"global_idx": idx, "pad": pad, "valid": valid}
 
+    def local(self, meta: dict) -> tuple:
+        """(idx, valid) of this process's rows of a scheduled batch (the
+        whole batch without a process_slice)."""
+        idx, valid = meta["global_idx"], meta["valid"]
+        if self.process_slice is None:
+            return idx, valid
+        r, w = self.process_slice
+        if len(idx) % w:
+            raise ValueError(
+                f"batch of {len(idx)} not divisible by {w} processes (use "
+                "drop_last or pad_final with a divisible batch_size)")
+        per = len(idx) // w
+        return idx[r * per:(r + 1) * per], valid[r * per:(r + 1) * per]
+
     def __iter__(self):
         for meta in self.iter_indices():
-            idx = meta["global_idx"]
+            idx, valid = self.local(meta)
             batch = self.source.take(idx)
             v = normalize_batch(batch["verts"], self.normalization,
                                 self.j_regressor, self.stats, idx)
@@ -248,9 +270,9 @@ class BatchLoader:
                 z = np.zeros((v.shape[0], 1, v.shape[2]), dtype=v.dtype)
                 v = np.concatenate([v, z], axis=1)
             batch["verts"] = v
-            batch["pad"] = meta["pad"]
-            batch["valid"] = meta["valid"]
-            batch["global_idx"] = idx
+            batch["pad"] = meta["pad"]                  # the global pad count
+            batch["valid"] = valid                      # this process's rows
+            batch["global_idx"] = meta["global_idx"]    # the global batch
             yield batch
 
     def cycle(self, anchor: int | None = None):

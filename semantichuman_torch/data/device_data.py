@@ -95,14 +95,18 @@ class DeviceDataSource:
             out[name] = arr.index_select(0, idx)
         return out
 
-    def take(self, meta: dict) -> dict:
+    def take(self, meta: dict, loader=None) -> dict:
         """One batch from index metadata (BatchLoader.iter_indices()): the
-        same dict as a placed host batch."""
-        idx = torch.as_tensor(np.asarray(meta["global_idx"], np.int64),
-                              device=self.device)
-        return {**self.batch_fn(idx), "pad": meta["pad"],
-                "valid": torch.as_tensor(meta["valid"], device=self.device),
-                "idx": meta["global_idx"], "global_idx": meta["global_idx"]}
+        same dict as a placed host batch.  With the BatchLoader `loader`
+        that scheduled it, this process's rows of it (its process_slice)
+        and their `valid` mask; `pad` stays the global batch's."""
+        idx, valid = ((meta["global_idx"], meta["valid"]) if loader is None
+                      else loader.local(meta))
+        idx_dev = torch.as_tensor(np.asarray(idx, np.int64),
+                                  device=self.device)
+        return {**self.batch_fn(idx_dev), "pad": meta["pad"],
+                "valid": torch.as_tensor(valid, device=self.device),
+                "idx": idx, "global_idx": meta["global_idx"]}
 
 
 class DeviceBatchLoader:
@@ -122,7 +126,7 @@ class DeviceBatchLoader:
 
     def __iter__(self):
         for meta in self.loader.iter_indices():
-            yield self.source.take(meta)
+            yield self.source.take(meta, self.loader)
 
     def meta_cycle(self, anchor: int | None = None):
         """BatchLoader.cycle's endless, resume-safe schedule as index
@@ -137,4 +141,4 @@ class DeviceBatchLoader:
     def cycle(self, anchor: int | None = None):
         """BatchLoader.cycle's endless, resume-safe schedule."""
         for meta in self.meta_cycle(anchor):
-            yield self.source.take(meta)
+            yield self.source.take(meta, self.loader)

@@ -17,6 +17,44 @@ from ..constants import (MEASURE_SKL_LIST, N_KPS_FULL, N_PARTS, NEWSKL_LIST,
 from .measure_np import bone_lengths_np, girths_np
 
 
+def icosphere(subdiv: int = 2, radius: float = 1.0):
+    """Subdivided icosahedron: (verts [V,3] float64, faces [F,3] int32)."""
+    phi = (1.0 + np.sqrt(5.0)) / 2.0
+    verts = np.array([
+        [-1, phi, 0], [1, phi, 0], [-1, -phi, 0], [1, -phi, 0],
+        [0, -1, phi], [0, 1, phi], [0, -1, -phi], [0, 1, -phi],
+        [phi, 0, -1], [phi, 0, 1], [-phi, 0, -1], [-phi, 0, 1],
+    ], dtype=np.float64)
+    faces = np.array([
+        [0, 11, 5], [0, 5, 1], [0, 1, 7], [0, 7, 10], [0, 10, 11],
+        [1, 5, 9], [5, 11, 4], [11, 10, 2], [10, 7, 6], [7, 1, 8],
+        [3, 9, 4], [3, 4, 2], [3, 2, 6], [3, 6, 8], [3, 8, 9],
+        [4, 9, 5], [2, 4, 11], [6, 2, 10], [8, 6, 7], [9, 8, 1],
+    ], dtype=np.int64)
+
+    for _ in range(subdiv):
+        edge_mid: dict[tuple, int] = {}
+        new_faces = []
+        verts_list = list(verts)
+
+        def midpoint(a: int, b: int) -> int:
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = (verts_list[a] + verts_list[b]) / 2.0
+                edge_mid[key] = len(verts_list)
+                verts_list.append(m)
+            return edge_mid[key]
+
+        for a, b, c in faces:
+            ab, bc, ca = midpoint(a, b), midpoint(b, c), midpoint(c, a)
+            new_faces += [[a, ab, ca], [b, bc, ab], [c, ca, bc], [ab, bc, ca]]
+        verts = np.asarray(verts_list)
+        faces = np.asarray(new_faces, dtype=np.int64)
+
+    verts = verts / np.linalg.norm(verts, axis=1, keepdims=True) * radius
+    return verts, faces.astype(np.int32)
+
+
 def uv_capsule(n_theta: int = 64, n_phi: int = 109, radius_fn=None):
     """Closed UV-parameterized surface of revolution around +y, deformable by
     radius_fn(y01, theta).  Vertex count = n_theta * n_phi + 2 (two poles)."""

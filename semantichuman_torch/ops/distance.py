@@ -9,6 +9,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .csr_reduce import csr_reduce
 from .row_gather import GatherTable, gather_rows
 
 
@@ -71,3 +72,25 @@ def signed_part_volumes(verts: torch.Tensor, faces: GatherTable,
     v0, v1, v2 = face_corners(verts, faces)
     vol_f = torch.sum(torch.linalg.cross(v0, v1, dim=-1) * v2, dim=-1)
     return torch.einsum("bf,fp->bp", vol_f, face_part_mask.to(vol_f.dtype))
+
+
+def vertex_normals(verts: torch.Tensor, faces: GatherTable) -> torch.Tensor:
+    """[B, V, 3], faces the face table -> [B, V, 3] area-weighted unit
+    vertex normals: each face's cross product summed into its three
+    corners by the fixed-order CSR reduce over the face table's inverse."""
+    v0, v1, v2 = face_corners(verts, faces)
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)           # [B, F, 3]
+    per_corner = fn[:, :, None, :].expand(-1, -1, 3, -1)
+    normals = csr_reduce(per_corner.reshape(fn.shape[0], -1, 3).float()
+                         .contiguous(), faces.inverse)
+    norm = torch.linalg.vector_norm(normals, dim=-1, keepdim=True)
+    return normals / torch.clamp(norm, min=1e-12)
+
+
+def total_mesh_volume(verts: torch.Tensor,
+                      faces: GatherTable) -> torch.Tensor:
+    """[B, V, 3], faces the face table -> [B] signed enclosed volumes."""
+    v0, v1, v2 = face_corners(verts, faces)
+    xp = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)
+    tc = (v0 + v1 + v2) / 3.0
+    return torch.sum(xp * tc / 6.0, dim=(1, 2))

@@ -9,11 +9,17 @@ Libraries land in `semantichuman_torch/_build/` (git-ignored), named by a
 hash of their source and flags, so an edited source is rebuilt and an
 unchanged one is reused.  A library is written under a temporary name and
 renamed into place, so a concurrent build never loads a half-written file.
+Builds hold an exclusive lock on `_build/.lock` (flock: the kernel releases
+it when its holder exits), so the processes of a data-parallel run, which
+all build at first use, compile each source once and never share a build
+log: the first builds, the others wait and load what it built.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -125,19 +131,30 @@ def _finish(job) -> None:
     os.replace(tmp, out)
 
 
+@contextlib.contextmanager
+def _build_lock():
+    """Hold the build directory's lock (one build at a time across the
+    host's processes)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / ".lock", "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        yield
+
+
 def build_all() -> dict:
     """Compile every kernel source in parallel; returns {name: library
     path}.  Build logs (with ptxas register and shared-memory counts) sit
     beside each library as `.log`."""
-    jobs = [job for job in map(_start, SIGNATURES) if job is not None]
-    try:
-        for job in jobs:
-            _finish(job)
-    finally:
-        for proc, _tmp, _out in jobs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+    with _build_lock():
+        jobs = [job for job in map(_start, SIGNATURES) if job is not None]
+        try:
+            for job in jobs:
+                _finish(job)
+        finally:
+            for proc, _tmp, _out in jobs:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     return {name: _lib_path(name) for name in SIGNATURES}
 
 
@@ -145,9 +162,11 @@ def build_all() -> dict:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<name>.cu`, built first if needed, with
     argtypes and restype set for each exported function."""
-    job = _start(name)
-    if job is not None:
-        _finish(job)
+    if not _lib_path(name).exists():
+        with _build_lock():
+            job = _start(name)
+            if job is not None:
+                _finish(job)
     lib = ctypes.CDLL(str(_lib_path(name)))
     for fn, (argtypes, restype) in SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes

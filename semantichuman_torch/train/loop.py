@@ -46,6 +46,22 @@ hierarchy from the topology compiler, cached as
 default synthetic template), or from the reference's hierarchy pickle
 (data.reference_hierarchy).  On the loop, a worker thread prepares and
 copies the next train batches (`prefetch_to_device`, data.prefetch).
+
+Data parallel (train.data_parallel under a process group that
+`parallel/distributed.py:initialize_distributed` joined before the
+Trainer is built): one process a card, its device cuda:LOCAL_RANK.  Every
+rank walks the same global batch order, edit specs and exchange draws and
+trains on its contiguous rows of each global batch (`BatchLoader(
+process_slice=...)`); the step all-reduces the gradient and the metrics
+and makes the batch-coupled terms global (`step.py:make_loss_fn`), the
+parameters are broadcast from rank 0 once, validation and evaluation sum
+over the ranks, and rank 0 alone writes the logs, the configuration dump,
+samples, checkpoints (the others wait for it) and predictions.  A world
+of two or more trains through the loop, as the JAX Trainer does.
+
+A trace window (train.profile_start < profile_stop) records global steps
+[start, stop) of the loop with torch.profiler into <workdir>/profile
+(`utils/profiling.py:TraceWindow`); it sends training to the loop.
 """
 
 from __future__ import annotations
@@ -66,12 +82,16 @@ from ..data.dataset import (ArraySource, BatchLoader, FileSource, MeshData,
 from ..data.device_data import (DeviceBatchLoader, DeviceDataSource,
                                 gt_bytes)
 from ..models import build_model
+from ..parallel.distributed import process_count, process_index
+from ..parallel.mesh import (all_reduce_sum, barrier, fully_replicate,
+                             put_replicated, shard_spec)
 from ..topology import MeshHierarchy, compile_topology
 from ..topology.compiler import read_meta, topology_key
 from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.params import tree_paths
+from ..utils.profiling import TraceWindow
 from . import graph as G
 from . import losses as L
 from .edits import EditSampler
@@ -81,11 +101,6 @@ from .step import (EpochBuffers, flags_for_epoch, make_baseline_train_step,
                    to_device)
 
 BUNDLED_TOPOLOGY_DIR = Path(__file__).resolve().parents[2] / "assets"
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP.md "
-                               f"section 1, '{item}'")
 
 
 def load_topology(cfg: Config, assets: BodyAssets,
@@ -132,13 +147,26 @@ class Trainer:
         if t.resume and t.resume_torch:
             raise ValueError("set train.resume OR train.resume_torch, "
                              "not both")
-        if t.profile_stop > t.profile_start:
-            raise _not_ported("the profiling window (TraceWindow)",
-                              "the trace window")
-        if (torch.distributed.is_available()
-                and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1):
-            raise _not_ported("data-parallel training", "DDP")
+        # the process group joined before the Trainer (cli/train.py
+        # --distributed does)
+        self.data_parallel = bool(t.data_parallel
+                                  and torch.distributed.is_initialized())
+        self.n_processes = process_count() if self.data_parallel else 1
+        self.process_index = process_index() if self.data_parallel else 0
+        self._is_main = self.process_index == 0
+        self.process_slice = None
+        if self.data_parallel:
+            if self.device.type == "cuda" and self.device.index is None:
+                self.device = torch.device("cuda",
+                                           torch.cuda.current_device())
+            bad = [b for b in (t.batch_train, t.batch_interp, t.batch_test)
+                   if b % self.n_processes]
+            if bad:
+                raise ValueError(
+                    f"data-parallel training over {self.n_processes} "
+                    f"processes needs every batch size divisible by "
+                    f"{self.n_processes}; got {bad}")
+            self.process_slice = (self.process_index, self.n_processes)
         self.is_part_model = cfg.model.model_type == "multiz+partkps"
         for sub in ("checkpoints", "summaries", "samples", "predictions"):
             os.makedirs(os.path.join(workdir, sub), exist_ok=True)
@@ -171,7 +199,13 @@ class Trainer:
         self._setup_data(data)
 
         # --- topology, model, losses, optimizer -------------------------------
+        # rank 0 compiles the topology into the workdir's cache first; the
+        # other ranks read it after
+        if self.data_parallel and not self._is_main:
+            barrier()
         self.hierarchy = load_topology(cfg, assets, workdir)
+        if self.data_parallel and self._is_main:
+            barrier()
         self.model = build_model(cfg.model, self.hierarchy, assets.part_dict,
                                  device=self.device)
         self.tables = L.build_loss_tables(
@@ -191,6 +225,10 @@ class Trainer:
             self._resume(t.resume, t.finetune)
         elif t.resume_torch:
             self._resume_torch(t.resume_torch, t.finetune)
+        if self.data_parallel:
+            # every rank starts from rank 0's state
+            put_replicated(self.params)
+            put_replicated([self.opt_state.mu, self.opt_state.nu])
         self.device_data = None
         self._maybe_stage_device_data()
 
@@ -198,7 +236,13 @@ class Trainer:
             edit_mode=t.edit_mode, rand_mode=t.rand_mode, factor=t.factor,
             noleaf_flag=t.noleaf_flag, editskl_flag=t.editskl_flag,
             exc_mode=t.exc_mode, seed=t.seed)
-        self.logger = MetricsLogger(os.path.join(workdir, "summaries"))
+        self.logger = (MetricsLogger(os.path.join(workdir, "summaries"))
+                       if self._is_main else None)
+        self.trace_window = None
+        if t.profile_stop > t.profile_start:
+            self.trace_window = TraceWindow(
+                os.path.join(workdir, "profile"), t.profile_start,
+                t.profile_stop)
         self.history = []          # per epoch: {"epoch", "train", "val", "sec"}
         self._step_cache: dict = {}
         self._eval_steps: dict = {}
@@ -229,7 +273,8 @@ class Trainer:
             self._setup_file_data()
         t = cfg.train
         common = dict(normalization=cfg.data.normalization,
-                      j_regressor=self.assets.j_regressor, stats=self.stats)
+                      j_regressor=self.assets.j_regressor, stats=self.stats,
+                      process_slice=self.process_slice)
         self.train_loader = BatchLoader(
             self.data["train"], t.batch_train, shuffle=cfg.data.shuffle,
             seed=t.seed, drop_last=True, **common)
@@ -390,11 +435,15 @@ class Trainer:
         self.global_step = epoch * self.steps_per_epoch
 
     def save(self, epoch: int):
-        save_checkpoint(self._ckpt_dir(), epoch, {
-            "params": self.params,
-            "opt_state": vars(self.opt_state),
-            "epoch": epoch, "step": self.global_step},
-            max_to_keep=self.cfg.train.ck_keep)
+        """Rank 0 writes the checkpoint; the other ranks wait for it."""
+        if self._is_main:
+            save_checkpoint(self._ckpt_dir(), epoch, {
+                "params": self.params,
+                "opt_state": vars(self.opt_state),
+                "epoch": epoch, "step": self.global_step},
+                max_to_keep=self.cfg.train.ck_keep)
+        if self.data_parallel:
+            barrier()
 
     # --- steps ------------------------------------------------------------------
     def _get_step(self, epoch: int, variant: str):
@@ -403,10 +452,12 @@ class Trainer:
         if key not in self._step_cache:
             if self.is_part_model:
                 self._step_cache[key] = make_train_step(
-                    self.model, self.tables, self.optimizer, flags, variant)
+                    self.model, self.tables, self.optimizer, flags, variant,
+                    data_parallel=self.data_parallel)
             else:
                 self._step_cache[key] = make_baseline_train_step(
-                    self.model, self.tables, self.optimizer, flags)
+                    self.model, self.tables, self.optimizer, flags,
+                    data_parallel=self.data_parallel)
         return self._step_cache[key]
 
     def _get_eval_step(self, mm_constant: float = 1000.0):
@@ -417,11 +468,13 @@ class Trainer:
         return self._eval_steps[key]
 
     def _interp_measure(self, interp_b: dict):
-        """Host measures of the interp batch: only edit_mode='exc' reads
-        them."""
+        """Host measures of the interp batch, its global rows: only
+        edit_mode='exc' reads them."""
         m = interp_b.get("measure")
         if m is None or self.cfg.train.edit_mode != "exc":
             return None
+        if self.data_parallel:
+            m = fully_replicate(m)
         return m.cpu().numpy()
 
     # --- main loop ---------------------------------------------------------------
@@ -466,9 +519,10 @@ class Trainer:
             raise ValueError(
                 f"train split has {len(self.data['train'])} samples, fewer "
                 f"than batch_interp={cfg.train.batch_interp} (drop_last)")
-        self._dump_train_params()
-        if self.start_epoch == 1 and cfg.train.save_recons:
-            self.dump_part_template()
+        if self._is_main:
+            self._dump_train_params()
+            if self.start_epoch == 1 and cfg.train.save_recons:
+                self.dump_part_template()
         use_scan = self._epoch_scan_ok()
         epoch = self.start_epoch
         while epoch <= n_epochs:
@@ -490,7 +544,8 @@ class Trainer:
                 tl, metrics, last_batch = self._run_epoch_steps(epoch,
                                                                 interp_iter)
                 tlosses = [tl]
-            self.logger.log(self.global_step, metrics)
+            if self._is_main:
+                self.logger.log(self.global_step, metrics)
             train_sec = (time.time() - t0) / len(tlosses)
             for i, e in enumerate(range(epoch, e1 + 1)):
                 t1 = time.time()
@@ -499,22 +554,25 @@ class Trainer:
                                 or e == n_epochs):
                     vloss = self.validate()
                 sec = train_sec + time.time() - t1
-                ep_metrics = {"epoch_train": tlosses[i]}
-                if vloss is not None:
-                    ep_metrics["epoch_val"] = vloss
-                self.logger.log(e, ep_metrics, prefix="epoch")
                 self.history.append({"epoch": e, "train": tlosses[i],
                                      "val": vloss, "sec": sec,
                                      "train_sec": train_sec})
-                vtxt = "-" if vloss is None else f"{vloss:.6f}"
-                print(f"epoch {e} | tr {tlosses[i]:.6f} | val {vtxt} | "
-                      f"{sec:.1f}s", flush=True)
+                if self._is_main:
+                    ep_metrics = {"epoch_train": tlosses[i]}
+                    if vloss is not None:
+                        ep_metrics["epoch_val"] = vloss
+                    self.logger.log(e, ep_metrics, prefix="epoch")
+                    vtxt = "-" if vloss is None else f"{vloss:.6f}"
+                    print(f"epoch {e} | tr {tlosses[i]:.6f} | val {vtxt} | "
+                          f"{sec:.1f}s", flush=True)
                 if e % cfg.train.ck_frequency == 0:
                     self.save(e)
                 if (cfg.train.save_recons and e % 50 == 0
-                        and last_batch is not None):
+                        and last_batch is not None and self._is_main):
                     self._dump_sample(e, last_batch)
             epoch = e1 + 1
+        if self.trace_window is not None:
+            self.trace_window.close()
         return self
 
     def _scan_chunk_end(self, e0: int, n_epochs: int) -> int:
@@ -547,13 +605,21 @@ class Trainer:
         batches = prefetch_to_device(iter(self.train_loader), self.device,
                                      size=cfg.data.prefetch)
         for batch in batches:
+            if self.trace_window is not None:
+                self.trace_window.tick(self.global_step)
             if self.is_part_model:
                 interp_b = self._put(next(interp_iter))
                 exc_b = self._put(next(interp_iter))
                 variant = self.sampler.sample_exc_variant()
-                spec = to_device(self.sampler.sample_interp(
-                    epoch, interp_b["verts"].shape[0],
-                    measure=self._interp_measure(interp_b)), self.device)
+                # every rank draws the spec of the global batch (the same
+                # seed); a_full's rows are batch-major
+                spec = self.sampler.sample_interp(
+                    epoch, interp_b["verts"].shape[0] * self.n_processes,
+                    measure=self._interp_measure(interp_b))
+                if self.data_parallel:
+                    spec = shard_spec(spec, self.process_index,
+                                      self.n_processes)
+                spec = to_device(spec, self.device)
                 step = self._get_step(epoch, variant)
                 self.params, self.opt_state, metrics = step(
                     self.params, self.opt_state, self._step_view(batch),
@@ -565,7 +631,7 @@ class Trainer:
             step_losses.append(metrics["loss"])
             step_sizes.append(batch["verts"].shape[0])
             self.global_step += 1
-            if cfg.train.log_every and (
+            if cfg.train.log_every and self._is_main and (
                     self.global_step % cfg.train.log_every == 0):
                 self.logger.log(self.global_step, _to_host(metrics))
             last_batch = batch
@@ -580,14 +646,11 @@ class Trainer:
         flag on, the part model (the baseline trains through the loop),
         one process, no trace window, and device-resident train and interp
         loaders over one source."""
-        t = self.cfg.train
-        dist = torch.distributed
         return bool(
-            t.epoch_scan
+            self.cfg.train.epoch_scan
             and self.is_part_model
-            and not (dist.is_available() and dist.is_initialized()
-                     and dist.get_world_size() > 1)
-            and not t.profile_stop > t.profile_start
+            and self.n_processes == 1
+            and self.trace_window is None
             and isinstance(self.train_loader, DeviceBatchLoader)
             and isinstance(self.interp_loader, DeviceBatchLoader)
             and self.train_loader.source is self.interp_loader.source)
@@ -679,7 +742,7 @@ class Trainer:
                                                     bad)
         self.global_step += k
         ms = dict(zip(step.metric_names, ms.T))
-        if cfg.train.log_every:
+        if cfg.train.log_every and self._is_main:
             base = self.global_step - k
             for j in range(k):
                 if (base + j + 1) % cfg.train.log_every == 0:
@@ -702,7 +765,8 @@ class Trainer:
         return tlosses, metrics, last_batch
 
     def validate(self) -> float:
-        """Mean per-sample L1 over the val split (pad rows masked)."""
+        """Mean per-sample L1 over the val split (pad rows masked; the
+        sums over every rank's rows)."""
         step = self._get_eval_step()
         total = count = None
         for batch in self.val_loader:
@@ -714,7 +778,10 @@ class Trainer:
             count = c if count is None else count + c
         if total is None:
             return 0.0
-        total, count = torch.stack([total, count]).double().cpu().tolist()
+        sums = torch.stack([total, count])
+        if self.data_parallel:
+            sums = all_reduce_sum(sums)
+        total, count = sums.double().cpu().tolist()
         return total / max(count, 1.0)
 
     def evaluate(self, loader=None, mm_constant: float = 1000.0,
@@ -722,7 +789,10 @@ class Trainer:
         """Full test-set eval: (predictions, z, z_kps, inputs, mean L1, mean
         per-vertex mm error).  `unnormalize` (default: on whenever the
         normalization has a scaling mode, 'gass' or 'normal') inverts the
-        scaling first, so the mm number is true millimetres."""
+        scaling first, so the mm number is true millimetres.  Data
+        parallel: the sums are over every rank's rows and the returned
+        arrays are the global rows, gathered (the padding of a final
+        batch sits on the last ranks)."""
         from ..data.dataset import unnormalize_batch
         loader = loader or self.test_loader
         norm = self.cfg.data.normalization
@@ -736,12 +806,17 @@ class Trainer:
         l1_sum = l2_sum = None
         l1_host = l2_host = 0.0
         count = 0
+        def rows(t):
+            # the global batch's rows (this process's without a group)
+            return fully_replicate(t) if self.data_parallel else t
+
         for batch in loader:
             batch = self._put(batch)
             out = step(self.params, self._step_view(batch))
-            n_valid = batch["verts"].shape[0] - batch.get("pad", 0)
-            rec = out["rec"][:n_valid].cpu().numpy()
-            tx = batch["verts"][:n_valid].cpu().numpy()
+            n_valid = (batch["verts"].shape[0] * self.n_processes
+                       - batch.get("pad", 0))
+            rec = rows(out["rec"])[:n_valid].cpu().numpy()
+            tx = rows(batch["verts"])[:n_valid].cpu().numpy()
             if unnormalize:
                 idx = np.asarray(batch["global_idx"][:n_valid])
                 rec = np.concatenate(
@@ -761,21 +836,27 @@ class Trainer:
                 l1_sum = s1 if l1_sum is None else l1_sum + s1
                 l2_sum = s2 if l2_sum is None else l2_sum + s2
             preds.append(rec)
-            zs.append(out["z"][:n_valid].cpu().numpy())
-            zkps.append(out["z_kps"][:n_valid].cpu().numpy())
+            zs.append(rows(out["z"])[:n_valid].cpu().numpy())
+            zkps.append(rows(out["z_kps"])[:n_valid].cpu().numpy())
             txs.append(tx)
             count += n_valid
         if l1_sum is not None:
-            l1_host, l2_host = torch.stack([l1_sum, l2_sum]).double() \
-                .cpu().tolist()
+            sums = torch.stack([l1_sum, l2_sum])
+            if self.data_parallel:
+                sums = all_reduce_sum(sums)
+            l1_host, l2_host = sums.double().cpu().tolist()
         return (np.concatenate(preds), np.concatenate(zs),
                 np.concatenate(zkps), np.concatenate(txs),
                 l1_host / count, l2_host / count)
 
     def export_predictions(self, out_dir: str | None = None):
+        """evaluate() on every rank; rank 0 writes the arrays and appends
+        the metrics to train_params.txt."""
+        preds, z, z_kps, tx, l1, l2 = self.evaluate()
+        if not self._is_main:
+            return preds, z, z_kps, tx, l1, l2
         out_dir = out_dir or os.path.join(self.workdir, "predictions")
         os.makedirs(out_dir, exist_ok=True)
-        preds, z, z_kps, tx, l1, l2 = self.evaluate()
         np.save(os.path.join(out_dir, "predictions.npy"), preds)
         np.save(os.path.join(out_dir, "z_s.npy"), z)
         np.save(os.path.join(out_dir, "z_kps_s.npy"), z_kps)

@@ -26,6 +26,8 @@ from ..ops.distance import face_edge_lengths, face_table, signed_part_volumes
 from ..ops.row_gather import GatherTable, constant_table, gather_rows
 from ..ops.part_dist import PartDistTables, fused_part_sums, part_dist_sums
 from ..ops.skeleton import bone_vectors
+from ..parallel.distributed import process_count
+from ..parallel.mesh import all_reduce_sum
 from ..utils.device import index_tensor, resolve_device
 
 
@@ -145,7 +147,8 @@ def weighted_distance_loss(tx_nodummy, rec_nodummy, kps_full,
                            w_mode: str = "threshold",
                            w_threshold: float = 0.8,
                            w_part_mode: str = "1/K", relat: bool = True,
-                           sums_fn=part_dist_sums):
+                           sums_fn=part_dist_sums,
+                           global_counts: bool = False):
     """Orientation-adaptive weighted intra-part distance-matrix loss.
 
     a_full [B, 17] scales the GT distances of edited parts (1.0 elsewhere);
@@ -153,13 +156,22 @@ def weighted_distance_loss(tx_nodummy, rec_nodummy, kps_full,
     `ptab` holds the part buckets and the leafkeep/all_one uniform-weight
     flags (PartDistTables(part_indices, leafkeep, w_mode, device)).  Every
     part goes through `fused_part_sums`: the part_dist kernels on a CUDA
-    tensor, their plain versions on a CPU one."""
+    tensor, their plain versions on a CPU one.
+
+    Each part's loss is a masked mean, sums over counts, both over the
+    batch.  With global_counts (a data-parallel step over this rank's
+    rows) the counts are summed over the ranks and this rank's sums are
+    weighted by the world size, so the ranks' mean loss and mean gradient
+    are those of the global batch."""
     bones = part_bones(kps_full)                        # [B, 17, 3]
     point_num = tx_nodummy.shape[1]
     sums, counts = fused_part_sums(tx_nodummy, rec_nodummy, bones, ptab,
                                    a_full=a_full, w_mode=w_mode,
                                    w_threshold=w_threshold, relat=relat,
                                    sums_fn=sums_fn)
+    if global_counts:
+        counts = all_reduce_sum(counts)
+        sums = sums * float(process_count())
     li = sums / torch.clamp(counts, min=1.0)
     li_by_part = dict(zip(ptab.part_ids, li))
     total = 0.0

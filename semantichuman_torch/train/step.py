@@ -32,6 +32,8 @@ from ..constants import KPS_KEEP, NEWSKL_KEEP, SKL_KEEP
 from ..ops.part_dist import PartDistTables, part_dist_sums
 from ..ops.row_gather import gather_rows
 from ..ops.skeleton import kps2skl, skl2kps
+from ..parallel.mesh import (all_reduce_grads, all_reduce_mean,
+                             fully_replicate, local_rows)
 from ..utils.device import index_tensor
 from ..utils.params import tree_leaves, tree_map, tree_unflatten
 from . import losses as L
@@ -131,11 +133,21 @@ def _exchanged_kps(kps_full, variant: str, is_ori=None):
 
 
 def make_loss_fn(model, tables: L.LossTables, flags: StepFlags,
-                 exc_variant: str = "ori", sums_fn=part_dist_sums):
+                 exc_variant: str = "ori", sums_fn=part_dist_sums,
+                 data_parallel: bool = False):
     """The multi-branch loss of PartAE: (params, batch, interp_batch,
     exc_batch, edit_spec) -> (loss, metrics).  `sums_fn` is the distance
     sums of the weighted distance loss: part_dist_sums (the kernels), or
-    part_dist_sums_plain for the plain route."""
+    part_dist_sums_plain for the plain route.
+
+    data_parallel: the batches are this rank's rows of the global batches
+    and edit_spec["a_full"] its rows of the spec (`parallel/mesh.py:
+    shard_spec`).  Two terms couple samples across the batch and are made
+    global: the skeleton exchange pairs global row i with row B-1-i (the
+    exchange batch's keypoints, a function of the data alone, are gathered
+    from every rank), and the distance loss's masked means divide by
+    counts over the global batch.  The other terms are plain means, which
+    the ranks' mean gives."""
     jreg = tables.j_regressor
     faces = tables.faces
     kps_keep = tables.kps_keep
@@ -146,7 +158,8 @@ def make_loss_fn(model, tables: L.LossTables, flags: StepFlags,
         return L.weighted_distance_loss(
             tx, rec, kps, ptab, w_mode=flags.w_mode,
             w_threshold=flags.w_threshold, w_part_mode=flags.w_part_mode,
-            relat=flags.relat, sums_fn=sums_fn, **edit)
+            relat=flags.relat, sums_fn=sums_fn,
+            global_counts=data_parallel, **edit)
 
     def loss_fn(params, batch, interp_batch, exc_batch, edit_spec):
         metrics = {}
@@ -167,8 +180,11 @@ def make_loss_fn(model, tables: L.LossTables, flags: StepFlags,
         if flags.exc:
             txe = exc_batch["verts"]
             kps_e = L.regress_kps(txe[:, :-1], jreg)
-            newkps_e = _exchanged_kps(kps_e, exc_variant,
-                                      edit_spec.get("exc_is_ori"))
+            newkps_e = _exchanged_kps(
+                fully_replicate(kps_e) if data_parallel else kps_e,
+                exc_variant, edit_spec.get("exc_is_ori"))
+            if data_parallel:
+                newkps_e = local_rows(newkps_e)
             segs.append(txe)
             enc_kps.append(newkps_e)
 
@@ -256,20 +272,32 @@ def value_and_grad(loss_fn, params, *args):
 
 def make_train_step(model, tables: L.LossTables, optimizer,
                     flags: StepFlags, exc_variant: str = "ori",
-                    sums_fn=part_dist_sums):
+                    sums_fn=part_dist_sums, data_parallel: bool = False):
     """Returns step(params, opt_state, batch, interp, exc, edit_spec)
     -> (params, opt_state, metrics), metrics with the raw gradient's
     global norm `gnorm`.  New parameter tensors are returned; the inputs
-    are not changed."""
+    are not changed.  data_parallel: a collective step over this rank's
+    rows (`make_loss_fn`, `_optimizer_step`)."""
     return _optimizer_step(
-        make_loss_fn(model, tables, flags, exc_variant, sums_fn), optimizer)
+        make_loss_fn(model, tables, flags, exc_variant, sums_fn,
+                     data_parallel), optimizer, data_parallel)
 
 
-def _optimizer_step(loss_fn, optimizer):
+def _optimizer_step(loss_fn, optimizer, data_parallel: bool = False):
     """step(params, opt_state, *loss inputs) -> (params, opt_state,
-    metrics): the loss's gradient, its global norm `gnorm`, one update."""
+    metrics): the loss's gradient, its global norm `gnorm`, one update.
+    With data_parallel the gradient and the metrics are averaged over the
+    ranks first, so gnorm, the clip, the finite check and every logged
+    metric are global and agree on every rank."""
     def step(params, opt_state, *inputs):
         _, metrics, grads = value_and_grad(loss_fn, params, *inputs)
+        if data_parallel:
+            grads = tree_unflatten(params,
+                                   all_reduce_grads(tree_leaves(grads)))
+            names = list(metrics)
+            vals = all_reduce_mean(torch.stack(
+                [metrics[n].float().reshape(()) for n in names]))
+            metrics = dict(zip(names, vals.unbind()))
         metrics["gnorm"] = global_norm(tree_leaves(grads))
         updates, opt_state = optimizer.update(grads, opt_state, params)
         new = [p.detach() + u for p, u in zip(tree_leaves(params),
@@ -304,11 +332,13 @@ def make_baseline_loss_fn(model, tables: L.LossTables, flags: StepFlags):
 
 
 def make_baseline_train_step(model, tables: L.LossTables, optimizer,
-                             flags: StepFlags):
+                             flags: StepFlags, data_parallel: bool = False):
     """step(params, opt_state, batch) -> (params, opt_state, metrics), the
-    baseline's loss through make_train_step's gradient and Adam update."""
+    baseline's loss through make_train_step's gradient and Adam update.
+    Its terms are plain means, so data_parallel needs only the averaged
+    gradient and metrics."""
     return _optimizer_step(make_baseline_loss_fn(model, tables, flags),
-                           optimizer)
+                           optimizer, data_parallel)
 
 
 class EpochBuffers:

@@ -1,5 +1,6 @@
-"""Metrics logging as JSON lines (the port's copy of
-`semantichuman_tpu/utils/logging.py`, without TensorBoard)."""
+"""Metrics logging (the port's copy of `semantichuman_tpu/utils/logging.py`):
+JSON lines always, TensorBoard scalars as well where
+`torch.utils.tensorboard` imports (the `tensorboard` package installed)."""
 
 from __future__ import annotations
 
@@ -9,22 +10,35 @@ import time
 
 
 class MetricsLogger:
-    """Appends one JSON object per call to <log_dir>/metrics.jsonl."""
+    """Appends one JSON object per call to <log_dir>/metrics.jsonl and,
+    with tensorboard and the package present, adds each scalar to a
+    SummaryWriter in log_dir as '<prefix>/<name>'."""
 
-    def __init__(self, log_dir: str):
+    def __init__(self, log_dir: str, tensorboard: bool = True):
         os.makedirs(log_dir, exist_ok=True)
         self._jsonl = open(os.path.join(log_dir, "metrics.jsonl"), "a")
+        self._tb = None
+        if tensorboard:
+            try:
+                from torch.utils.tensorboard import SummaryWriter
+            except ImportError:     # no tensorboard package: JSONL alone
+                SummaryWriter = None
+            if SummaryWriter is not None:
+                self._tb = SummaryWriter(log_dir)
 
     def log(self, step: int, scalars: dict, prefix: str = "loss"):
-        """`prefix` names the group (kept for the JAX signature; JSONL
-        records carry the bare names)."""
         rec = {"step": step, "time": time.time()}
-        rec.update({k: float(v) for k, v in scalars.items()})
+        for k, v in scalars.items():
+            rec[k] = float(v)
+            if self._tb is not None:
+                self._tb.add_scalar(f"{prefix}/{k}", float(v), step)
         self._jsonl.write(json.dumps(rec) + "\n")
         self._jsonl.flush()
 
     def close(self):
         self._jsonl.close()
+        if self._tb is not None:
+            self._tb.close()
 
 
 class AverageValueMeter:

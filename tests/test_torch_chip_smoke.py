@@ -598,5 +598,133 @@ def test_deploy_paths_join_the_kernels_line():
     assert re.findall(r'"(\w+)":', counts) == [
         "edit", "export_serve", "graph_serve", "eval_reference"]
     main = inspect.getsource(CS.main)
-    assert "**deploy_counts}" in main
+    assert "**deploy_counts" in main
     assert "for k in KERNEL_COUNTS:" in main and "YARDSTICKS" in main
+
+
+def test_parallel_mode_parses():
+    assert CS.parse_args(["--parallel"]).parallel
+    assert not CS.parse_args([]).parallel
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--parallel", "--deploy"])
+
+
+def test_parallel_paths_join_the_kernels_line():
+    """Phase 11's five counted paths (both DP runs' ranks, the traced
+    fit, the geometry checks, the serving A/B) go into the kernels line's
+    launches_by_path beside the other phases' paths."""
+    import inspect
+
+    dp = inspect.getsource(CS.phase_dp)
+    assert re.findall(r'\{"(dp_\w+)": rank_counts', dp) == ["dp_gloo"]
+    assert '"dp_nccl1": rank_counts' in dp
+    par = inspect.getsource(CS.phase_parallel)
+    assert re.findall(r'counts\["(\w+)"\]', par) == [
+        "trace", "geometry", "serving_ab"]
+    assert "**parallel_counts}" in inspect.getsource(CS.main)
+
+
+def test_dp_run_is_the_paper_recipe_per_rank():
+    """Phase 11's configuration: Config() but the global batches of 8
+    (the paper recipe's batch on each of DP_WORLD ranks), the synthetic
+    split of 24 / 16 (3 steps an epoch), the loop, every step logged and
+    a checkpoint an epoch."""
+    import dataclasses
+
+    from semantichuman_torch.config import Config
+    cfg, base = Config.from_dict(CS.dp_raw(2)), Config()
+    assert cfg.model == base.model
+    t = cfg.train
+    assert (t.batch_train, t.batch_interp, t.batch_test) == (8, 8, 8)
+    assert t.batch_train // CS.DP_WORLD == base.train.batch_train
+    assert cfg.data.synthetic_train // t.batch_train == 3
+    assert (t.n_epochs, t.epoch_scan, t.log_every, t.ck_frequency) == (
+        2, False, 1, 1)
+    changed = {f.name for f in dataclasses.fields(t)
+               if getattr(t, f.name) != getattr(base.train, f.name)}
+    assert changed == {"batch_train", "batch_interp", "batch_test",
+                       "n_epochs", "epoch_scan", "log_every",
+                       "ck_frequency", "save_recons"}
+
+
+def test_trace_families_read_a_chrome_trace(tmp_path):
+    """Kernel events are counted by family; operators are not."""
+    events = [{"cat": "kernel", "name": "void sc_fwd_tile<float>(...)"},
+              {"cat": "kernel", "name": "csr_rows_short_kernel"},
+              {"cat": "kernel", "name": "csr_rows_short_kernel"},
+              {"cat": "cpu_op", "name": "aten::index_add_"},
+              {"cat": "kernel", "name": "gather_copy_kernel<16>"}]
+    path = tmp_path / "t.json"
+    path.write_text(__import__("json").dumps({"traceEvents": events}))
+    fam = CS.trace_families(str(path))
+    assert (fam["conv_fwd"], fam["csr_reduce"], fam["row_gather"],
+            fam["index_add"], fam["part_dist"]) == (1, 2, 1, 0, 0)
+
+
+def _ranks(params, grads, world=2, start=1, val=0.5):
+    arrays = {**{f"param:{k}": v for k, v in params.items()},
+              **{f"grad{i}:{k}": v for i, g in enumerate(grads, start=1)
+                 for k, v in g.items()}}
+    return [({"rank": r, "world": world, "start_epoch": start, "val": val,
+              "device": "cpu"}, {k: v.copy() for k, v in arrays.items()})
+            for r in range(world)]
+
+
+def _log(workdir, losses):
+    d = Path(workdir, "summaries")
+    d.mkdir(parents=True)
+    (d / "metrics.jsonl").write_text("".join(
+        __import__("json").dumps({"step": s, "loss": v, "gnorm": 1.0,
+                                  "time": 0.0}) + "\n"
+        for s, v in losses.items()))
+
+
+def test_dp_compare_holds_the_tolerances(tmp_path):
+    """Equal runs pass (exact too); a loss beyond rtol 2e-4, a first-step
+    gradient beyond 1e-5 of its tensor's largest entry, a val beyond rtol
+    1e-4 and ranks that differ are each reported; a later step's gradient
+    and a parameter beyond rtol 1e-4 / atol 1e-6 are reported (the
+    parameter with the one-process run's gradients and the decay term at
+    its largest difference) and fail only an exact comparison."""
+    w = np.linspace(-1, 1, 11).astype(np.float32)
+    g = [{"w": w * 1e-3}, {"w": w * 2e-3}]
+    ref = {"metrics": {1: {"loss": 0.5, "gnorm": 1.0},
+                       2: {"loss": 0.4, "gnorm": 1.0}},
+           "params": {0: {"w": w}, 2: {"w": w + 1e-3}},
+           "grads": dict(enumerate(g, start=1)), "val": {2: 0.5}}
+    final = {"w": w + 1e-3}
+    _log(tmp_path / "ok", {1: 0.5, 2: 0.4})
+    for exact in (False, True):
+        res = CS.dp_compare("t", _ranks(final, g), tmp_path / "ok", ref,
+                            (1, 2), exact=exact)
+        assert res["failures"] == [] and res["loss_max_rel"] == 0.0
+    _log(tmp_path / "off", {1: 0.5, 2: 0.4 * (1 + 3e-4)})
+    ranks = _ranks(final, g, val=0.5 * (1 + 2e-4))
+    ranks[0][1]["grad1:w"][3] += 1e-7
+    ranks[0][1]["grad2:w"][3] += 1e-7
+    ranks[0][1]["param:w"][3] += 1e-3
+    res = CS.dp_compare("t", ranks, tmp_path / "off", ref, (1, 2))
+    fails = res["failures"]
+    assert len(fails) == 4
+    assert ["gradients" in fails[0], "losses" in fails[1],
+            "val" in fails[2], "rank 1" in fails[3]] == [True] * 4
+    at = res["params_beyond"]["w"]
+    assert (at["n"], at["ref_grads"], at["decay_term"]) == (
+        1, [float(g[0]["w"][3]), float(g[1]["w"][3])],
+        float(CS.DP_DECAY * w[3]))
+    ok = _ranks(final, g)
+    for _j, a in ok:
+        a["param:w"][3] += 1e-5
+        a["grad1:w"][3] *= 1 + 5e-6
+    assert CS.dp_compare("t", ok, tmp_path / "ok", ref,
+                         (1, 2))["failures"] == []
+    assert len(CS.dp_compare("t", ok, tmp_path / "ok", ref, (1, 2),
+                             exact=True)["failures"]) == 2
+    later = _ranks(final, g)
+    for _j, a in later:
+        a["grad2:w"][3] += 1e-7
+    assert CS.dp_compare("t", later, tmp_path / "ok", ref,
+                         (1, 2))["failures"] == []
+    assert CS.dp_compare("t", ranks, tmp_path / "off", ref, (1, 2),
+                         same_start=False)["failures"][0].startswith(
+                             "t: step losses")

@@ -263,9 +263,11 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir,
                                             small_human, monkeypatch):
     """A workdir without a compiled topology, with a stale one or with one
     that has no .meta key gets the hierarchy compiled (the JAX compiler's
-    policy: a cache is trusted only where its key matches); the pieces
-    that wait for a later slice (the trace window, DDP) raise, naming what
-    is missing, and the ported ones build: a reference checkpoint through
+    policy: a cache is trusted only where its key matches); a trace
+    window and a two-rank world, which once raised, are accepted (the
+    window sends training to the loop; rank 1 of 2 takes its slice of
+    every batch, writes nothing and takes the loop), and the other ported
+    pieces build: a reference checkpoint through
     train.resume_torch (weights only: with finetune, else it raises for
     the missing optimizer state) and model_type neural3DMM (the loop); an
     on-disk dataset that is not there raises naming its file; the default
@@ -288,13 +290,22 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir,
                                       want["spirals_0"])
         assert Path(d, "topology_2222.npz.meta").read_text() == key
     d = _workdir(tmp_path / "ok", topology_dir)
-    with pytest.raises(NotImplementedError, match="trace window"):
-        TorchTrainer(_port_cfg(profile_stop=5), d, device="cpu")
+    tr = TorchTrainer(_port_cfg(profile_stop=5, epoch_scan=True), d,
+                      device="cpu")
+    assert (tr.trace_window.start, tr.trace_window.stop) == (0, 5)
+    assert not tr._epoch_scan_ok()
     with monkeypatch.context() as mp:
         mp.setattr(torch.distributed, "is_initialized", lambda: True)
         mp.setattr(torch.distributed, "get_world_size", lambda: 2)
-        with pytest.raises(NotImplementedError, match="DDP"):
-            TorchTrainer(_port_cfg(), d, device="cpu")
+        mp.setattr(torch.distributed, "get_rank", lambda: 1)
+        mp.setattr(torch.distributed, "broadcast", lambda t, src: None)
+        mp.setattr(torch.distributed, "barrier", lambda: None)
+        tr = TorchTrainer(_port_cfg(data_parallel=True, epoch_scan=True), d,
+                          device="cpu")
+        assert tr.data_parallel and tr.process_slice == (1, 2)
+        assert tr.train_loader.loader.process_slice == (1, 2)
+        assert not tr._is_main and tr.logger is None
+        assert not tr._epoch_scan_ok()
 
     from benchmarks.torch_baseline import (build_torch_model,
                                            reference_state_dict)
