@@ -248,6 +248,32 @@ run:
    checkpoint: f32 and bf16 arms, each with its own Trainer and inputs,
    a nonzero delta.
 
+12. data-parallel serving and the DFAUST first-contact drill
+   (`phase_dp_drill`): (a) the full-width default model (phase 7's
+   epoch-2 parameters, in the mode alone PartAE.init(0)) exported once on
+   cuda:0 and loaded as a one-device bundle and as two copies on cuda:0
+   (`ServingBundle(dir, device=["cuda:0", "cuda:0"])`): at B = 2, 16, 64
+   forward, encode and decode, eagerly and then captured, every output
+   shard on its copy's device, the gathered outputs within atol 1e-5 of
+   the one-device bundle (the largest absolute and relative gaps printed
+   beside the JAX test's rtol 2e-6 / atol 2e-7), a captured call bit-equal
+   to the eager one; per copy call SERVE_LAUNCHES["take"] (encode and
+   decode: their halves) eagerly, GRAPH_WARMUPS + 1 times that at the
+   copy's first capture at a shard batch, none on a replay; where the
+   process has two cards, the same on [cuda:0, cuda:1] and on cuda:1
+   alone; one copy against two on the one card in turns at B = 64, ms per
+   forward, no gate.  (b) on phase 8's dataset (preprocessed anew where
+   phase 8 did not run), cli.train with configs/train_dfaust.yaml for 2
+   epochs, its epoch-2 state written in the reference layout; the port's
+   drill (`semantichuman_torch/tools/dfaust_drill.py`) on the card as a
+   subprocess on it with --data_root (exit 0, all six stages) and on a
+   copy whose first part head is widened (exit 1, import FAILED, topology
+   not), the two started together; the eval stage's mm equal to
+   Trainer.evaluate after resume_torch of the same file to rtol 1e-6, the
+   demo's five OBJs, the resumed epoch finite on the epoch path, every
+   stage's launches as the main paths' literals count them, each stage's
+   seconds printed.
+
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
 before printing any result.  `python3 chip_smoke.py --conv-forward` runs
@@ -258,8 +284,8 @@ row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
 reduce's checks and times of phases 4 and 6 with a sweep of its batch
 tile, for tuning those kernels, `--trainer` phase 1 and phase 7,
 `--dfaust` phase 1 and phase 8, `--baseline` phase 1 and phase 9,
-`--deploy` phase 1 and phase 10, `--parallel` phase 1 and phase 11, and
-`--band-gates` phase 1 and each
+`--deploy` phase 1 and phase 10, `--parallel` phase 1 and phase 11,
+`--drill` phase 1 and phase 12, and `--band-gates` phase 1 and each
 banded gate measured on its own against the take route in turns (serving
 at B = 1, 16, 64, the Trainer's epoch path at trunk 12 and the fast
 recipe's 128), the measurement that set both gates: they print no result
@@ -3803,7 +3829,7 @@ def deploy_export(model, params, assets, meshes, tmp: Path) -> tuple:
     out["export_s"] = time.perf_counter() - t0
     require(manifest["symbolic_batch"] and manifest["batch_size"] is None,
             "(b) the export did not come out symbolic")
-    require(all(m["platforms"] == ["cuda"]
+    require(all(m["platforms"] == [f"cuda:{torch.cuda.current_device()}"]
                 for m in manifest["artifacts"].values()),
             f"(b) platforms {manifest['artifacts']}")
     out["pt2_mib"] = {name: os.path.getsize(bdir / m["file"]) / 2 ** 20
@@ -4638,6 +4664,364 @@ def phase_parallel(card: str, tmp: Path, ckpt: str | None) -> dict:
     return out
 
 
+# --- phase 12: data-parallel serving and the DFAUST first-contact drill -----
+
+# (a): the batches served over two copies of the bundle (shards of 1, 8 and
+# 32 meshes), each copy's launches counted around its call
+DP_SERVE_BATCHES = (2, 16, 64)
+DP_SERVE_COPIES = 2
+# the gathered shards against the one-device bundle: phase 10 (b)'s
+# program-against-live tolerance; the JAX test's rtol 2e-6 / atol 2e-7 is
+# printed beside the gaps
+DP_SERVE_ATOL = 1e-5
+# per call of each artifact, per shard: the take route
+ARTIFACT_LAUNCHES = {"forward": SERVE_LAUNCHES["take"],
+                     "encode": ENCODE_LAUNCHES, "decode": DECODE_LAUNCHES}
+# (b): the drill's subprocesses, the two together
+DRILL_TIMEOUT = 300
+# the drill's eval against Trainer.evaluate after resume_torch of the same
+# file, as phase 10 (d) holds cli.eval_reference
+DRILL_MM_RTOL = 1e-6
+
+
+@contextlib.contextmanager
+def copy_probe():
+    """Record each call of a bundle's per-device copy (`serving._Copy`):
+    (copy, device, artifact, shard batch, graph flag, launches), counted
+    around the call with a synchronize on each side."""
+    from semantichuman_torch import serving as SV
+
+    calls, call = [], SV._Copy.call
+
+    def probe(self, name, args, graph):
+        sync()
+        before = read_counts()
+        out = call(self, name, args, graph)
+        sync()
+        calls.append((id(self), str(self.device), name, args[0].shape[0],
+                      graph, counts_diff(read_counts(), before)))
+        return out
+
+    SV._Copy.call = probe
+    try:
+        yield calls
+    finally:
+        SV._Copy.call = call
+
+
+def gaps(got, ref) -> tuple:
+    """(largest absolute, largest relative) difference over outputs."""
+    got = (got,) if torch.is_tensor(got) else got
+    ref = (ref,) if torch.is_tensor(ref) else ref
+    ab = max(float((g.to(r.device) - r).abs().max())
+             for g, r in zip(got, ref))
+    rel = max(float(((g.to(r.device) - r).abs()
+                     / r.abs().clamp_min(1e-30)).max())
+              for g, r in zip(got, ref))
+    return ab, rel
+
+
+def serve_dp_case(bdir: Path, devices: list, refs: dict) -> tuple:
+    """Phase 12 (a) on one device list: at each of DP_SERVE_BATCHES,
+    forward, encode and then decode (on the one-device bundle's z) eagerly
+    and then by default (captured), each output shard on its copy's
+    device, the gathered outputs within DP_SERVE_ATOL of the one-device
+    bundle's (`refs`), the captured call bit-equal to the eager one; per
+    copy call SERVE_LAUNCHES["take"] (encode, decode: their halves)
+    eagerly, GRAPH_WARMUPS + 1 times that at its first capture, 0 on a
+    replay.  -> (record, launches)."""
+    from semantichuman_torch.serving import Shards, ServingBundle
+
+    bundle = ServingBundle(str(bdir), device=devices)
+    n = len(devices)
+    out = {"devices": [str(d) for d in bundle.devices], "gaps": {}}
+
+    def shards(res):
+        return res if isinstance(res, Shards) else Shards([res])
+
+    sync()
+    reset_counts()
+    with copy_probe() as calls:
+        for b in DP_SERVE_BATCHES:
+            x, (z, z_kps) = refs[b]["x"], refs[b]["z"]
+            args = {"forward": (x,), "encode": (x,), "decode": (z, z_kps)}
+            for name in ("forward", "encode", "decode"):
+                eager = shards(bundle.call(name, *args[name], graph=False))
+                for graph in (None, None):
+                    got = shards(bundle.call(name, *args[name],
+                                             graph=graph))
+                    require(all(torch.equal(g, e) for s, t in zip(got, eager)
+                                for g, e in zip(
+                                    (s,) if torch.is_tensor(s) else s,
+                                    (t,) if torch.is_tensor(t) else t)),
+                            f"(a) {out['devices']} {name} B={b}: the "
+                            "captured call differs from the eager one")
+                for s, copy in zip(eager, bundle._copies):
+                    ts = (s,) if torch.is_tensor(s) else s
+                    require(all(t.device == copy.device
+                                and t.shape[0] == b // n for t in ts),
+                            f"(a) {name} B={b}: a shard off its copy's "
+                            f"device {copy.device}")
+                ab, rel = gaps(eager.gather(refs["device"]),
+                               refs[b][name])
+                out["gaps"][f"{name} B={b}"] = [ab, rel]
+                require(ab <= DP_SERVE_ATOL, f"(a) {out['devices']} {name} "
+                        f"B={b}: {ab:.3e} from the one-device bundle")
+    sync()
+    counts = read_counts()
+    seen = set()
+    for copy, dev, name, b, graph, got in calls:
+        per = ARTIFACT_LAUNCHES[name]
+        if graph is False:
+            want = expect(per)
+        elif (copy, name, b) not in seen:
+            want = expect(per, GRAPH_WARMUPS + 1)
+        else:
+            want = expect({})
+        if graph is None:
+            seen.add((copy, name, b))
+        require(got == want, f"(a) {out['devices']} {name} at shard batch "
+                f"{b} on {dev} (graph {graph}): launches {got}, want {want}")
+    require(len(calls) == len(DP_SERVE_BATCHES) * 3 * 3 * n,
+            f"(a) {len(calls)} copy calls")
+    ab = max(g[0] for g in out["gaps"].values())
+    rel = max(g[1] for g in out["gaps"].values())
+    out["max_abs_err"], out["max_rel_err"] = ab, rel
+    log(f"[serve-dp] (a) {out['devices']}: forward, encode, decode at "
+        f"B = {DP_SERVE_BATCHES}, eager and captured, every shard on its "
+        f"copy's device; gathered against the one-device bundle: largest "
+        f"abs gap {ab:.3e}, rel {rel:.3e} (tolerance atol "
+        f"{DP_SERVE_ATOL}; the JAX test holds rtol 2e-6, atol 2e-7); "
+        f"launches {counts}")
+    return out, counts, bundle
+
+
+def phase_serve_dp(tmp: Path, model, params, meshes, j_regressor) -> tuple:
+    """Phase 12 (a): the full-width bundle exported once on cuda:0, served
+    by one copy and by two copies on cuda:0 (serve_dp_case), and where the
+    process has two cards by [cuda:0, cuda:1] and by cuda:1 alone; then
+    one copy against two on the one card in turns at B = 64 (ms per
+    forward, no gate).  -> (record, launches of the two-copy run)."""
+    from semantichuman_torch.serving import ServingBundle, export_inference
+
+    card0 = "cuda:0" if DEVICE == "cuda" else DEVICE
+    bdir = tmp / "p12_bundle"
+    export_inference(model, params, j_regressor, str(bdir))
+    one = ServingBundle(str(bdir), device=card0)
+    v = np.concatenate([meshes, np.zeros((len(meshes), 1, 3), np.float32)],
+                       axis=1)
+    refs = {"device": one.device}
+    for b in DP_SERVE_BATCHES:
+        x = torch.from_numpy(v[:b]).to(card0)
+        enc = one.call("encode", x, graph=False)
+        refs[b] = {"x": x, "z": enc[:2],
+                   "forward": one.call("forward", x, graph=False),
+                   "encode": enc,
+                   "decode": one.call("decode", *enc[:2], graph=False)}
+    out = {}
+    out["cuda0x2"], counts, two = serve_dp_case(
+        bdir, [card0] * DP_SERVE_COPIES, refs)
+    if torch.cuda.device_count() >= 2:
+        out["cuda0_cuda1"] = serve_dp_case(bdir, ["cuda:0", "cuda:1"],
+                                           refs)[0]
+        out["cuda1"] = serve_dp_case(bdir, ["cuda:1"], refs)[0]
+    else:
+        log("[serve-dp] (a) one card: [cuda:0, cuda:1] and cuda:1 alone "
+            "not run")
+    x = refs[max(DP_SERVE_BATCHES)]["x"]
+    arms = {"one": lambda: one.forward(x), "two": lambda: two.forward(x)}
+    runs = {"one": [], "two": []}
+    for arm in ("one", "two", "two", "one"):
+        runs[arm].append(host_ms(arms[arm], reps=20, warmup=3))
+    out["ms_per_forward_b64"] = runs
+    log(f"[serve-dp] (a) B={max(DP_SERVE_BATCHES)} on the one card, in "
+        f"turns: one copy {runs['one']} ms, two copies {runs['two']} ms "
+        "per forward (no gate: the two copies replay on one stream)")
+    return out, counts
+
+
+def drill_cmd(root: Path, ckpt: str, cfg: str, workdir: Path,
+              data: bool) -> list:
+    """The port's drill on the card as a user runs it."""
+    cmd = [sys.executable, "-m", "semantichuman_torch.tools.dfaust_drill",
+           "--asset_dir", str(root / "asset"), "--template",
+           str(root / "template" / "template.obj"), "--checkpoint", ckpt,
+           "--config", cfg, "--workdir", str(workdir), "--device", DEVICE]
+    return cmd + (["--data_root", str(root)] if data else [])
+
+
+def drill_launches(record: dict, test_batches: int) -> dict:
+    """Each stage's launches as the main paths' literals count them: the
+    import's one forward of the template; the eval's test batches and the
+    staging of the train split; one run_demo and that staging; the resumed
+    epoch on the epoch path (its two warm-up steps and the captured one,
+    the replays count nothing), its validation and test batches and the
+    staging."""
+    res = record["resume"]
+    stage = expect({"row_gather": STAGE_GATHERS})
+    want = {"import": expect(SERVE_LAUNCHES["take"]),
+            "eval": {k: VAL_LAUNCHES.get(k, 0) * test_batches + stage[k]
+                     for k in KERNEL_COUNTS},
+            "demo": {k: demo_launches()[k] + stage[k] for k in KERNEL_COUNTS},
+            "resume": {k: GRAPH_LAUNCHES.get(k, 0) * 3
+                       + VAL_LAUNCHES.get(k, 0) * res["eval_batches"]
+                       + stage[k] for k in KERNEL_COUNTS}}
+    want.update(assets=expect({}), topology=expect({}))
+    return want
+
+
+def phase_drill(card: str, tmp: Path) -> tuple:
+    """Phase 12 (b): the DFAUST first-contact drill on the card.  On phase
+    8's dataset (preprocessed anew where phase 8 did not run), a PartAE
+    trained 2 epochs by cli.train with configs/train_dfaust.yaml (the
+    topology it compiles from the dataset's template with that file's
+    knobs, as the drill does) and written in the reference layout; the
+    port's drill on it (all six stages) and on a copy whose first part
+    head is widened (import fails, topology not), two subprocesses
+    started together; the eval's mm against Trainer.evaluate after
+    resume_torch of the same file, the demo's OBJs, the resumed epoch and
+    every stage's launches.  -> (record, the good drill's launches)."""
+    from semantichuman_torch.cli import train as train_cli
+    from semantichuman_torch.config import Config
+    from semantichuman_torch.tools.dfaust_drill import RECORD, STAGES
+    from semantichuman_torch.train.loop import Trainer
+    from semantichuman_torch.utils.checkpoint import restore_checkpoint
+
+    out = {}
+    root, out["preprocess_s"] = dfaust_dataset(tmp)
+    cfg = dfaust_config(root, tmp / "p12_train_dfaust.yaml", True)
+    t0 = time.perf_counter()
+    tr = train_cli.main(["--config", cfg, "--workdir", str(tmp / "p12_fit"),
+                         "--epochs", str(DFAUST_EPOCHS), "--device", DEVICE])
+    tr.save(DFAUST_EPOCHS)
+    state, step = restore_checkpoint(os.path.join(tr.workdir,
+                                                  "checkpoints"),
+                                     device=DEVICE)
+    pth = tmp / f"p12_checkpoint{step}.pth.tar"
+    write_reference_checkpoint(str(pth), state, tr.model, tr.cfg.train)
+    out["fit_s"] = time.perf_counter() - t0
+    del state, tr
+    ck = torch.load(pth, map_location="cpu", weights_only=False)
+    sd = ck["autoencoder_state_dict"]
+    w = sd["fc_latent_enc_list.0.weight"]
+    sd["fc_latent_enc_list.0.weight"] = torch.cat([w, w], dim=1)
+    bad = tmp / "p12_widened.pth.tar"
+    torch.save(ck, bad)
+    del ck, sd
+
+    wd, wd_bad = tmp / "p12_drill", tmp / "p12_drill_bad"
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        drill_cmd(root, ck_path, cfg, d, data), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, ck_path, d, data in (("good", str(pth), wd, True),
+                                       ("bad", str(bad), wd_bad, False))}
+    texts = {}
+    try:
+        for name, proc in procs.items():
+            texts[name] = proc.communicate(timeout=DRILL_TIMEOUT)[0]
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    out["drill_s"] = time.perf_counter() - t0
+    for name, text in texts.items():
+        log(f"[drill] --- the {name} checkpoint's drill ---")
+        log(text.rstrip()[-6000:])
+    rc = {name: p.returncode for name, p in procs.items()}
+    last = {name: json.loads(t.strip().splitlines()[-1])
+            for name, t in texts.items()}
+    require(rc["good"] == 0 and last["good"]["drill"] == "ok"
+            and list(last["good"]["stages"]) == list(STAGES),
+            f"(b) the drill: exit {rc['good']}, {last['good']}")
+    require(rc["bad"] == 1 and last["bad"]["stages"].get("import")
+            == "FAILED" and last["bad"]["stages"].get("topology")
+            not in (None, "FAILED"),
+            f"(b) the widened head's drill: exit {rc['bad']}, "
+            f"{last['bad']}")
+    record = json.loads((wd / RECORD).read_text())
+    out["stages"] = last["good"]["stages"]
+    out["stage_s"] = {k: r["seconds"] for k, r in record.items()}
+    log(f"[drill] (b) stages {out['stages']}; seconds {out['stage_s']}; "
+        f"the widened head: {last['bad']['stages']}")
+
+    evals = [json.loads(line) for line in texts["good"].splitlines()
+             if line.startswith('{"checkpoint"')]
+    require(len(evals) == 1, f"(b) the eval stage printed {len(evals)} "
+            "result lines")
+    drill_cfg = Config.from_yaml(str(wd / "drill_cfg.yaml"))
+    resumed = Trainer(dataclasses.replace(
+        drill_cfg, train=dataclasses.replace(
+            drill_cfg.train, resume_torch=str(pth), finetune=True)),
+        trainer_workdir(tmp, "p12_resume_torch"), device=DEVICE)
+    *_rest, l1, mm = resumed.evaluate()
+    test_batches = len(resumed.test_loader)
+    del resumed
+    out["eval"] = {"drill": evals[0], "trainer_l1": l1, "trainer_mm": mm}
+    log(f"[drill] (b) eval stage {evals[0]}; Trainer.evaluate after "
+        f"resume_torch l1 {l1!r} mm {mm!r}")
+    require(abs(evals[0]["mm"] - mm) <= DRILL_MM_RTOL * abs(mm),
+            f"(b) the drill's eval mm {evals[0]['mm']} against the resumed "
+            f"Trainer's {mm}")
+    edits = sorted(os.listdir(wd / "demo" / "edits"))
+    require(edits == sorted(f"sample0_{k}.obj" for k in (
+        "rec", "ori", "bonelen", "girth", "style")),
+        f"(b) the demo wrote {edits}")
+    res = record["resume"]
+    out["resume"] = {k: res[k] for k in ("epoch", "loss", "epoch_scan",
+                                         "steps", "eval_batches")}
+    require(np.isfinite(res["loss"]) and res["epoch_scan"]
+            and res["epoch"] == DFAUST_EPOCHS + 1,
+            f"(b) the resumed epoch {out['resume']}")
+    want = drill_launches(record, test_batches)
+    got = {k: {c: r["launches"][c] for c in KERNEL_COUNTS}
+           for k, r in record.items()}
+    for stage_name in STAGES:
+        require(got[stage_name] == want[stage_name],
+                f"(b) the drill's {stage_name}: launches "
+                f"{got[stage_name]}, want {want[stage_name]}")
+    counts = {k: sum(g[k] for g in got.values()) for k in KERNEL_COUNTS}
+    log(f"[drill] (b) {card}: the resumed epoch {out['resume']}; launches "
+        f"by stage {got}; both drills {out['drill_s']:.1f} s, the fit "
+        f"{out['fit_s']:.1f} s")
+    return out, counts
+
+
+def phase_dp_drill(card: str, tmp: Path, ckpt: str | None) -> dict:
+    """Phase 12 in the directory tmp: (a) data-parallel serving of the
+    full-width default model (phase 7's epoch-2 parameters `ckpt`, None:
+    PartAE.init(0)) and (b) the drill.  -> results with their launches
+    under "counts" (serve_dp, drill)."""
+    from semantichuman_torch.config import ModelConfig
+    from semantichuman_torch.data.assets import BodyAssets
+    from semantichuman_torch.models import build_model
+    from semantichuman_torch.topology import MeshHierarchy
+    from semantichuman_torch.utils.checkpoint import restore_checkpoint
+
+    t_phase = time.perf_counter()
+    assets, human = BodyAssets.synthetic()
+    model = build_model(ModelConfig(), MeshHierarchy.load(str(TOPOLOGY)),
+                        assets.part_dict, device=DEVICE)
+    if ckpt is None:
+        params, src = model.init(0), "PartAE.init(0)"
+    else:
+        params = restore_checkpoint(ckpt, device=DEVICE)[0]["params"]
+        src = ckpt
+    meshes = human.sample_meshes(max(DP_SERVE_BATCHES), seed=5).astype(
+        np.float32)
+    out = {"params": src}
+    out["serve_dp"], serve_counts = phase_serve_dp(
+        tmp, model, params, meshes, assets.j_regressor)
+    del model, params
+    torch.cuda.empty_cache()
+    out["drill"], drill_counts = phase_drill(card, tmp)
+    out["counts"] = {"serve_dp": serve_counts, "drill": drill_counts}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[dp-drill] phase 12 ({card}): {out['phase_s']:.1f} s")
+    return out
+
+
 def parse_args(argv):
     """No argument: every phase, the gates and the result line.  The two
     tuning modes run phase 1 and one kernel's phase alone, with a profile
@@ -4680,6 +5064,10 @@ def parse_args(argv):
                       help="phase 1 and phase 11 alone (data-parallel "
                       "training over gloo and NCCL, the trace window, "
                       "geometry, the serving dtype A/B)")
+    mode.add_argument("--drill", action="store_true",
+                      help="phase 1 and phase 12 alone (data-parallel "
+                      "serving from one bundle, the DFAUST first-contact "
+                      "drill)")
     mode.add_argument("--band-gates", action="store_true",
                       help="phase 1 and the banded routes' batch gates, "
                       "each on its own against the take route, in turns "
@@ -4736,6 +5124,14 @@ def main(argv=None) -> int:
             par = phase_parallel(card, Path(tmp), None)
         par.pop("counts")
         log(json.dumps({"parallel": par}, default=str))
+        log(card)
+        return 0
+    if args.drill:
+        # data-parallel serving and the drill alone: no result line
+        with tempfile.TemporaryDirectory() as tmp:
+            dp_drill = phase_dp_drill(card, Path(tmp), None)
+        dp_drill.pop("counts")
+        log(json.dumps({"dp_drill": dp_drill}, default=str))
         log(card)
         return 0
     if args.baseline:
@@ -4852,8 +5248,12 @@ def main(argv=None) -> int:
         torch.cuda.empty_cache()
         parallel = phase_parallel(card, Path(tmp),
                                   trainer["epoch2_checkpoint"])
+        torch.cuda.empty_cache()
+        dp_drill = phase_dp_drill(card, Path(tmp),
+                                  trainer["epoch2_checkpoint"])
     deploy_counts = deploy.pop("counts")
     parallel_counts = parallel.pop("counts")
+    dp_drill_counts = dp_drill.pop("counts")
     baseline_counts = {
         "neural3dmm": baseline.pop("counts"),
         "neural3dmm_resume_torch": baseline["n3dmm_resume"].pop("counts"),
@@ -4874,7 +5274,9 @@ def main(argv=None) -> int:
     # eval_reference (cli.eval_reference on the card); phase 11: dp_gloo
     # (both ranks of (a) and of its resume, each counted in its own
     # process), dp_nccl1, trace (the windowed fit), geometry (the card's
-    # checks), serving_ab (the tool's two arms)
+    # checks), serving_ab (the tool's two arms); phase 12: serve_dp (the
+    # two copies on one card, eager calls and captures; a replay counts
+    # nothing), drill (the drill's six stages, counted in its process)
     paths = {"serve": serve, "serve_banded": serve_banded,
              "serve_take": serve_take, "train_step": step_counts,
              "trainer": trainer_counts, "trainer_graph": graph_counts,
@@ -4882,7 +5284,7 @@ def main(argv=None) -> int:
              "trainer_banded_graph": banded_graph_counts,
              "dfaust_stacked": dfaust_counts["stacked"],
              "dfaust_files": dfaust_counts["files"], **baseline_counts,
-             **deploy_counts, **parallel_counts}
+             **deploy_counts, **dp_drill_counts, **parallel_counts}
 
     def launches(name):
         by_path = {p: c[name] for p, c in paths.items()}
@@ -5095,6 +5497,7 @@ def main(argv=None) -> int:
     log(json.dumps({"baseline": baseline}, default=str))
     log(json.dumps({"deploy": deploy}, default=str))
     log(json.dumps({"parallel": parallel}, default=str))
+    log(json.dumps({"dp_drill": dp_drill}, default=str))
     log(json.dumps({"train": train}))
     log(card)
     log(json.dumps({"kernels": kernels}))

@@ -433,6 +433,9 @@ sc_fwd_narrow_kernel(const T* __restrict__ x, const int* __restrict__ spiral,
     }
 }
 
+// The runtime keeps a kernel's dynamic shared-memory limit per device
+// context, so it is set on every launch: a flag set once per process would
+// leave a second card at the 48 KB default.
 template <typename K>
 cudaError_t allow_smem(K kernel) {
   return cudaFuncSetAttribute(
@@ -451,12 +454,8 @@ cudaError_t tile_launch(const void* x, const int* spiral, const void* w,
       smem != Sh::smem(S) || smem > kMaxSmem)
     return cudaErrorInvalidValue;
   auto kernel = sc_fwd_tile_kernel<T, BM, BN, TM, TN, MB>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t err = allow_smem(kernel);
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
+  const cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return err;
   const dim3 grid((M + BM - 1) / BM, (Co + BN - 1) / BN);
   kernel<<<grid, Sh::NT, smem, st>>>(
       static_cast<const T*>(x), spiral, static_cast<const T*>(w), bias, y, M,
@@ -475,12 +474,8 @@ cudaError_t narrow_launch(const void* x, const int* spiral, const void* w,
       smem > kMaxSmem)
     return cudaErrorInvalidValue;
   auto kernel = sc_fwd_narrow_kernel<T, NQ>;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t err = allow_smem(kernel);
-    if (err != cudaSuccess) return err;
-    ready = true;
-  }
+  const cudaError_t err = allow_smem(kernel);
+  if (err != cudaSuccess) return err;
   kernel<<<(M + kNarrowThreads - 1) / kNarrowThreads, kNarrowThreads, smem,
            st>>>(static_cast<const T*>(x), spiral, static_cast<const T*>(w),
                  bias, y, M, V1, C, S, Co, act, vecx);

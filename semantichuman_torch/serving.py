@@ -20,23 +20,44 @@ custom ops `semantichuman::spiral_conv_fwd` and `semantichuman::
 gather_rows` (`ops/spiral_conv.py`, `ops/row_gather.py`), so a `.pt2`
 file loads only where `semantichuman_torch` is imported.  The programs'
 constants live on the device they were exported on, which the manifest
-records per artifact as `platforms`; a bundle refuses another device.
+records per artifact as `platforms` (with the card's index: "cuda:0"; a
+manifest that names the type alone still loads).  A bundle refuses a
+device of another type; on another card of the same type each program is
+moved there (`torch.export.passes.move_to_device_pass`), and the load
+checks that no tensor of a moved program is left off its device.
 
-On the card, the first call of a program at a batch b <= `_GRAPH_MAX_B`
-warms it up on a side stream and captures it into a CUDA graph with static
-input and output buffers, keyed by (artifact, b); later calls copy the
-input in, replay, and return clones of the outputs.  This is the
-counterpart of the JAX loader's `jax.jit(exp.call)` cache: a forward at
-small batch is paced by the host's launches, and a replay has none.
-Larger batches and the CPU call the program eagerly.
+`ServingBundle(dir, device=[d0, d1, ...])` serves one batch over several
+devices, the counterpart of the JAX bundle called on a batch-sharded
+input: one copy of each program per listed device, loaded (and moved)
+from the same `.pt2` files, never exported again.  A call splits the
+batch into contiguous equal shards in device order (a batch the device
+count does not divide raises, as JAX's `NamedSharding` refuses it),
+launches every shard before it reads any result, and returns a `Shards`:
+each shard's outputs stay on its copy's device, and `Shards.gather()`
+concatenates them onto one.  A device may be listed twice (two copies on
+one card).  One device behaves as a bundle of one: the call returns the
+outputs themselves.
 
-The rebuilt live model stays on the bundle (`model`, `params`, `live`):
-an exported program fixes the banded gates' route when it is traced, and
-the live model follows the gates at call time.
+On the card, the first call of a copy's program at a batch b <=
+`_GRAPH_MAX_B` warms it up on a side stream and captures it into a CUDA
+graph with static input and output buffers, keyed by (artifact, b), each
+copy with its own graphs and memory pool; later calls copy the input in,
+replay, and return clones of the outputs.  Capture and replay run with the
+copy's card current, so a copy on another card than the process's current
+one captures its own launches.  This is the counterpart of the JAX
+loader's `jax.jit(exp.call)` cache: a forward at small batch is paced by
+the host's launches, and a replay has none.  Larger batches and the CPU
+call the program eagerly.
+
+The rebuilt live model stays on the bundle (`model`, `params`, `live`), on
+the first listed device: an exported program fixes the banded gates'
+route when it is traced, and the live model follows the gates at call
+time.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import warnings
@@ -44,6 +65,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.export.passes
 from torch import nn
 
 from .constants import KPS_KEEP
@@ -188,7 +210,7 @@ def export_inference(model: PartAE, params: dict, j_regressor, out_dir: str,
         torch.export.save(ep, os.path.join(out_dir, f"{name}.pt2"))
         manifest["artifacts"][name] = {
             "file": f"{name}.pt2",
-            "platforms": [t.device.type],
+            "platforms": [str(t.device)],
             "in_shapes": [list(s) for s in shapes[name]],
         }
     with open(os.path.join(out_dir, "manifest.json"), "w") as f:
@@ -196,22 +218,149 @@ def export_inference(model: PartAE, params: dict, j_regressor, out_dir: str,
     return manifest
 
 
+def _indexed(device: torch.device) -> torch.device:
+    """A card without an index as the current one ("cuda" -> "cuda:0")."""
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _on(device: torch.device):
+    """`device` made the current card for the block (nothing on the CPU)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def off_device(ep, device) -> list:
+    """What in the ExportedProgram `ep` is not on `device`: its state and
+    constants, each node's device argument and the tensors of its traced
+    metadata, as (what, device) pairs."""
+    device = torch.device(device)
+    out = [(k, v.device) for k, v in (*ep.state_dict.items(),
+                                      *ep.constants.items())
+           if torch.is_tensor(v) and v.device != device]
+    for node in ep.graph.nodes:
+        dev = node.kwargs.get("device")
+        if dev is not None and torch.device(dev) != device:
+            out.append((f"{node.name} device=", torch.device(dev)))
+        vals = node.meta.get("val")
+        for v in vals if isinstance(vals, (list, tuple)) else (vals,):
+            if torch.is_tensor(v) and v.device != device:
+                out.append((f"{node.name} value", v.device))
+    return out
+
+
+def load_program(path: str, device):
+    """The ExportedProgram at `path` with every tensor on `device`: moved
+    there where the export left any elsewhere (another card)."""
+    device = torch.device(device)
+    ep = torch.export.load(path)
+    if off_device(ep, device):
+        ep = torch.export.passes.move_to_device_pass(ep, str(device))
+        left = off_device(ep, device)
+        if left:
+            raise RuntimeError(f"{path}: moved to {device}, but {left[:4]} "
+                               f"(of {len(left)}) stayed off it")
+    return ep
+
+
+class Shards(list):
+    """A call's outputs over several devices: one entry per copy, in device
+    order, each what the one-device call returns (a tensor or a tuple of
+    tensors) for its shard of the batch, on its copy's device."""
+
+    def gather(self, device=None):
+        """The shards concatenated along the batch onto `device` (default:
+        the first shard's): what the one-device bundle returns."""
+        first = self[0]
+        if torch.is_tensor(first):
+            dev = first.device if device is None else device
+            return torch.cat([s.to(dev) for s in self])
+        dev = first[0].device if device is None else device
+        return tuple(torch.cat([s[i].to(dev) for s in self])
+                     for i in range(len(first)))
+
+
+class _Copy:
+    """One device's copy of the bundle's programs, with its own captured
+    graphs (by (artifact, batch)) and their memory pool."""
+
+    def __init__(self, bundle_dir: str, artifacts: dict, device):
+        self.device = device
+        self.programs = {
+            name: load_program(os.path.join(bundle_dir, meta["file"]),
+                               device).module()
+            for name, meta in artifacts.items()}
+        self.captured: dict = {}
+        self.pool = None
+
+    def input(self, a) -> torch.Tensor:
+        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+
+    def call(self, name: str, args: tuple, graph: bool | None):
+        if graph is None:
+            graph = (self.device.type == "cuda"
+                     and args[0].shape[0] <= _GRAPH_MAX_B)
+        if not graph:
+            with torch.inference_mode(), _on(self.device):
+                return self.programs[name](*args)
+        key = (name, args[0].shape[0])
+        if key not in self.captured:
+            self.captured[key] = self.capture(name, args)
+        cuda_graph, inputs, outputs = self.captured[key]
+        with _on(self.device):
+            for static, a in zip(inputs, args):
+                static.copy_(a)
+            cuda_graph.replay()
+            if isinstance(outputs, torch.Tensor):
+                return outputs.clone()
+            return tuple(o.clone() for o in outputs)
+
+    def capture(self, name: str, args) -> tuple:
+        """Warm the program up on a side stream, then capture it into a
+        CUDA graph over static copies of `args` (one memory pool for all of
+        the copy's graphs), all with the copy's card current: (graph,
+        static inputs, static outputs)."""
+        prog = self.programs[name]
+        with torch.cuda.device(self.device):
+            inputs = tuple(a.clone() for a in args)
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side), torch.no_grad():
+                for _ in range(2):
+                    prog(*inputs)
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool):
+                outputs = prog(*inputs)
+        self.pool = graph.pool()
+        return graph, inputs, outputs
+
+
 class ServingBundle:
-    """Load an exported bundle onto `device`; `forward`, `encode` and
-    `decode` take arrays or tensors and return float32 tensors on that
-    device."""
+    """Load an exported bundle onto `device`, or one copy of its programs
+    onto each device of a list; `forward`, `encode` and `decode` take
+    arrays or tensors and return float32 tensors on that device (a list:
+    a `Shards` of them, one per device)."""
 
     def __init__(self, bundle_dir: str, device="cuda"):
-        self.device = resolve_device(device)
+        listed = device if isinstance(device, (list, tuple)) else [device]
+        if not listed:
+            raise ValueError("ServingBundle needs at least one device")
+        devices = [resolve_device(d) for d in listed]
         with open(os.path.join(bundle_dir, "manifest.json")) as f:
             self.manifest = json.load(f)
         for name, meta in self.manifest["artifacts"].items():
-            if self.device.type not in meta["platforms"]:
-                raise ValueError(
-                    f"{bundle_dir}: artifact {name!r} was exported on "
-                    f"{meta['platforms']}, so it cannot serve on "
-                    f"{self.device.type!r}: export the bundle again on "
-                    "that device")
+            types = {torch.device(p).type for p in meta["platforms"]}
+            for dev in devices:
+                if dev.type not in types:
+                    raise ValueError(
+                        f"{bundle_dir}: artifact {name!r} was exported on "
+                        f"{meta['platforms']}, so it cannot serve on "
+                        f"{dev.type!r}: export the bundle again on that "
+                        "device")
+        self.devices = [_indexed(d) for d in devices]
+        self.device = self.devices[0]
         pl = torch.load(os.path.join(bundle_dir, PAYLOAD),
                         map_location="cpu", weights_only=True)
         tab = pl["tables"]
@@ -229,56 +378,33 @@ class ServingBundle:
         self.params = tree_map(lambda a: a.to(self.device), pl["params"])
         self._live = {name: cls(self.model, self.params, pl["j_regressor"])
                       for name, cls in _PROGRAMS.items()}
-        self._programs = {
-            name: torch.export.load(
-                os.path.join(bundle_dir, meta["file"])).module()
-            for name, meta in self.manifest["artifacts"].items()}
-        self._captured: dict = {}
-        self._pool = None
+        self._copies = [_Copy(bundle_dir, self.manifest["artifacts"], dev)
+                        for dev in self.devices]
+        self._programs = self._copies[0].programs
+        self._captured = self._copies[0].captured
 
     def _in(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        return self._copies[0].input(a)
 
     # --- the exported programs ---------------------------------------------
     def call(self, name: str, *args, graph: bool | None = None):
         """Run artifact `name`: from its captured graph where `graph` (by
         default: on the card at b <= _GRAPH_MAX_B), else the program
-        eagerly."""
-        args = tuple(self._in(a) for a in args)
-        if graph is None:
-            graph = (self.device.type == "cuda"
-                     and args[0].shape[0] <= _GRAPH_MAX_B)
-        if not graph:
-            with torch.inference_mode():
-                return self._programs[name](*args)
-        key = (name, args[0].shape[0])
-        if key not in self._captured:
-            self._captured[key] = self._capture(name, args)
-        cuda_graph, inputs, outputs = self._captured[key]
-        for static, a in zip(inputs, args):
-            static.copy_(a)
-        cuda_graph.replay()
-        if isinstance(outputs, torch.Tensor):
-            return outputs.clone()
-        return tuple(o.clone() for o in outputs)
-
-    def _capture(self, name: str, args) -> tuple:
-        """Warm the program up on a side stream, then capture it into a
-        CUDA graph over static copies of `args` (one memory pool for all
-        of the bundle's graphs): (graph, static inputs, static outputs)."""
-        prog = self._programs[name]
-        inputs = tuple(a.clone() for a in args)
-        side = torch.cuda.Stream(device=self.device)
-        side.wait_stream(torch.cuda.current_stream(self.device))
-        with torch.cuda.stream(side), torch.no_grad():
-            for _ in range(2):
-                prog(*inputs)
-        torch.cuda.current_stream(self.device).wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(graph, pool=self._pool):
-            outputs = prog(*inputs)
-        self._pool = graph.pool()
-        return graph, inputs, outputs
+        eagerly.  Over several devices, each copy runs its contiguous
+        shard of the batch, every shard launched before any result is
+        read: -> Shards, each shard's outputs on its copy's device."""
+        if len(self._copies) == 1:
+            copy = self._copies[0]
+            return copy.call(name, tuple(copy.input(a) for a in args), graph)
+        n, b = len(self._copies), len(args[0])
+        if b % n:
+            raise ValueError(f"a batch of {b} does not split into equal "
+                             f"shards over {n} devices")
+        k = b // n
+        shards = [tuple(c.input(a[i * k:(i + 1) * k]) for a in args)
+                  for i, c in enumerate(self._copies)]
+        return Shards(c.call(name, s, graph)
+                      for c, s in zip(self._copies, shards))
 
     def __getattr__(self, name):
         if name.startswith("_"):

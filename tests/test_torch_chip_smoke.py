@@ -728,3 +728,85 @@ def test_dp_compare_holds_the_tolerances(tmp_path):
     assert CS.dp_compare("t", ranks, tmp_path / "off", ref, (1, 2),
                          same_start=False)["failures"][0].startswith(
                              "t: step losses")
+
+
+# --- phase 12: data-parallel serving and the drill ----------------------------
+
+def test_drill_mode_parses():
+    """--drill runs phase 1 and phase 12 alone and excludes the other
+    modes."""
+    assert CS.parse_args(["--drill"]).drill
+    assert not CS.parse_args([]).drill
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--drill", "--deploy"])
+
+
+def test_dp_drill_paths_join_the_kernels_line():
+    """Phase 12's two counted paths (the two copies' calls, the drill's
+    stages) go into the kernels line's launches_by_path, and phase 12 runs
+    last in the full run's shared directory."""
+    import inspect
+
+    src = inspect.getsource(CS.phase_dp_drill)
+    assert re.findall(r'"(\w+)": (?:serve|drill)_counts', src) == [
+        "serve_dp", "drill"]
+    main = inspect.getsource(CS.main)
+    assert "**dp_drill_counts, " in main
+    assert main.index("phase_parallel(card, Path(tmp)") < main.index(
+        "phase_dp_drill(card, Path(tmp)") < main.index(
+        'dp_drill_counts = dp_drill.pop("counts")')
+
+
+def test_drill_launch_literals():
+    """Each drill stage's launches as the main paths' literals give them:
+    none for the assets and the topology, one take-route forward for the
+    import, the test batches and the train split's staging for the eval,
+    one run_demo and the staging for the demo, and for the resumed epoch
+    on the epoch path its warm-ups and capture, its evaluation batches and
+    the staging; the stages are the drill's six; each artifact's per-shard
+    launches add up to a forward."""
+    from semantichuman_torch.tools.dfaust_drill import STAGES
+
+    want = CS.drill_launches({"resume": {"eval_batches": 2}}, 1)
+    assert set(want) == set(STAGES)
+    assert want["assets"] == want["topology"] == CS.expect({})
+    assert want["import"] == CS.expect(CS.SERVE_LAUNCHES["take"])
+    assert want["eval"]["spiral_conv_fwd"] == 9
+    assert want["eval"]["row_gather"] == 11 + CS.STAGE_GATHERS
+    assert want["demo"]["row_gather"] == (CS.demo_launches()["row_gather"]
+                                          + CS.STAGE_GATHERS)
+    res = want["resume"]
+    assert (res["spiral_conv_fwd"], res["spiral_conv_bwd_dw"],
+            res["part_dist_fwd_grad"]) == (3 * 9 + 2 * 9, 27, 6)
+    assert res["row_gather"] == 3 * 21 + 2 * 11 + CS.STAGE_GATHERS
+    art = CS.ARTIFACT_LAUNCHES
+    assert {k: CS.expect(art["encode"])[k] + CS.expect(art["decode"])[k]
+            for k in CS.KERNEL_COUNTS} == CS.expect(art["forward"])
+    assert all(b % CS.DP_SERVE_COPIES == 0 for b in CS.DP_SERVE_BATCHES)
+
+
+def test_copy_probe_and_gaps_on_the_cpu(small_models, small_human, tmp_path,
+                                        monkeypatch):
+    """copy_probe records each copy's call with its shard batch and
+    launches (none on the CPU), and gaps reads the largest absolute and
+    relative difference of the gathered shards from the one-device call."""
+    from semantichuman_torch.serving import ServingBundle, export_inference
+
+    monkeypatch.setattr(CS, "DEVICE", "cpu")
+    model, _ = small_models
+    export_inference(model, model.init(0), small_human.J_regressor,
+                     str(tmp_path))
+    m = small_human.sample_meshes(4, seed=2).astype(np.float32)
+    v = np.concatenate([m, np.zeros((4, 1, 3), np.float32)], 1)
+    one = ServingBundle(str(tmp_path), device="cpu")
+    two = ServingBundle(str(tmp_path), device=["cpu", "cpu"])
+    with CS.copy_probe() as calls:
+        got = two.forward(v)
+    assert [(dev, name, b, graph) for _c, dev, name, b, graph, _n in calls] \
+        == [("cpu", "forward", 2, None)] * 2
+    assert len({c for c, *_rest in calls}) == 2
+    assert all(n == CS.expect({}) for *_rest, n in calls)
+    ab, rel = CS.gaps(got.gather(), one.forward(v))
+    assert 0 <= ab <= 1e-6 and 0 <= rel
+    assert CS.gaps(one.forward(v)[0] + 1.0, one.forward(v)[0])[0] == \
+        pytest.approx(1.0)

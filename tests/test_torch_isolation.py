@@ -1,6 +1,7 @@
 """The port stands alone: no module of semantichuman_torch, and not
-chip_smoke.py, imports JAX or the JAX package, and importing the port on a
-host without a card, nvcc or triton loads no JAX."""
+chip_smoke.py, imports JAX, the JAX package or the repo's root `tools` and
+`benchmarks` packages, and importing the port on a host without a card,
+nvcc or triton loads none of them."""
 
 import ast
 import subprocess
@@ -13,7 +14,9 @@ ROOT = Path(__file__).resolve().parents[1]
 FILES = sorted(p.relative_to(ROOT).as_posix()
                for p in (ROOT / "semantichuman_torch").rglob("*.py"))
 FILES.append("chip_smoke.py")
-FORBIDDEN = ("jax", "jaxlib", "semantichuman_tpu")
+# the JAX package, and the repo's root `tools` and `benchmarks` packages,
+# whose modules import it
+FORBIDDEN = ("jax", "jaxlib", "semantichuman_tpu", "tools", "benchmarks")
 
 
 def _imported_roots(tree):

@@ -1324,7 +1324,8 @@ def _served(tmp_path, cuda):
     manifest = export_inference(model, model.init(0), human.J_regressor,
                                 str(tmp_path))
     assert manifest["symbolic_batch"]
-    assert manifest["artifacts"]["forward"]["platforms"] == ["cuda"]
+    assert manifest["artifacts"]["forward"]["platforms"] == [
+        f"cuda:{torch.cuda.current_device()}"]
     m = human.sample_meshes(32, seed=6).astype(np.float32)
     verts = torch.from_numpy(np.concatenate(
         [m, np.zeros((32, 1, 3), np.float32)], 1)).to(cuda)
@@ -1367,3 +1368,84 @@ def test_graph_replays_return_their_own_outputs(cuda, tmp_path):
     assert not torch.equal(first[0], second[0])
     eager = bundle.call("forward", b, graph=False)
     assert all(torch.equal(s, e) for s, e in zip(second, eager))
+
+
+@pytest.mark.cuda
+def test_sharded_bundle_on_one_card(cuda, tmp_path):
+    """Two copies on the one card (device listed twice): each shard on its
+    copy's card, forward, encode and decode within 1e-5 of the one-device
+    bundle, eager and captured; each copy captures its own graphs into
+    its own pool."""
+    from semantichuman_torch.serving import Shards, ServingBundle
+
+    bundle, verts = _served(tmp_path, cuda)
+    dp = ServingBundle(str(tmp_path), device=[cuda, cuda])
+    for graph in (False, None):
+        got = dp.call("forward", verts[:16], graph=graph)
+        assert isinstance(got, Shards) and len(got) == 2
+        assert all(t.shape[0] == 8 and t.device == c.device
+                   for shard, c in zip(got, dp._copies) for t in shard)
+        ref = bundle.call("forward", verts[:16], graph=graph)
+        for g, r in zip(got.gather(), ref):
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+    z, z_kps, _ = bundle.encode(verts[:16])
+    for g, r in zip(dp.encode(verts[:16]).gather(), (z, z_kps)):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+    torch.testing.assert_close(dp.decode(z, z_kps).gather(),
+                               bundle.decode(z, z_kps), rtol=0, atol=1e-5)
+    a, b = dp._copies
+    assert set(a.captured) == set(b.captured) == {
+        ("forward", 8), ("encode", 8), ("decode", 8)}
+    assert a.pool is not None and a.pool != b.pool
+
+
+def _two_cards():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_forward_on_a_second_card(dtype):
+    """The forward conv at every test shape on cuda:0, then on cuda:1
+    (where the kernels' shared-memory limit must be set again), each
+    against its plain version there."""
+    cards = _two_cards()
+    for dev in cards:
+        for shape in SHAPES:
+            args = _case(shape, dev)
+            with torch.cuda.device(cards[0]):
+                got = TC.spiral_conv(*args, "elu", compute_dtype=dtype)
+            ref = TC.spiral_conv_plain(*args, "elu", compute_dtype=dtype)
+            assert got.device == dev
+            torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_bundle_moved_to_a_second_card(tmp_path):
+    """A bundle exported on cuda:0 and loaded on cuda:1 alone, and on
+    [cuda:0, cuda:1], while cuda:0 is current: every program moved with
+    nothing left off its card, its eager and captured forward equal to
+    the bundle on cuda:0."""
+    from semantichuman_torch import serving as TSV
+    from semantichuman_torch.serving import ServingBundle
+
+    c0, c1 = _two_cards()
+    bundle, verts = _served(tmp_path, c0)
+    for name in ("forward", "encode", "decode"):
+        ep = TSV.load_program(str(tmp_path / f"{name}.pt2"), c1)
+        assert TSV.off_device(ep, c1) == []
+    moved = ServingBundle(str(tmp_path), device=c1)
+    with torch.cuda.device(c0):
+        for graph in (False, True):
+            got = moved.call("forward", verts[:4], graph=graph)
+            ref = bundle.call("forward", verts[:4], graph=graph)
+            assert all(g.device == c1 and torch.equal(g.cpu(), r.cpu())
+                       for g, r in zip(got, ref))
+        split = ServingBundle(str(tmp_path), device=[c0, c1])
+        got = split.forward(verts[:8])
+        assert [s[0].device for s in got] == [c0, c1]
+        for g, r in zip(got.gather(c0), bundle.forward(verts[:8])):
+            torch.testing.assert_close(g, r, rtol=0, atol=1e-5)

@@ -225,6 +225,32 @@ def test_simple_losses_match_jax(data, tables, relat):
         np.asarray(JL.regress_kps(_j(tx), _j(jt.j_regressor))), atol=1e-6)
 
 
+@pytest.mark.parametrize("as_table", [True, False])
+def test_edge_loss_matches_jax(data, small_human, as_table):
+    """edge_loss over the unique edges, as the prebuilt table or the
+    [E, 2] list: the value (rtol 1e-6) and its gradient in rec, through
+    the gather's plain version and its CSR backward, against jax.grad
+    (rtol 1e-5, atol 1e-5 of the gradient's largest entry); 0 on
+    identical meshes and positive on a stretched one (as
+    tests/test_losses.py holds the JAX loss)."""
+    from semantichuman_torch.topology.adjacency import unique_edges
+
+    tx, rec, *_ = data
+    e = unique_edges(small_human.template_faces)
+    edges = (TL.edge_table(e, tx.shape[1], "cpu") if as_table else e)
+    r = _t(rec).requires_grad_(True)
+    got = TL.edge_loss(_t(tx), r, edges)
+    got.backward()
+    want, jgrad = jax.value_and_grad(
+        lambda x: JL.edge_loss(_j(tx), x, e))(_j(rec))
+    np.testing.assert_allclose(float(got.detach()), float(want), rtol=1e-6)
+    jgrad = np.asarray(jgrad)
+    np.testing.assert_allclose(r.grad.numpy(), jgrad, rtol=1e-5,
+                               atol=1e-5 * float(np.abs(jgrad).max()))
+    assert float(TL.edge_loss(_t(tx), _t(tx), edges)) == 0.0
+    assert float(TL.edge_loss(_t(tx), _t(tx) * 1.1, edges)) > 0.0
+
+
 def _wdl_pair(data, tables, w_mode, w_part_mode, relat, leafkeep=True,
               with_a=True, part_indices=None, tx=None, rec=None, kps=None):
     """(port loss fn of rec, JAX jnp-path loss fn of rec)."""

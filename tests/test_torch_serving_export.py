@@ -2,10 +2,9 @@
 batch, against the live port model and the JAX package's exported
 artifacts on the same inputs (counterparts of tests/test_serving.py:28-127).
 
-tests/test_serving.py::test_sharded_batch_serving_dp8 has no counterpart
-yet: serving a batch sharded over devices waits for data-parallel
-training (ROADMAP.md section 1, 'DDP and the trace window').  The captured
-forward (a CUDA graph per batch) runs only on the card:
+tests/test_serving.py::test_sharded_batch_serving_dp8's counterpart, one
+batch served over several devices, is tests/test_torch_serving_dp.py.  The
+captured forward (a CUDA graph per batch) runs only on the card:
 tests/test_torch_kernels_cuda.py holds its replays to the eager program.
 """
 
