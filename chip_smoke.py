@@ -205,7 +205,9 @@ run:
    version of rows 1 and 7 called on a CUDA tensor, each of the five
    outputs within atol 1e-4 of the same edits through the plain versions
    (the Editor on the CPU, the same parameters), the identity girth edit
-   equal to reconstruct bit for bit, host ms per edit at B = 1 and 4;
+   equal to reconstruct bit for bit, `PartAE.kps2skl` on the encoded
+   keypoints equal to `ops.skeleton.kps2skl` in its five modes, host ms
+   per edit at B = 1 and 4;
    (b) `export_inference` on the card, symbolic, its host seconds, the
    load's and the `.pt2` sizes; the programs called eagerly at B = 1,
    16, 64 (and encode -> decode at 16) with SERVE_LAUNCHES["take"] per
@@ -255,14 +257,18 @@ run:
    (`ServingBundle(dir, device=["cuda:0", "cuda:0"])`): at B = 2, 16, 64
    forward, encode and decode, eagerly and then captured, every output
    shard on its copy's device, the gathered outputs within atol 1e-5 of
-   the one-device bundle (the largest absolute and relative gaps printed
-   beside the JAX test's rtol 2e-6 / atol 2e-7), a captured call bit-equal
-   to the eager one; per copy call SERVE_LAUNCHES["take"] (encode and
-   decode: their halves) eagerly, GRAPH_WARMUPS + 1 times that at the
-   copy's first capture at a shard batch, none on a replay; where the
-   process has two cards, the same on [cuda:0, cuda:1] and on cuda:1
-   alone; one copy against two on the one card in turns at B = 64, ms per
-   forward, no gate.  (b) on phase 8's dataset (preprocessed anew where
+   the one-device bundle (the largest absolute and relative gaps
+   printed), and at each (artifact, B), eager and captured, the JAX
+   test's rule allclose(rtol 2e-6, atol 2e-7) read with its count of
+   entries outside it; where one fails, `shard_diagnostic` runs the live
+   model op by op at B = 1 against row 0 of B = 2 (each conv with its
+   tile) and names the first op whose row differs; a captured call
+   bit-equal to the eager one; per copy call SERVE_LAUNCHES["take"]
+   (encode and decode: their halves) eagerly, GRAPH_WARMUPS + 1 times
+   that at the copy's first capture at a shard batch, none on a replay;
+   where the process has two cards, the same on [cuda:0, cuda:1] and on
+   cuda:1 alone; one copy against two on the one card in turns at B = 64,
+   ms per forward, no gate.  (b) on phase 8's dataset (preprocessed anew where
    phase 8 did not run), cli.train with configs/train_dfaust.yaml for 2
    epochs, its epoch-2 state written in the reference layout; the port's
    drill (`semantichuman_torch/tools/dfaust_drill.py`) on the card as a
@@ -285,8 +291,10 @@ reduce's checks and times of phases 4 and 6 with a sweep of its batch
 tile, for tuning those kernels, `--trainer` phase 1 and phase 7,
 `--dfaust` phase 1 and phase 8, `--baseline` phase 1 and phase 9,
 `--deploy` phase 1 and phase 10, `--parallel` phase 1 and phase 11,
-`--drill` phase 1 and phase 12, and `--band-gates` phase 1 and each
-banded gate measured on its own against the take route in turns (serving
+`--drill` phase 1 and phase 12, `--shard-diagnostic` phase 1 and phase
+12 (a)'s diagnostic on its own (PartAE.init(0)), and `--band-gates` phase
+1 and each banded gate measured on its own against the take route in
+turns (serving
 at B = 1, 16, 64, the Trainer's epoch path at trunk 12 and the fast
 recipe's 128), the measurement that set both gates: they print no result
 line and are no gate.
@@ -297,6 +305,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import importlib
 import json
 import os
 import re
@@ -626,7 +635,7 @@ def phase_kernels(model, profile: bool = False):
     yardstick of a library GEMM of the same M x K x N, which computes no
     conv and which the port never calls).  `profile` adds the device time
     by kernel of each float32 conv at B = 384."""
-    from semantichuman_torch.ops import spiral_conv as SC
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
     require(not torch.backends.cuda.matmul.allow_tf32,
             "the plain and GEMM routes must run in full f32")
@@ -963,7 +972,7 @@ def phase_conv_backward(model, profile: bool = False):
     [B, V1, S*C] buffers and csr_reduce); each half alone, fused and
     unfused; and the plain conv's autograd (`plain_ms`).  `profile` adds
     the dispatched float32 backward's device time by kernel name."""
-    from semantichuman_torch.ops import spiral_conv as SC
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     rows = []
@@ -1118,7 +1127,7 @@ def capture_csr_calls(model, run) -> list:
     that call it (the gathers' backward, the unfused dx) for the length
     of run(), which still goes through the kernel."""
     from semantichuman_torch.ops import row_gather as RG
-    from semantichuman_torch.ops import spiral_conv as SC
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
     fam = csr_families(model)
     calls, real = [], (RG.csr_reduce, SC.csr_reduce)
@@ -1979,7 +1988,7 @@ def step_csr_vs_v1(run, reps: int = 3) -> dict:
     counted steps; the swap lives here only."""
     from semantichuman_torch.ops import csr_reduce as TR
     from semantichuman_torch.ops import row_gather as RG
-    from semantichuman_torch.ops import spiral_conv as SC
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
     if DEVICE != "cuda":
         return {}
@@ -2192,7 +2201,7 @@ def phase_conv_backward_trainer(model, b: int = TRAINER_TRUNK_B):
     does.  float32 and bfloat16, each kernel within 1e-4 of the largest
     entry of its plain version and bit-equal over two runs; device times
     (device_ms) of the float32 kernels and their plain versions."""
-    from semantichuman_torch.ops import spiral_conv as SC
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
     t = model.tables
     gen = torch.Generator(device=DEVICE).manual_seed(5)
@@ -2647,8 +2656,6 @@ def band_gates(conv: int, unpool: int):
     _UNPOOL_BAND_MAX_B`) set for the block: the route is banded at batch
     <= the gate on the card, and 0 closes it.  A graph captured inside
     the block keeps the routes it recorded."""
-    import importlib
-
     from semantichuman_torch.ops import sampling
 
     sc = importlib.import_module("semantichuman_torch.ops.spiral_conv")
@@ -3695,8 +3702,6 @@ def no_plain_on_card():
     tensor in the block ({"spiral_conv_plain": n, "gather_rows_plain":
     n}): on the card the wrappers launch the kernels, and a call of a
     plain version there is a fallback."""
-    import importlib
-
     from semantichuman_torch.ops import row_gather as RG
 
     sc = importlib.import_module("semantichuman_torch.ops.spiral_conv")
@@ -3756,6 +3761,20 @@ def deploy_editor(model, params, assets, meshes, hier, tmp: Path) -> dict:
     lat = editor.encode(verts)                       # warm-up, not counted
     editor.decode(lat["z"], lat["z_kps"])
     sync()
+    # PartAE.kps2skl on the card's encoded keypoints against
+    # ops.skeleton.kps2skl, every mode
+    from semantichuman_torch.ops.skeleton import kps2skl
+    kps = lat["kps_full"]
+    out["kps2skl"] = {}
+    for mode in ("ori_m", "kps_ori_m", "vec_m", "vec", "m"):
+        got, want = model.kps2skl(kps, mode), kps2skl(kps, mode)
+        out["kps2skl"][mode] = list(got.shape)
+        require(got.device == kps.device and torch.equal(got, want)
+                and bool(torch.isfinite(got).all()),
+                f"(a) PartAE.kps2skl({mode!r}) differs from "
+                "ops.skeleton.kps2skl on the card")
+    log(f"[deploy] (a) PartAE.kps2skl on the card's keypoints equal to "
+        f"ops.skeleton.kps2skl: {out['kps2skl']}")
     with no_plain_on_card() as plain_calls:
         reset_counts()
         res = run_demo(editor, verts, str(tmp / "p10_edits"))
@@ -4671,9 +4690,13 @@ def phase_parallel(card: str, tmp: Path, ckpt: str | None) -> dict:
 DP_SERVE_BATCHES = (2, 16, 64)
 DP_SERVE_COPIES = 2
 # the gathered shards against the one-device bundle: phase 10 (b)'s
-# program-against-live tolerance; the JAX test's rtol 2e-6 / atol 2e-7 is
-# printed beside the gaps
+# program-against-live tolerance
 DP_SERVE_ATOL = 1e-5
+# the JAX test's elementwise rule for sharded serving
+# (tests/test_serving.py::test_sharded_batch_serving_dp8): a reading at
+# each (artifact, B), eager and captured, with the count of entries
+# outside it; where one fails, `shard_diagnostic` names the op
+JAX_SERVE_RTOL, JAX_SERVE_ATOL = 2e-6, 2e-7
 # per call of each artifact, per shard: the take route
 ARTIFACT_LAUNCHES = {"forward": SERVE_LAUNCHES["take"],
                      "encode": ENCODE_LAUNCHES, "decode": DECODE_LAUNCHES}
@@ -4721,6 +4744,23 @@ def gaps(got, ref) -> tuple:
     return ab, rel
 
 
+def jax_rule(got, ref) -> list:
+    """[meets the JAX test's rule, entries outside it, entries, the largest
+    |got - ref| / (atol + rtol |ref|)] of the outputs `got` against `ref`:
+    torch.allclose(got, ref, rtol=JAX_SERVE_RTOL, atol=JAX_SERVE_ATOL),
+    output by output (the share is above 1 where an entry is outside)."""
+    got = (got,) if torch.is_tensor(got) else got
+    ref = (ref,) if torch.is_tensor(ref) else ref
+    # torch.allclose is isclose everywhere: met where no entry is outside
+    bad = sum(int((~torch.isclose(g.to(r.device), r, rtol=JAX_SERVE_RTOL,
+                                  atol=JAX_SERVE_ATOL)).sum())
+              for g, r in zip(got, ref))
+    share = max(float(((g.to(r.device) - r).abs()
+                       / (JAX_SERVE_ATOL + JAX_SERVE_RTOL * r.abs())).max())
+                for g, r in zip(got, ref))
+    return [bad == 0, bad, sum(r.numel() for r in ref), share]
+
+
 def serve_dp_case(bdir: Path, devices: list, refs: dict) -> tuple:
     """Phase 12 (a) on one device list: at each of DP_SERVE_BATCHES,
     forward, encode and then decode (on the one-device bundle's z) eagerly
@@ -4734,7 +4774,8 @@ def serve_dp_case(bdir: Path, devices: list, refs: dict) -> tuple:
 
     bundle = ServingBundle(str(bdir), device=devices)
     n = len(devices)
-    out = {"devices": [str(d) for d in bundle.devices], "gaps": {}}
+    out = {"devices": [str(d) for d in bundle.devices], "gaps": {},
+           "jax_rule": {}}
 
     def shards(res):
         return res if isinstance(res, Shards) else Shards([res])
@@ -4765,6 +4806,11 @@ def serve_dp_case(bdir: Path, devices: list, refs: dict) -> tuple:
                 ab, rel = gaps(eager.gather(refs["device"]),
                                refs[b][name])
                 out["gaps"][f"{name} B={b}"] = [ab, rel]
+                out["jax_rule"][f"{name} B={b}"] = {
+                    "eager": jax_rule(eager.gather(refs["device"]),
+                                      refs[b][name]),
+                    "captured": jax_rule(got.gather(refs["device"]),
+                                         refs[b][name])}
                 require(ab <= DP_SERVE_ATOL, f"(a) {out['devices']} {name} "
                         f"B={b}: {ab:.3e} from the one-device bundle")
     sync()
@@ -4791,9 +4837,131 @@ def serve_dp_case(bdir: Path, devices: list, refs: dict) -> tuple:
         f"B = {DP_SERVE_BATCHES}, eager and captured, every shard on its "
         f"copy's device; gathered against the one-device bundle: largest "
         f"abs gap {ab:.3e}, rel {rel:.3e} (tolerance atol "
-        f"{DP_SERVE_ATOL}; the JAX test holds rtol 2e-6, atol 2e-7); "
-        f"launches {counts}")
+        f"{DP_SERVE_ATOL}); launches {counts}")
+    log(f"[serve-dp] (a) {out['devices']}: the JAX test's rule "
+        f"allclose(rtol={JAX_SERVE_RTOL}, atol={JAX_SERVE_ATOL}) per "
+        "artifact and B, [met, entries outside, entries, largest share "
+        "of the allowed error]: "
+        + json.dumps(out["jax_rule"]))
     return out, counts, bundle
+
+
+def rule_fails(record: dict) -> list:
+    """The (artifact, B) readings of a serve_dp_case record that fail the
+    JAX test's rule, eager or captured."""
+    return [k for k, r in record["jax_rule"].items()
+            if not (r["eager"][0] and r["captured"][0])]
+
+
+def shard_diagnostic(model, params, j_regressor, x) -> dict:
+    """Phase 12 (a)'s diagnostic where a shard of 1 fails the JAX rule: the
+    live model's forward op by op on x [2, V+1, 3], each op run on the
+    two rows and on row 0 alone from the same input (the two-row run's
+    output feeds the next op), row 0 of the two outputs compared: largest
+    difference, entries that differ, entries outside the JAX rule; each
+    conv with its `_fwd_plan` tile at both batches.  -> {"ops": [...],
+    "first": the first op whose row differs, or None}."""
+    from semantichuman_torch.constants import KPS_KEEP
+    from semantichuman_torch.models.common import _band_kw
+    from semantichuman_torch.ops.row_gather import gather_rows
+    from semantichuman_torch.ops.sampling import pool, unpool
+
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+    t, ops = model.tables, []
+    jreg = torch.as_tensor(np.asarray(j_regressor, np.float32),
+                           device=x.device)
+    keep = torch.as_tensor(KPS_KEEP, device=x.device)
+
+    def step(name, fn, *ins, **info):
+        two = fn(*ins)
+        one = fn(*(a[:1].contiguous() for a in ins))
+        d = (one[0] - two[0]).abs()
+        rule = jax_rule(one[:1], two[:1])
+        ops.append({"op": name, "max_abs": float(d.max()),
+                    "differ": int((d != 0).sum()), "outside": rule[1],
+                    "share": rule[3], "entries": d.numel(), **info})
+        return two
+
+    def conv(level, p, act):
+        w = p["w"].to(model.compute_dtype or p["w"].dtype)
+        v1, s = t.spirals[level].shape
+        plan = {f"tile_b{b}": SC._fwd_plan(b, v1, w.shape[0] // s, s,
+                                            w.shape[1], w.dtype)["tile"]
+                for b in (1, 2)}
+        return (lambda h: model.conv_fn(
+            h, t.spirals[level], p["w"], p["b"], act,
+            compute_dtype=model.compute_dtype, csr=t.spiral_csr[level],
+            **_band_kw(t, level))), plan
+
+    with torch.inference_mode():
+        kps = step("regress (jv,bvc->bjc einsum)", lambda v: torch.einsum(
+            "jv,bvc->bjc", jreg, v[:, :-1]).index_select(1, keep), x)
+        g = step("kps gather", lambda k: gather_rows(
+            k, model.kps_gather).reshape(k.shape[0], model.n_parts, -1), kps)
+        hp = params["kps_heads"]
+        z_kps = step("kps heads (bpk,pkl->bpl einsum)", lambda a: torch.einsum(
+            "bpk,pkl->bpl", a, hp["w"]) + hp["b"][None], g)
+        h, j = x, 0
+        for i in range(t.n_levels - 1):
+            while j < len(model.enc_plan) and model.enc_plan[j][0] == i:
+                fn, plan = conv(i, params["conv"][j], model.enc_plan[j][3])
+                h = step(f"encoder conv {j} (level {i})", fn, h, **plan)
+                j += 1
+            h = step(f"pool {i}", lambda a, i=i: pool(a, t.pool_gather[i]), h)
+        g = step("part gather", lambda a: gather_rows(
+            a, model.part_gather).reshape(a.shape[0], model.n_parts, -1), h)
+        hp = params["enc_heads"]
+        z = step("enc heads (bpk,pkl->bpl einsum)", lambda a: torch.einsum(
+            "bpk,pkl->bpl", a, hp["w"]) + hp["b"][None], g)
+        zz = torch.cat([z, z_kps], dim=-1)
+        hp = params["dec_heads"]
+        y = step("dec heads (bpl,plk->bpk einsum)", lambda a: torch.einsum(
+            "bpl,plk->bpk", a, hp["w"]) + hp["b"][None], zz)
+        dummy = h[:, -1:]
+
+        def scatter(a, d):
+            a = a.reshape(a.shape[0], -1, model.dec_in_c)
+            o = a.new_zeros((a.shape[0], model.coarse_v + 1, a.shape[2]))
+            o[:, model.part_pad_idx] = a
+            return torch.cat([o[:, :model.coarse_v], d], dim=1)
+
+        h = step("decode scatter", scatter, y, dummy)
+        j = 0
+        for i in range(t.n_levels - 1):
+            lvl = t.n_levels - 2 - i
+            h = step(f"unpool {lvl}", lambda a, lvl=lvl: unpool(
+                a, t.unpool_gather[lvl], band=t.unpool_band_for(lvl)), h)
+            while j < len(model.dec_plan) and model.dec_plan[j][0] == lvl:
+                fn, plan = conv(lvl, params["dconv"][j], model.dec_plan[j][3])
+                h = step(f"decoder conv {j} (level {lvl})", fn, h, **plan)
+                j += 1
+    first = next((o for o in ops if o["differ"]), None)
+    for o in ops:
+        log(f"[serve-dp] (a) diagnostic: {json.dumps(o)}")
+    log("[serve-dp] (a) diagnostic, B = 1 against row 0 of B = 2: "
+        + (f"the first op whose row differs is {first['op']}: "
+           f"{first['differ']} of {first['entries']} entries, largest "
+           f"{first['max_abs']:.3e}, {first['outside']} outside the JAX "
+           "rule" if first else "every op's row is bit-equal"))
+    return {"ops": ops, "first": first and first["op"]}
+
+
+def phase_shard_diagnostic() -> dict:
+    """`shard_diagnostic` on its own: the full-width default model with
+    PartAE.init(0) on the card, phase 12's meshes (seed 5) at B = 2."""
+    from semantichuman_torch.config import ModelConfig
+    from semantichuman_torch.data.assets import BodyAssets
+    from semantichuman_torch.models import build_model
+    from semantichuman_torch.topology import MeshHierarchy
+
+    assets, human = BodyAssets.synthetic()
+    model = build_model(ModelConfig(), MeshHierarchy.load(str(TOPOLOGY)),
+                        assets.part_dict, device=DEVICE)
+    meshes = human.sample_meshes(max(DP_SERVE_BATCHES), seed=5)[:2].astype(
+        np.float32)
+    v = np.concatenate([meshes, np.zeros((2, 1, 3), np.float32)], axis=1)
+    return shard_diagnostic(model, model.init(0), assets.j_regressor,
+                            torch.from_numpy(v).to(DEVICE))
 
 
 def phase_serve_dp(tmp: Path, model, params, meshes, j_regressor) -> tuple:
@@ -4821,6 +4989,16 @@ def phase_serve_dp(tmp: Path, model, params, meshes, j_regressor) -> tuple:
     out = {}
     out["cuda0x2"], counts, two = serve_dp_case(
         bdir, [card0] * DP_SERVE_COPIES, refs)
+    fails = rule_fails(out["cuda0x2"])
+    if fails:
+        log(f"[serve-dp] (a) outside the JAX test's rule: {fails}; the "
+            "diagnostic follows")
+        out["diagnostic"] = shard_diagnostic(
+            model, params, j_regressor,
+            refs[min(DP_SERVE_BATCHES)]["x"][:2])
+    else:
+        log("[serve-dp] (a) every (artifact, B) meets the JAX test's rule, "
+            "eager and captured: no diagnostic")
     if torch.cuda.device_count() >= 2:
         out["cuda0_cuda1"] = serve_dp_case(bdir, ["cuda:0", "cuda:1"],
                                            refs)[0]
@@ -5068,6 +5246,10 @@ def parse_args(argv):
                       help="phase 1 and phase 12 alone (data-parallel "
                       "serving from one bundle, the DFAUST first-contact "
                       "drill)")
+    mode.add_argument("--shard-diagnostic", action="store_true",
+                      help="phase 1 and phase 12 (a)'s diagnostic alone: "
+                      "the full-width model (PartAE.init(0)) op by op at "
+                      "B = 1 against row 0 of B = 2")
     mode.add_argument("--band-gates", action="store_true",
                       help="phase 1 and the banded routes' batch gates, "
                       "each on its own against the take route, in turns "
@@ -5124,6 +5306,12 @@ def main(argv=None) -> int:
             par = phase_parallel(card, Path(tmp), None)
         par.pop("counts")
         log(json.dumps({"parallel": par}, default=str))
+        log(card)
+        return 0
+    if args.shard_diagnostic:
+        # the shard-of-1 diagnostic alone, whatever the rule reads: no
+        # result line
+        log(json.dumps({"shard_diagnostic": phase_shard_diagnostic()}))
         log(card)
         return 0
     if args.drill:

@@ -43,6 +43,13 @@ NEWSKL_KEEP = [i for i in range(len(NEWSKL_LIST)) if i not in (5, 9, 10)]
 # Bones of the 16 skeleton-length entries of the 32-d body-measure vector
 MEASURE_SKL_LIST: list[list[int]] = SKL_LIST[1:]
 
+# SKL_LIST without its repeated first bone and the four bones that end at
+# a hand or a foot (the reference's noleaf_skl_list); no path reads it.
+NOLEAF_SKL_LIST: list[list[int]] = [
+    [15, 12], [12, 9], [6, 0], [0, 1, 2], [1, 4],
+    [4, 7], [2, 5], [5, 8], [16, 18], [18, 20], [17, 19], [19, 21],
+]
+
 # Per-part keypoint groups feeding the per-part pose encoders, in the *kept*
 # 32-keypoint space (traincfg.yaml CONSTANTS.kps_index_list).
 KPS_INDEX_LIST: list[list[int]] = [

@@ -171,3 +171,10 @@ class PartAE(nn.Module):
     def forward(self, params, x, kps):
         z, z_kps, dummy = self.encode(params, x, kps)
         return self.decode(params, z, z_kps, dummy), z, z_kps
+
+    @staticmethod
+    def kps2skl(kps, mode: str = "ori_m"):
+        """kps [B, 32|35, 3] -> the skeleton in `mode`
+        (`ops.skeleton.kps2skl`)."""
+        from ..ops.skeleton import kps2skl
+        return kps2skl(kps, mode)

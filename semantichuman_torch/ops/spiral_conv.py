@@ -110,6 +110,15 @@ def _banded_ok(b: int, device: torch.device) -> bool:
     return device.type == "cuda" and b <= _BANDED_MAX_B
 
 
+def spiral_gather(x: torch.Tensor, spiral_idx: torch.Tensor) -> torch.Tensor:
+    """x [B, V+1, C], spiral_idx [V+1, S] -> [B, V+1, S*C]: the spiral
+    neighbourhoods side by side, the reference math's gather."""
+    b, _, c = x.shape
+    v1, s = spiral_idx.shape
+    g = x.index_select(1, spiral_idx.reshape(-1).long())
+    return g.reshape(b, v1, s * c)
+
+
 def spiral_conv_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
                       w: torch.Tensor, bias: torch.Tensor,
                       activation: str = "elu",
@@ -124,9 +133,8 @@ def spiral_conv_plain(x: torch.Tensor, spiral_idx: torch.Tensor,
     if compute_dtype is not None:
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
-    b, _, c = x.shape
-    v1, s = spiral_idx.shape
-    g = x.index_select(1, spiral_idx.reshape(-1).long()).reshape(b, v1, s * c)
+    b = x.shape[0]
+    g = spiral_gather(x, spiral_idx)
     # a product of two bf16 values is exact in f32: upcasting after the
     # gather keeps the f32 accumulation of the reference
     y = torch.matmul(g.float(), w.float())

@@ -810,3 +810,65 @@ def test_copy_probe_and_gaps_on_the_cpu(small_models, small_human, tmp_path,
     assert 0 <= ab <= 1e-6 and 0 <= rel
     assert CS.gaps(one.forward(v)[0] + 1.0, one.forward(v)[0])[0] == \
         pytest.approx(1.0)
+
+
+def test_shard_diagnostic_mode_parses():
+    """--shard-diagnostic runs phase 1 and the diagnostic alone and
+    excludes the other modes."""
+    assert CS.parse_args(["--shard-diagnostic"]).shard_diagnostic
+    assert not CS.parse_args([]).shard_diagnostic
+    with pytest.raises(SystemExit):
+        CS.parse_args(["--shard-diagnostic", "--drill"])
+
+
+def test_jax_rule_is_the_jax_tests_allclose():
+    """jax_rule reads allclose(rtol 2e-6, atol 2e-7) output by output, the
+    entries outside it and the largest share of the allowed error; a
+    record fails where an eager or a captured reading does."""
+    assert (CS.JAX_SERVE_RTOL, CS.JAX_SERVE_ATOL) == (2e-6, 2e-7)
+    ref = torch.tensor([0.0, 1.0, -0.5, 1e-9])
+    assert CS.jax_rule(ref.clone(), ref) == [True, 0, 4, 0.0]
+    near = ref + torch.tensor([1e-7, 0.0, 0.0, 0.0])
+    ok, bad, n, share = CS.jax_rule(near, ref)
+    assert (ok, bad, n) == (True, 0, 4) and share == pytest.approx(0.5)
+    off = ref + torch.tensor([0.0, 3e-6, 0.0, 0.0])
+    ok, bad, n, share = CS.jax_rule((near, off), (ref, ref))
+    assert (ok, bad, n) == (False, 1, 8) and share > 1
+    assert torch.allclose(near, ref, rtol=2e-6, atol=2e-7)
+    assert not torch.allclose(off, ref, rtol=2e-6, atol=2e-7)
+    good, fail = [True, 0, 4, 0.0], [False, 1, 4, 2.0]
+    rec = {"jax_rule": {"forward B=2": {"eager": good, "captured": good},
+                        "encode B=2": {"eager": good, "captured": fail}}}
+    assert CS.rule_fails(rec) == ["encode B=2"]
+
+
+def test_shard_diagnostic_covers_every_op_on_the_cpu(small_models,
+                                                     small_human):
+    """The diagnostic walks the regressor, the kps gather and heads, every
+    encoder conv (with its tile at b = 1 and 2) and pool, the part gather,
+    both head products, the decode scatter, every unpool and decoder
+    conv, in the forward's order; each op's row 0 is compared."""
+    model, _ = small_models
+    m = small_human.sample_meshes(2, seed=4).astype(np.float32)
+    x = torch.from_numpy(np.concatenate([m, np.zeros((2, 1, 3),
+                                                     np.float32)], 1))
+    out = CS.shard_diagnostic(model, model.init(0), small_human.J_regressor,
+                              x)
+    names = [o["op"] for o in out["ops"]]
+    n = model.tables.n_levels - 1
+    assert names[:3] == ["regress (jv,bvc->bjc einsum)", "kps gather",
+                         "kps heads (bpk,pkl->bpl einsum)"]
+    assert sum(s.startswith("encoder conv") for s in names) == len(
+        model.enc_plan)
+    assert sum(s.startswith("decoder conv") for s in names) == len(
+        model.dec_plan)
+    assert sum(s.startswith("pool") for s in names) == n
+    assert sum(s.startswith("unpool") for s in names) == n
+    assert names.index("part gather") < names.index(
+        "enc heads (bpk,pkl->bpl einsum)") < names.index(
+        "dec heads (bpl,plk->bpk einsum)") < names.index("decode scatter")
+    for o in out["ops"]:
+        assert "conv" not in o["op"] or {"tile_b1", "tile_b2"} <= set(o)
+        assert o["outside"] == 0 and 0 <= o["differ"] <= o["entries"]
+    first = next((o["op"] for o in out["ops"] if o["differ"]), None)
+    assert out["first"] == first

@@ -6,6 +6,8 @@ the op's schema at small shapes; training and serving reach the kernels
 through the ops.  tests/test_torch_kernels_cuda.py runs the same checks on
 the card."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -13,8 +15,10 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from semantichuman_torch.models.tables import inverse_spiral_csr
 from semantichuman_torch.ops import row_gather as RG
-from semantichuman_torch.ops import spiral_conv as SC
 from semantichuman_torch.ops.csr_reduce import CSRTable
+
+# the module: `semantichuman_torch.ops.spiral_conv` is the function
+SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
 torch.set_num_threads(1)
 

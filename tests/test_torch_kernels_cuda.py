@@ -9,11 +9,15 @@ On a host without a card every test skips; chip_smoke.py holds the kernels
 at the full serving and training shapes.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
-from semantichuman_torch.ops import spiral_conv as TC
+# the module: `semantichuman_torch.ops.spiral_conv` is the function
+TC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+
 
 # (b, v1, s, c, co): small and ragged shapes, then a coarse and the last
 # full-width serving conv

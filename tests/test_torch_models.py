@@ -172,3 +172,25 @@ def test_part_ae_matches_jax_full_width():
     jp = jax.tree.map(np.asarray, jm.init(0))
     _check_parity(jm, jp, tm, human, b=2, seed=8,
                   fns=["forward", "encode", "decode"])
+
+
+@pytest.mark.parametrize("mode", ["ori_m", "kps_ori_m", "vec_m", "vec", "m"])
+def test_part_ae_kps2skl_matches_jax(small_pair, mode):
+    """PartAE.kps2skl (a static method, callable on the class and on a
+    model) against the JAX PartAE.kps2skl on the same seeded keypoints,
+    32 kept and 35 full, at atol 1e-6."""
+    jm, _jp, tm, _human = small_pair
+    rng = np.random.default_rng(11)
+    for n in (len(KPS_KEEP), 35):
+        kps = rng.standard_normal((3, n, 3)).astype(np.float32)
+        want = np.asarray(jm.kps2skl(jnp.asarray(kps), mode))
+        for fn in (type(tm).kps2skl, tm.kps2skl):
+            got = fn(torch.from_numpy(kps), mode)
+            assert got.shape == want.shape
+            np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+
+
+def test_part_ae_kps2skl_rejects_an_unknown_mode(small_pair):
+    _jm, _jp, tm, _human = small_pair
+    with pytest.raises(ValueError, match="unknown skl mode"):
+        tm.kps2skl(torch.zeros((1, len(KPS_KEEP), 3)), "quaternion")

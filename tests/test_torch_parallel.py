@@ -11,7 +11,10 @@ two processes joined by gloo, each on its rows of every global batch.
   * the Trainer: two ranks through `cli.train --distributed`
     (`tools/dp_fit.py`) against the port's single-process Trainer, for
     PartAE and neural3DMM, with the final test batch's padding on the
-    last rank; rank 0 alone writes the run's files.
+    last rank; rank 0 alone writes the run's files;
+  * the training lifecycle: two ranks train epoch 1 with a checkpoint,
+    fresh ranks resume from it and finish epoch 2, against one process's
+    uninterrupted two epochs.
 """
 
 import dataclasses
@@ -458,3 +461,88 @@ def test_rank_zero_alone_writes_the_run(dp_trainers, model):
                                                            "train_params.txt"]
     preds = np.load(Path(wd, "predictions", "predictions.npy"))
     assert preds.shape[0] == 6
+
+
+# --- the lifecycle: save, stop, resume ----------------------------------------
+
+# tests/helpers/multihost_train.py's run; the checkpoint every epoch
+LIFE_RAW = {
+    "model": {"filter_sizes_enc": [[3, 8, 8, 16, 16], [[], [], [], [], []]],
+              "filter_sizes_dec": [[16, 16, 8, 8, 8], [[], [], [], [], 3]]},
+    "data": {"synthetic": True, "synthetic_train": 16, "synthetic_test": 8,
+             "synthetic_n_theta": 16, "synthetic_n_phi": 36,
+             "normalization": "zeroroot"},
+    "train": {"n_epochs": 2, "batch_train": 8, "batch_interp": 8,
+              "batch_test": 8, "ck_frequency": 1, "save_recons": False},
+}
+
+
+def _life_result(out: Path, rank: int) -> dict:
+    """dp_fit's record of one rank: its json, its parameters, their sum of
+    magnitudes and multihost_train.py's position-sensitive fingerprint."""
+    rec = json.loads((out / f"rank{rank}.json").read_text())
+    npz = np.load(out / f"rank{rank}.npz")
+    rec["params"] = {k: npz[k] for k in npz.files if k.startswith("param:")}
+    leaves = list(rec["params"].values())
+    rec["param_sum"] = float(sum(np.sum(np.abs(a)) for a in leaves))
+    rec["fingerprint"] = float(sum(
+        np.sum(a * np.cos(np.arange(a.size, dtype=np.float32)
+                          .reshape(a.shape) * 0.37)) for a in leaves))
+    return rec
+
+
+@pytest.mark.slow
+def test_two_process_lifecycle_save_resume(tmp_path,
+                                           topology_dir):  # noqa: F811
+    """The counterpart of tests/test_distributed.py::
+    test_two_process_lifecycle_save_resume: two gloo ranks run `cli.train
+    --distributed` (through tools/dp_fit.py) for epoch 1 with a
+    checkpoint and exit; fresh ranks resume from it and finish epoch 2.
+    The ranks agree bit for bit; val and the parameters' sum within rel
+    1e-6 and the fingerprint within rel 1e-5 of one process's
+    uninterrupted two epochs."""
+    cfg = tmp_path / "life.yaml"
+    cfg.write_text(yaml.safe_dump(LIFE_RAW))
+    shared = _workdir(tmp_path / "dp_shared", topology_dir)
+    ckpt = shared / "checkpoints"
+
+    def fit(out, workdir, *args):
+        return [sys.executable, "-m", "semantichuman_torch.tools.dp_fit",
+                "--out", str(tmp_path / out), "--", "--config", str(cfg),
+                "--workdir", str(workdir), "--device", "cpu", *args]
+
+    def ranks(out, *args):
+        port = _free_port()
+        return [fit(out, shared, *args, "--distributed", "--coordinator",
+                    f"tcp://localhost:{port}", "--num_processes", str(WORLD),
+                    "--process_id", str(r)) for r in range(WORLD)]
+
+    # epoch 1 and its checkpoint, then the ranks exit; the uninterrupted
+    # single-process run of both epochs meanwhile
+    _run_ranks(ranks("p1", "--epochs", "1")
+               + [fit("single", _workdir(tmp_path / "single", topology_dir),
+                      "--epochs", "2")], str(ROOT))
+    phase1 = [_life_result(tmp_path / "p1", r) for r in range(WORLD)]
+    assert all(r["start_epoch"] == 1 and r["world"] == WORLD
+               for r in phase1)
+    assert (ckpt / "1").is_dir()
+
+    # fresh processes resume from the shared checkpoint, finish epoch 2
+    _run_ranks(ranks("p2", "--epochs", "2", "--resume", str(ckpt)),
+               str(ROOT))
+    phase2 = [_life_result(tmp_path / "p2", r) for r in range(WORLD)]
+    assert all(r["start_epoch"] == 2 for r in phase2)
+    single = _life_result(tmp_path / "single", 0)
+    assert single["world"] == 1 and single["start_epoch"] == 1
+
+    # both ranks agree bit for bit; the resumed run equals the uninterrupted
+    p0, p1 = phase2
+    assert p0["params"].keys() == p1["params"].keys() \
+        == single["params"].keys()
+    for k in p0["params"]:
+        np.testing.assert_array_equal(p0["params"][k], p1["params"][k])
+    assert p0["val"] == p1["val"] and p0["fingerprint"] == p1["fingerprint"]
+    assert p0["val"] == pytest.approx(single["val"], rel=1e-6)
+    assert p0["param_sum"] == pytest.approx(single["param_sum"], rel=1e-6)
+    assert p0["fingerprint"] == pytest.approx(single["fingerprint"],
+                                              rel=1e-5)

@@ -3,6 +3,8 @@ against `spiral_conv_take` and the interpret-mode Pallas kernel, pool and
 unpool against their take forms.  The CUDA kernel against the plain version
 is in test_torch_kernels_cuda.py."""
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -10,11 +12,13 @@ import torch
 
 from semantichuman_torch.models.tables import device_tables
 from semantichuman_torch.ops import sampling as TS
-from semantichuman_torch.ops import spiral_conv as TC
 from semantichuman_torch.topology import MeshHierarchy
 from semantichuman_tpu.ops import sampling as JS
 from semantichuman_tpu.ops.pallas.spiral_conv_pallas import spiral_conv_fused
-from semantichuman_tpu.ops.spiral_conv import spiral_conv_take
+from semantichuman_tpu.ops.spiral_conv import spiral_conv_take, spiral_gather
+
+# the module: `semantichuman_torch.ops.spiral_conv` is the function
+TC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
 torch.set_num_threads(1)
 
@@ -58,6 +62,18 @@ def test_plain_matches_take_and_fused(shape, activation):
     np.testing.assert_allclose(got, take, atol=1e-5)
     np.testing.assert_allclose(got, fused, atol=1e-5)
     np.testing.assert_array_equal(got[:, -1], 0.0)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_spiral_gather_equals_jax(shape):
+    """spiral_gather [B, V+1, C] -> [B, V+1, S*C] is the JAX spiral_gather
+    bit for bit (f32), and the gather inside the plain version."""
+    x, idx, _w, _bias = _case(shape, seed=3)
+    got = TC.spiral_gather(*_torch(x, idx))
+    b, v1, s, c, _co = shape
+    assert got.shape == (b, v1, s * c) and got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(),
+                                  np.asarray(spiral_gather(*_jax(x, idx))))
 
 
 @pytest.mark.parametrize("shape", SHAPES)

@@ -4,6 +4,8 @@ against jax.vjp of spiral_conv_take, the unfused route against them, the
 dispatch of SpiralConvFn.backward, and the wrappers' checks.  The kernels
 against their plain versions on the card are in test_torch_kernels_cuda.py."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,8 +14,10 @@ import torch
 
 from semantichuman_torch.models.tables import inverse_spiral_csr
 from semantichuman_torch.ops import csr_reduce as TR
-from semantichuman_torch.ops import spiral_conv as TC
 from semantichuman_tpu.ops.spiral_conv import spiral_conv_take
+
+# the module: `semantichuman_torch.ops.spiral_conv` is the function
+TC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
 torch.set_num_threads(1)
 

@@ -4,6 +4,7 @@ nine convs, the route between it and the v1 kernel, the v1 wrapper's plain
 version, and the batch rule that sends dx to the unfused route.  The
 kernels themselves run in test_torch_kernels_cuda.py."""
 
+import importlib
 import re
 from pathlib import Path
 
@@ -11,7 +12,9 @@ import numpy as np
 import pytest
 import torch
 
-from semantichuman_torch.ops import spiral_conv as TC
+# the module: `semantichuman_torch.ops.spiral_conv` is the function
+TC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+
 
 torch.set_num_threads(1)
 

@@ -4,6 +4,7 @@ jax.grad of spiral_conv_take, the inverse spiral tables, and the plain
 CSR reduce against jax.grad of the gather.  The kernels against their
 plain versions on the card are in test_torch_kernels_cuda.py."""
 
+import importlib
 from pathlib import Path
 
 import jax
@@ -15,9 +16,11 @@ import torch
 from semantichuman_torch.models.tables import (device_tables,
                                                inverse_spiral_csr)
 from semantichuman_torch.ops import csr_reduce as TR
-from semantichuman_torch.ops import spiral_conv as TC
 from semantichuman_torch.topology import MeshHierarchy
 from semantichuman_tpu.ops.spiral_conv import spiral_conv_take, spiral_gather
+
+# the module: `semantichuman_torch.ops.spiral_conv` is the function
+TC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
 torch.set_num_threads(1)
 
