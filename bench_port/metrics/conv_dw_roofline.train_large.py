@@ -1,0 +1,3 @@
+"""conv_dw_roofline.train_large: `layers.conv_dw_roofline_train`, read in the large-batch training cells."""
+
+from bench_port.layers import conv_dw_roofline_train as read  # noqa: F401
