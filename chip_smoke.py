@@ -213,7 +213,7 @@ run:
    16, 64 (and encode -> decode at 16) with SERVE_LAUNCHES["take"] per
    call, each within atol 1e-5 of the live model; (c) the captured
    forward: the capture counts GRAPH_WARMUPS + 1 forwards and a replay
-   none, each replay bit-equal to the eager program, a second call with
+   none (as read_counts reads them), each replay bit-equal to the eager program, a second call with
    other meshes leaves the first call's outputs as they were; then the
    eager program and the graph in turns (eager, graph, graph, eager) at
    B = 1, 16, 64, ms per forward and the idle share (profiler; the
@@ -467,7 +467,8 @@ DEMO_CALLS = {"encode": 7, "decode": 5, "kps_encode": 2}
 # phase 10's meshes per edit (the demo's 4, and one)
 EDIT_BATCHES = (1, 4)
 # the warm-up calls `serving.py` makes before it captures a program; the
-# counters count them and the capture, and no replay
+# counters count them and the capture (and each replay again, which
+# read_counts leaves out)
 GRAPH_WARMUPS = 2
 # H100 SXM published peaks (dense): f32 on the CUDA cores, bf16 on the
 # tensor cores, HBM3 bandwidth
@@ -1682,12 +1683,23 @@ def host_batch(human, tables, seed: int, b: int | None = None) -> dict:
 
 
 def reset_counts():
-    restore_counts(dict.fromkeys(read_counts(), 0))
+    from semantichuman_torch.ops import launches
+    launches.reset()
 
 
 def read_counts() -> dict:
+    """The launches the host made or a capture recorded, by kernel, as this
+    script's literals count them: the counters less what replays added
+    (each replay of a graph adds its capture's record,
+    `launches.graph_record`)."""
     from semantichuman_torch.ops import launches
-    return launches.read()
+    got = launches.read()
+    out = {k: got[k] for k in KERNEL_COUNTS}
+    for name, n in got["graph_replays"]["by_name"].items():
+        rec = launches.graph_record(name)
+        for k in out:
+            out[k] -= n * rec.get(k, 0)
+    return out
 
 
 def counts_diff(after: dict, before: dict) -> dict:
@@ -2315,10 +2327,9 @@ def timed_steps(trainer) -> list:
 @contextlib.contextmanager
 def graph_probe():
     """Wrap the epoch path's warm-up and capture (`train/graph.py`): the
-    launch counts set to 0 just before each capture and read just after
-    (the counters count where a wrapper launches; under a capture that is
-    the kernel recorded, and a replay counts nothing), and the host time
-    of each warm-up and capture."""
+    launches each capture recorded (its graph's record, which each replay
+    adds to the counters again), and the host time of each warm-up and
+    capture."""
     from semantichuman_torch.train import graph as G
 
     rec = []
@@ -2329,17 +2340,12 @@ def graph_probe():
         warm(fn, reset, *args)
         rec.append({"warm_up_s": time.perf_counter() - t0})
 
-    def capture(fn, pool):
+    def capture(fn, pool, name):
         sync()
-        before = read_counts()
-        reset_counts()
         t0 = time.perf_counter()
-        graph = cap(fn, pool)
+        graph = cap(fn, pool, name)
         rec[-1].update(capture_s=time.perf_counter() - t0,
-                       counts=read_counts())
-        # the counts of the window around this capture go on
-        after = rec[-1]["counts"]
-        restore_counts({k: before[k] + after[k] for k in before})
+                       counts=expect(graph.record))
         return graph
 
     G.warm_up, G.capture = warm_up, capture
@@ -2347,12 +2353,6 @@ def graph_probe():
         yield rec
     finally:
         G.warm_up, G.capture = warm, cap
-
-
-def restore_counts(counts: dict) -> None:
-    """Set every launch counter to `counts` (read_counts' keys)."""
-    from semantichuman_torch.ops import launches
-    launches.restore(counts)
 
 
 @contextlib.contextmanager
@@ -3154,8 +3154,9 @@ def dfaust_checks(tr, counts, caps, variants, layout: str) -> dict:
         got_step = [c["counts"] for c in caps]
         require(got_step == [want_step], f"{layout}: captured steps' "
                 f"launches {got_step}, want one with {want_step}")
-        # the two warm-up steps and the captured one (the replays count
-        # nothing), and the staging of the train split in the Trainer
+        # the two warm-up steps and the captured one (read_counts leaves
+        # the replays out), and the staging of the train split in the
+        # Trainer
         want = {k: GRAPH_LAUNCHES.get(k, 0) * 3
                 + VAL_LAUNCHES.get(k, 0) * n_eval for k in KERNEL_COUNTS}
         want["row_gather"] += STAGE_GATHERS
@@ -5033,8 +5034,8 @@ def drill_launches(record: dict, test_batches: int) -> dict:
     import's one forward of the template; the eval's test batches and the
     staging of the train split; one run_demo and that staging; the resumed
     epoch on the epoch path (its two warm-up steps and the captured one,
-    the replays count nothing), its validation and test batches and the
-    staging."""
+    the replays left out as read_counts leaves them), its validation and
+    test batches and the staging."""
     res = record["resume"]
     stage = expect({"row_gather": STAGE_GATHERS})
     want = {"import": expect(SERVE_LAUNCHES["take"]),
@@ -5155,6 +5156,10 @@ def phase_drill(card: str, tmp: Path) -> tuple:
     want = drill_launches(record, test_batches)
     got = {k: {c: r["launches"][c] for c in KERNEL_COUNTS}
            for k, r in record.items()}
+    # the resumed epoch's replays, one a step, each counting the captured
+    # step's launches: left out, as read_counts leaves them out
+    got["resume"] = {c: n - GRAPH_LAUNCHES.get(c, 0) * res["steps"]
+                     for c, n in got["resume"].items()}
     for stage_name in STAGES:
         require(got[stage_name] == want[stage_name],
                 f"(b) the drill's {stage_name}: launches "
@@ -5448,8 +5453,9 @@ def main(argv=None) -> int:
         "partae_resume_torch": baseline["partae_resume"].pop("counts")}
 
     # trainer_graph: the epoch path's fit, whose wrappers count its
-    # warm-up steps, the captured step and the validation passes (a
-    # replay counts nothing; phase 7 holds the replays to the profiler);
+    # warm-up steps, the captured step and the validation passes
+    # (read_counts leaves the replays out; phase 7 holds them to the
+    # profiler);
     # serve_banded, trainer_banded (the loop's fit) and
     # trainer_banded_graph (the launches recorded while the epoch path's
     # step is captured): the forced banded arms (FORCED_GATES), the only
@@ -5457,14 +5463,15 @@ def main(argv=None) -> int:
     # measurements closed both gates; neural3dmm: phase 9 (a)'s cli.train;
     # *_resume_torch: the epoch 3 resumed from a reference checkpoint;
     # phase 10: edit (one run_demo), export_serve (the eager programs),
-    # graph_serve (per batch the two warm-ups and the capture; a replay
-    # counts nothing, phase 10 holds the replays to the profiler),
+    # graph_serve (per batch the two warm-ups and the capture; replays
+    # left out, phase 10 holds the replays to the profiler),
     # eval_reference (cli.eval_reference on the card); phase 11: dp_gloo
     # (both ranks of (a) and of its resume, each counted in its own
     # process), dp_nccl1, trace (the windowed fit), geometry (the card's
     # checks), serving_ab (the tool's two arms); phase 12: serve_dp (the
-    # two copies on one card, eager calls and captures; a replay counts
-    # nothing), drill (the drill's six stages, counted in its process)
+    # two copies on one card, eager calls and captures; replays left
+    # out), drill (the drill's six stages, counted in its process, the
+    # resumed epoch's replays included)
     paths = {"serve": serve, "serve_banded": serve_banded,
              "serve_take": serve_take, "train_step": step_counts,
              "trainer": trainer_counts, "trainer_graph": graph_counts,

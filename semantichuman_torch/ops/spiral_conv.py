@@ -589,11 +589,31 @@ def _unfused_halves(x, w, spiral_idx) -> tuple:
     return halves
 
 
+# The conv backward's dx calls by route and shape, as `_conv_backward`
+# took them: "<route>:<B>,<V1>,<S>,<C_in>,<C_out>" -> calls, the route
+# "unfused" (`spiral_conv_bwd_unfused`), "fused" (the dx kernel) or "plain"
+# (its plain version, on the CPU).  Read as `spiral_conv_dx` by
+# `ops/launches.py`, and carried in a captured graph's record like every
+# launch counter.
+DX_CALLS: dict = {}
+
+
+def _count_dx(x, w, dy, spiral_idx, unfused) -> None:
+    route = ("unfused" if "dx" in unfused
+             else "plain" if dy.device.type == "cpu" else "fused")
+    b, v1, c = x.shape
+    key = f"{route}:{b},{v1},{spiral_idx.shape[1]},{c},{w.shape[1]}"
+    DX_CALLS[key] = DX_CALLS.get(key, 0) + 1
+
+
 def _conv_backward(x, w, dy, spiral_idx, csr, need_x, need_w, unfused=()):
     """(dx, dW) in float32 for dy already times act' with a zero dummy
     row: the halves named in `unfused` ("dx", "dw") through
     `spiral_conv_bwd_unfused`, the others through the fused wrappers
-    (kernels on the card, their plain versions on the CPU)."""
+    (kernels on the card, their plain versions on the CPU).  Each dx is
+    counted in DX_CALLS by its route."""
+    if need_x:
+        _count_dx(x, w, dy, spiral_idx, unfused)
     dx, dw = spiral_conv_bwd_unfused(
         x, w, dy, spiral_idx, csr, need_x and "dx" in unfused,
         need_w and "dw" in unfused)

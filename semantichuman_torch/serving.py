@@ -47,7 +47,15 @@ copy's card current, so a copy on another card than the process's current
 one captures its own launches.  This is the counterpart of the JAX
 loader's `jax.jit(exp.call)` cache: a forward at small batch is paced by
 the host's launches, and a replay has none.  Larger batches and the CPU
-call the program eagerly.
+call the program eagerly.  The graphs are `train/graph.py`'s, named
+`serve/<artifact>/<b>` (and `/<device index>` where the bundle has several
+copies), so their launches count once a replay (`ops/launches.py`).  In a
+profiler's trace a call shows its phases as program spans
+(`utils/profiling.py:span`): `sh:serve.input` (each argument copied onto
+the device), `sh:serve.copy_in` (into the static inputs),
+`sh:replay/<graph>`, `sh:serve.clone` (the outputs), or `sh:serve.eager`
+(the program called eagerly), and `sh:capture/<graph>` where a call
+builds a graph.
 
 The rebuilt live model stays on the bundle (`model`, `params`, `live`), on
 the first listed device: an exported program fixes the banded gates'
@@ -77,6 +85,7 @@ from .models.tables import device_tables
 from .ops import row_gather, spiral_conv  # noqa: F401
 from .utils.device import resolve_device
 from .utils.params import tree_leaves, tree_map, tree_unflatten
+from .utils.profiling import span
 
 PAYLOAD = "bundle.pt"
 # the example batch of a symbolic export: torch.export specialises a
@@ -283,10 +292,13 @@ class Shards(list):
 
 class _Copy:
     """One device's copy of the bundle's programs, with its own captured
-    graphs (by (artifact, batch)) and their memory pool."""
+    graphs (by (artifact, batch)) and their memory pool; `tag` ends its
+    graphs' names."""
 
-    def __init__(self, bundle_dir: str, artifacts: dict, device):
+    def __init__(self, bundle_dir: str, artifacts: dict, device,
+                 tag: str = ""):
         self.device = device
+        self.tag = tag
         self.programs = {
             name: load_program(os.path.join(bundle_dir, meta["file"]),
                                device).module()
@@ -295,46 +307,52 @@ class _Copy:
         self.pool = None
 
     def input(self, a) -> torch.Tensor:
-        return torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        with span("serve.input"):
+            return torch.as_tensor(a, dtype=torch.float32,
+                                   device=self.device)
 
     def call(self, name: str, args: tuple, graph: bool | None):
         if graph is None:
             graph = (self.device.type == "cuda"
                      and args[0].shape[0] <= _GRAPH_MAX_B)
         if not graph:
-            with torch.inference_mode(), _on(self.device):
+            with span("serve.eager"), torch.inference_mode(), \
+                    _on(self.device):
                 return self.programs[name](*args)
         key = (name, args[0].shape[0])
         if key not in self.captured:
             self.captured[key] = self.capture(name, args)
         cuda_graph, inputs, outputs = self.captured[key]
         with _on(self.device):
-            for static, a in zip(inputs, args):
-                static.copy_(a)
+            with span("serve.copy_in"):
+                for static, a in zip(inputs, args):
+                    static.copy_(a)
             cuda_graph.replay()
-            if isinstance(outputs, torch.Tensor):
-                return outputs.clone()
-            return tuple(o.clone() for o in outputs)
+            with span("serve.clone"):
+                if isinstance(outputs, torch.Tensor):
+                    return outputs.clone()
+                return tuple(o.clone() for o in outputs)
 
     def capture(self, name: str, args) -> tuple:
-        """Warm the program up on a side stream, then capture it into a
-        CUDA graph over static copies of `args` (one memory pool for all of
-        the copy's graphs), all with the copy's card current: (graph,
-        static inputs, static outputs)."""
+        """Warm the program up on a side stream, then capture it into the
+        graph `serve/<name>/<b><tag>` over static copies of `args` (one
+        memory pool for all of the copy's graphs), all with the copy's card
+        current: (graph, static inputs, static outputs)."""
+        from .train import graph as G
+
         prog = self.programs[name]
+        gname = f"serve/{name}/{args[0].shape[0]}{self.tag}"
         with torch.cuda.device(self.device):
             inputs = tuple(a.clone() for a in args)
-            side = torch.cuda.Stream()
-            side.wait_stream(torch.cuda.current_stream())
-            with torch.cuda.stream(side), torch.no_grad():
-                for _ in range(2):
-                    prog(*inputs)
-            torch.cuda.current_stream().wait_stream(side)
-            graph = torch.cuda.CUDAGraph()
-            with torch.no_grad(), torch.cuda.graph(graph, pool=self.pool):
-                outputs = prog(*inputs)
+
+            def run():
+                with torch.no_grad():
+                    return prog(*inputs)
+
+            G.warm_up(run, lambda: None, gname)
+            graph = G.capture(run, self.pool, gname)
         self.pool = graph.pool()
-        return graph, inputs, outputs
+        return graph, inputs, graph.out
 
 
 class ServingBundle:
@@ -378,8 +396,10 @@ class ServingBundle:
         self.params = tree_map(lambda a: a.to(self.device), pl["params"])
         self._live = {name: cls(self.model, self.params, pl["j_regressor"])
                       for name, cls in _PROGRAMS.items()}
-        self._copies = [_Copy(bundle_dir, self.manifest["artifacts"], dev)
-                        for dev in self.devices]
+        self._copies = [
+            _Copy(bundle_dir, self.manifest["artifacts"], dev,
+                  f"/{dev.index}" if len(self.devices) > 1 else "")
+            for dev in self.devices]
         self._programs = self._copies[0].programs
         self._captured = self._copies[0].captured
 

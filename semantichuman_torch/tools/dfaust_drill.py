@@ -129,8 +129,12 @@ def main(argv=None) -> int:
         after = launches.read()
         results[name] = out
         record[name] = {"summary": out, "seconds": secs,
-                        "launches": {k: after[k] - before[k]
-                                     for k in after},
+                        # the kernels' launches, replays included (the
+                        # dx routes and graph counts are no kernels)
+                        "launches": {
+                            k: n for k, n in launches.diff(after,
+                                                           before).items()
+                            if not isinstance(n, dict)},
                         **state.pop("extra", {})}
         if out == "FAILED":
             print(f"!!! drill FAILED at stage {name!r}", flush=True)

@@ -62,6 +62,17 @@ of two or more trains through the loop, as the JAX Trainer does.
 A trace window (train.profile_start < profile_stop) records global steps
 [start, stop) of the loop with torch.profiler into <workdir>/profile
 (`utils/profiling.py:TraceWindow`); it sends training to the loop.
+
+In any profiler's trace the Trainer's host phases show as program spans
+(`utils/profiling.py:span`), none inside another: `sh:trainer.stage` (a
+chunk's schedule built and copied onto the device, and the state loaded
+into the epoch buffers), `sh:replay/<graph>` (one step's graph launched),
+`sh:trainer.read` (the chunk's metrics and state read back),
+`sh:trainer.validate`, `sh:trainer.epoch_host` (logging, the epoch's
+line, checkpoints and sample dumps), `sh:capture/<graph>` (a step's
+warm-up and capture), and on the loop and the CPU's epoch path
+`sh:trainer.batch` (waiting for the next prefetched batch) and
+`sh:trainer.step` (one step launched eagerly).
 """
 
 from __future__ import annotations
@@ -70,6 +81,7 @@ import json
 import os
 import subprocess
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -91,7 +103,7 @@ from ..utils.checkpoint import restore_checkpoint, save_checkpoint
 from ..utils.device import resolve_device
 from ..utils.logging import MetricsLogger
 from ..utils.params import tree_paths
-from ..utils.profiling import TraceWindow
+from ..utils.profiling import TraceWindow, span
 from . import graph as G
 from . import losses as L
 from .edits import EditSampler
@@ -545,7 +557,8 @@ class Trainer:
                                                                 interp_iter)
                 tlosses = [tl]
             if self._is_main:
-                self.logger.log(self.global_step, metrics)
+                with span("trainer.epoch_host"):
+                    self.logger.log(self.global_step, metrics)
             train_sec = (time.time() - t0) / len(tlosses)
             for i, e in enumerate(range(epoch, e1 + 1)):
                 t1 = time.time()
@@ -553,27 +566,36 @@ class Trainer:
                 if e == e1 and (e % max(cfg.train.val_every, 1) == 0
                                 or e == n_epochs):
                     vloss = self.validate()
-                sec = train_sec + time.time() - t1
-                self.history.append({"epoch": e, "train": tlosses[i],
-                                     "val": vloss, "sec": sec,
-                                     "train_sec": train_sec})
-                if self._is_main:
-                    ep_metrics = {"epoch_train": tlosses[i]}
-                    if vloss is not None:
-                        ep_metrics["epoch_val"] = vloss
-                    self.logger.log(e, ep_metrics, prefix="epoch")
-                    vtxt = "-" if vloss is None else f"{vloss:.6f}"
-                    print(f"epoch {e} | tr {tlosses[i]:.6f} | val {vtxt} | "
-                          f"{sec:.1f}s", flush=True)
-                if e % cfg.train.ck_frequency == 0:
-                    self.save(e)
-                if (cfg.train.save_recons and e % 50 == 0
-                        and last_batch is not None and self._is_main):
-                    self._dump_sample(e, last_batch)
+                with span("trainer.epoch_host"):
+                    self._end_epoch(e, tlosses[i], vloss,
+                                    train_sec + time.time() - t1, train_sec,
+                                    last_batch)
             epoch = e1 + 1
         if self.trace_window is not None:
             self.trace_window.close()
         return self
+
+    def _end_epoch(self, e: int, tloss: float, vloss, sec: float,
+                   train_sec: float, last_batch):
+        """The host's work after epoch e: its history row, the epoch's
+        log line and print, the checkpoint and the sample dump where
+        due."""
+        cfg = self.cfg
+        self.history.append({"epoch": e, "train": tloss, "val": vloss,
+                             "sec": sec, "train_sec": train_sec})
+        if self._is_main:
+            ep_metrics = {"epoch_train": tloss}
+            if vloss is not None:
+                ep_metrics["epoch_val"] = vloss
+            self.logger.log(e, ep_metrics, prefix="epoch")
+            vtxt = "-" if vloss is None else f"{vloss:.6f}"
+            print(f"epoch {e} | tr {tloss:.6f} | val {vtxt} | {sec:.1f}s",
+                  flush=True)
+        if e % cfg.train.ck_frequency == 0:
+            self.save(e)
+        if (cfg.train.save_recons and e % 50 == 0
+                and last_batch is not None and self._is_main):
+            self._dump_sample(e, last_batch)
 
     def _scan_chunk_end(self, e0: int, n_epochs: int) -> int:
         """The last epoch e1 >= e0 of the chunk that starts at e0: at most
@@ -604,30 +626,15 @@ class Trainer:
         last_batch, metrics = None, {}
         batches = prefetch_to_device(iter(self.train_loader), self.device,
                                      size=cfg.data.prefetch)
-        for batch in batches:
+        while True:
+            with span("trainer.batch"):
+                batch = next(batches, None)
+            if batch is None:
+                break
             if self.trace_window is not None:
                 self.trace_window.tick(self.global_step)
-            if self.is_part_model:
-                interp_b = self._put(next(interp_iter))
-                exc_b = self._put(next(interp_iter))
-                variant = self.sampler.sample_exc_variant()
-                # every rank draws the spec of the global batch (the same
-                # seed); a_full's rows are batch-major
-                spec = self.sampler.sample_interp(
-                    epoch, interp_b["verts"].shape[0] * self.n_processes,
-                    measure=self._interp_measure(interp_b))
-                if self.data_parallel:
-                    spec = shard_spec(spec, self.process_index,
-                                      self.n_processes)
-                spec = to_device(spec, self.device)
-                step = self._get_step(epoch, variant)
-                self.params, self.opt_state, metrics = step(
-                    self.params, self.opt_state, self._step_view(batch),
-                    self._step_view(interp_b), self._step_view(exc_b), spec)
-            else:
-                step = self._get_step(epoch, "ori")
-                self.params, self.opt_state, metrics = step(
-                    self.params, self.opt_state, self._step_view(batch))
+            with span("trainer.step"):
+                metrics = self._loop_step(epoch, interp_iter, batch)
             step_losses.append(metrics["loss"])
             step_sizes.append(batch["verts"].shape[0])
             self.global_step += 1
@@ -639,6 +646,33 @@ class Trainer:
         sizes = np.asarray(step_sizes, np.float64)
         epoch_loss = float((losses * sizes).sum() / max(sizes.sum(), 1.0))
         return epoch_loss, _to_host(metrics), last_batch
+
+    def _loop_step(self, epoch: int, interp_iter, batch: dict) -> dict:
+        """One step of the loop on `batch`: the interp and exchange
+        batches and the edit spec moved to the device, then the step;
+        -> its metrics (on the device)."""
+        if self.is_part_model:
+            interp_b = self._put(next(interp_iter))
+            exc_b = self._put(next(interp_iter))
+            variant = self.sampler.sample_exc_variant()
+            # every rank draws the spec of the global batch (the same
+            # seed); a_full's rows are batch-major
+            spec = self.sampler.sample_interp(
+                epoch, interp_b["verts"].shape[0] * self.n_processes,
+                measure=self._interp_measure(interp_b))
+            if self.data_parallel:
+                spec = shard_spec(spec, self.process_index,
+                                  self.n_processes)
+            spec = to_device(spec, self.device)
+            step = self._get_step(epoch, variant)
+            self.params, self.opt_state, metrics = step(
+                self.params, self.opt_state, self._step_view(batch),
+                self._step_view(interp_b), self._step_view(exc_b), spec)
+        else:
+            step = self._get_step(epoch, "ori")
+            self.params, self.opt_state, metrics = step(
+                self.params, self.opt_state, self._step_view(batch))
+        return metrics
 
     # --- the epoch path ---------------------------------------------------------
     def _epoch_scan_ok(self) -> bool:
@@ -675,11 +709,14 @@ class Trainer:
                     buf.k.zero_()
                     buf.pos.zero_()
 
-                G.warm_up(lambda: step(buf), reset)
-                run = G.capture(lambda: step(buf), self._graph_pool).replay
+                name = _graph_name(key[1], variant)
+                G.warm_up(lambda: step(buf), reset, name)
+                run = G.capture(lambda: step(buf), self._graph_pool,
+                                name).replay
             else:
                 def run():
-                    step(buf)
+                    with span("trainer.step"):
+                        step(buf)
             # the step (and the tables it closes over) lives as long as
             # its graph: a replay reads every tensor the capture saw
             self._step_cache[key] = (run, step)
@@ -695,6 +732,49 @@ class Trainer:
         chunk's largest gnorm, the last batch or None)."""
         cfg = self.cfg
         src = self.train_loader.source
+        exc_dyn = self.sampler.exc_mode == "ori_or_m"
+        with span("trainer.stage"):
+            k, epoch_of_step, variant, last_meta = self._stage_chunk(e0, e1)
+        run, step = self._get_scan_step(e0,
+                                        "dynamic" if exc_dyn else variant)
+        buf = self._epoch_buffers
+        with span("trainer.stage"):
+            buf.load(self.params, self.opt_state)
+        for _ in range(k):
+            run()
+        with span("trainer.read"):
+            ms, applied, bad = buf.read(k)
+            self.params, self.opt_state = buf.state_out(self.opt_state,
+                                                        applied, bad)
+        self.global_step += k
+        ms = dict(zip(step.metric_names, ms.T))
+        if cfg.train.log_every and self._is_main:
+            base = self.global_step - k
+            for j in range(k):
+                if (base + j + 1) % cfg.train.log_every == 0:
+                    self.logger.log(base + j + 1,
+                                    {n: float(v[j]) for n, v in ms.items()})
+        eps = np.asarray(epoch_of_step)
+        sizes = np.full(k, float(cfg.train.batch_train))
+        losses = ms["loss"]
+        # the loop's formula: the size-weighted mean of the f32 losses in
+        # float64
+        tlosses = [float((losses[eps == e] * sizes[eps == e]).sum()
+                         / max(sizes[eps == e].sum(), 1.0))
+                   for e in range(e0, e1 + 1)]
+        metrics = {n: float(v[-1]) for n, v in ms.items()}
+        # the chunk's largest raw gradient norm: a spike mid-chunk is the
+        # signal, which the last step's would hide
+        metrics["gnorm"] = float(ms["gnorm"].max())
+        last_batch = (src.take(last_meta)
+                      if cfg.train.save_recons and e1 % 50 == 0 else None)
+        return tlosses, metrics, last_batch
+
+    def _stage_chunk(self, e0: int, e1: int) -> tuple:
+        """Build epochs e0..e1's schedule on the host and stage it on the
+        device (`EpochBuffers.stage`): -> (steps, each step's epoch, the
+        last exchange variant drawn, the last batch's meta)."""
+        cfg = self.cfg
         exc_dyn = self.sampler.exc_mode == "ori_or_m"
         host_meas = self.interp_loader.loader.source.measures
         idx_tr, idx_in, idx_ex, specs, epoch_of_step = [], [], [], [], []
@@ -729,44 +809,17 @@ class Trainer:
             self._epoch_buffers = EpochBuffers(
                 self.params, max(cfg.train.scan_epochs, 1)
                 * self.steps_per_epoch, self.device)
-        buf = self._epoch_buffers
-        buf.stage(sched, self.optimizer.step_scalars(
+        self._epoch_buffers.stage(sched, self.optimizer.step_scalars(
             self.opt_state.count, k, self.opt_state.schedule_offset))
-        run, step = self._get_scan_step(e0,
-                                        "dynamic" if exc_dyn else variant)
-        buf.load(self.params, self.opt_state)
-        for _ in range(k):
-            run()
-        ms, applied, bad = buf.read(k)
-        self.params, self.opt_state = buf.state_out(self.opt_state, applied,
-                                                    bad)
-        self.global_step += k
-        ms = dict(zip(step.metric_names, ms.T))
-        if cfg.train.log_every and self._is_main:
-            base = self.global_step - k
-            for j in range(k):
-                if (base + j + 1) % cfg.train.log_every == 0:
-                    self.logger.log(base + j + 1,
-                                    {n: float(v[j]) for n, v in ms.items()})
-        eps = np.asarray(epoch_of_step)
-        sizes = np.full(k, float(cfg.train.batch_train))
-        losses = ms["loss"]
-        # the loop's formula: the size-weighted mean of the f32 losses in
-        # float64
-        tlosses = [float((losses[eps == e] * sizes[eps == e]).sum()
-                         / max(sizes[eps == e].sum(), 1.0))
-                   for e in range(e0, e1 + 1)]
-        metrics = {n: float(v[-1]) for n, v in ms.items()}
-        # the chunk's largest raw gradient norm: a spike mid-chunk is the
-        # signal, which the last step's would hide
-        metrics["gnorm"] = float(ms["gnorm"].max())
-        last_batch = (src.take(last_meta)
-                      if cfg.train.save_recons and e1 % 50 == 0 else None)
-        return tlosses, metrics, last_batch
+        return k, epoch_of_step, variant, last_meta
 
     def validate(self) -> float:
         """Mean per-sample L1 over the val split (pad rows masked; the
         sums over every rank's rows)."""
+        with span("trainer.validate"):
+            return self._validate()
+
+    def _validate(self) -> float:
         step = self._get_eval_step()
         total = count = None
         for batch in self.val_loader:
@@ -878,6 +931,13 @@ class Trainer:
                  self.assets.template_faces)
         save_obj(os.path.join(sdir, f"epoch{epoch}_rec.obj"), rec,
                  self.assets.template_faces)
+
+
+def _graph_name(flags, variant: str) -> str:
+    """The name of the epoch path's graph for (loss flags, exchange
+    variant): train/<flags>/<variant>, <flags> the loss flags' CRC-32 in
+    hex (a fixed name for a fixed configuration)."""
+    return f"train/{zlib.crc32(repr(flags).encode()):08x}/{variant}"
 
 
 def _to_host(metrics: dict) -> dict:

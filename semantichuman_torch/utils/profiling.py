@@ -1,11 +1,20 @@
-"""Step timing and trace windows (counterpart of
+"""Step timing, trace windows and program spans (counterpart of
 `semantichuman_tpu/utils/profiling.py`): a wall-clock step timer with
-percentile summaries, and torch.profiler traces of a window of steps.
+percentile summaries, torch.profiler traces of a window of steps, and
+`span`, the program's named ranges in such a trace.
 
 A trace records the host's operators and, where a card is present, its
 kernels and copies (CPU and CUDA activities), and is written as Chrome
 trace JSON (`export_chrome_trace`), which Perfetto and chrome://tracing
 open and which needs no TensorBoard package.
+
+A program span is a host range named `sh:<name>` around one phase of the
+program at a layer boundary (the Trainer's staging, a graph's replay, the
+bundle's copy-in, ...), recorded as an operator event (`cpu_op`) on the
+profiler's clock, beside the card's kernels.  Spans are leaves: no span
+encloses another, so the longest host event at a moment names the phase
+the program was in.  Their names come from a fixed set, plus a graph's
+name, and never hold a request, a step or a count.
 """
 
 from __future__ import annotations
@@ -16,12 +25,26 @@ import os
 import time
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+from torch._C._profiler import _RecordFunctionFast as _Range
 
-from ..parallel.distributed import process_index
+SPAN_PREFIX = "sh:"
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The program span `sh:<name>` around a block: a no-op (one check of
+    the profiler's flag) unless a profiler is recording, else an operator
+    range, which adds nothing to the device's timeline."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Range(SPAN_PREFIX + name)
 
 
 class StepTimer:
-    """Wall-clock step timing with percentile summaries."""
+    """Wall-clock step timing with percentile summaries.  Where CUDA is
+    initialized, each step's exit waits for the current card, so a step's
+    time holds the kernels it launched."""
 
     def __init__(self, skip_first: int = 1):
         self.samples: list[float] = []
@@ -34,6 +57,8 @@ class StepTimer:
         return self
 
     def __exit__(self, *exc):
+        if torch.cuda.is_initialized():
+            torch.cuda.synchronize()
         dt = time.perf_counter() - self._t0
         self._seen += 1
         if self._seen > self.skip_first:    # drop the warm-up steps
@@ -78,6 +103,8 @@ def _sync():
 def _stop(prof, log_dir: str, name: str) -> str:
     """Stop the profiler and write its trace as
     <log_dir>/<name>.rank<r>.pt.trace.json; returns the path."""
+    from ..parallel.distributed import process_index
+
     _sync()
     prof.stop()
     os.makedirs(log_dir, exist_ok=True)

@@ -1191,9 +1191,9 @@ def test_captured_step_replays_equal_eager_steps(cuda, tmp_path,
     captured = _graph_trainer(tmp_path, "graph")
     captured.fit()
     with monkeypatch.context() as mp:
-        mp.setattr(G, "warm_up", lambda fn, reset, steps=2: None)
+        mp.setattr(G, "warm_up", lambda fn, reset, name, steps=2: None)
         mp.setattr(G, "capture",
-                   lambda fn, pool: types.SimpleNamespace(replay=fn))
+                   lambda fn, pool, name: types.SimpleNamespace(replay=fn))
         eager = _graph_trainer(tmp_path, "eager")
         eager.fit()
     assert captured.global_step == eager.global_step == 3
