@@ -148,8 +148,10 @@ run:
    (b) runs resumed on it from the loop's epoch-2 checkpoint repeat epoch
    3 to the resume gates above; (c) scan_epochs 3 with val_every 4 over 4
    epochs equals one chunk an epoch bit for bit; (d) the launches counted
-   while the step is captured are GRAPH_LAUNCHES, and over one replayed
-   epoch the profiler counts each of the port's kernels a whole number of
+   while the step is captured are GRAPH_LAUNCHES, the captured step's
+   record holds the 9 dW calls in `spiral_conv_dw` and, at each level-0
+   conv, more than DW_MIN_REUSE entries read a window row staged, and
+   over one replayed epoch the profiler counts each of the port's kernels a whole number of
    times the epoch's 16 steps, the index_add_ family and the yardsticks
    at 0; (e) forced banded and take, each on both paths in turns (graph,
    loop, loop, graph), resumed from that checkpoint and timed over two
@@ -423,6 +425,9 @@ TRAIN_LAUNCHES_BANDED = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
 # launches what a loop step that drew 'ori' does
 GRAPH_LAUNCHES = dict(TRAIN_LAUNCHES)
 GRAPH_LAUNCHES_BANDED = dict(TRAIN_LAUNCHES_BANDED)
+# the least spiral entries a staged window row must serve at a level-0
+# conv's dW in the captured step (`spiral_conv_dw`: entries / rows)
+DW_MIN_REUSE = 1.5
 # launches per B = 128 training step (trunk batch 384, no banded route):
 # nine convs forward and their dW; dx for all but the first, whose input
 # is data, the 64 -> 128 conv's on the unfused route (one csr_reduce); the
@@ -2345,7 +2350,8 @@ def graph_probe():
         t0 = time.perf_counter()
         graph = cap(fn, pool, name)
         rec[-1].update(capture_s=time.perf_counter() - t0,
-                       counts=expect(graph.record))
+                       counts=expect(graph.record),
+                       dw=graph.record.get("spiral_conv_dw", {}))
         return graph
 
     G.warm_up, G.capture = warm_up, capture
@@ -2353,6 +2359,23 @@ def graph_probe():
         yield rec
     finally:
         G.warm_up, G.capture = warm, cap
+
+
+def check_dw_record(dw: dict, v1_fine: int, calls: int) -> None:
+    """A captured step's `spiral_conv_dw` record ("<B>,<V1>,<S>,<C>,<Co>:<T>"
+    -> calls, window rows staged, entries read): `calls` dW calls, and at
+    each conv of the finest level (V1 = v1_fine) entries over rows above
+    DW_MIN_REUSE."""
+    n = sum(r["calls"] for r in dw.values())
+    reuse = {k: r["entries"] / r["rows"] for k, r in dw.items()}
+    log("[graph] captured step's dW windows: "
+        + ", ".join(f"{k} {r:.2f} entries a row" for k, r in reuse.items()))
+    require(n == calls, f"spiral_conv_dw records {n} dW calls, want {calls}")
+    fine = {k: r for k, r in reuse.items()
+            if int(k.split(",")[1]) == v1_fine}
+    require(fine and all(r > DW_MIN_REUSE for r in fine.values()),
+            f"level-0 dW windows {fine}: want more than {DW_MIN_REUSE} "
+            "entries a staged row")
 
 
 @contextlib.contextmanager
@@ -2432,6 +2455,8 @@ def phase_trainer_graph(root: Path, losses: list, final: list,
         f"(host); peak device memory {out['peak_memory_gib']:.2f} GiB")
     require(cap["counts"] == want,
             f"captured step launches {cap['counts']}, want {want}")
+    check_dw_record(cap["dw"], tr.model.tables.sizes[0] + 1,
+                    GRAPH_LAUNCHES["spiral_conv_bwd_dw"])
     got = [h["train"] for h in tr.history]
     same = params_equal(final, tr.params)
     log(f"[graph] (a) epoch losses {got} (loop {losses}); {sum(same)} of "

@@ -24,19 +24,28 @@
 // that need not exist.  Neither kernel here writes anything of width S*C to
 // device memory.
 //
-// dW is a gathered SGEMM whose output stays on chip.  The B*V1 rows are cut
-// into chunks; a block takes one chunk and one [BKT x BN] tile of dW, walks
-// its rows 16 at a time, gathers their x rows (whole 16-byte pieces where
-// C*4 is a multiple of 16, single elements for C = 3) and stages the dy' rows
-// beside them in shared memory, and every thread accumulates an 8 x TN tile in
-// registers.  The next stage's loads are issued before the current stage is
-// multiplied: float32 rows go straight into the second buffer with cp.async,
-// everything else into registers that are stored there after the multiply.
-// Narrow outputs (Co <= 32) leave few threads per tile, so RG groups of
-// threads take alternate rows and are added in group order at the end.  Each
-// block writes its partial [K, Co] tile into scratch that the caller
-// allocated; a second kernel adds the partials in chunk order.
-//
+// dW is a gathered SGEMM whose output stays on chip, fed from a window of
+// source rows.  Neighbouring vertices name many of the same x rows (at the
+// bundled topology's level 0 a tile of 256 consecutive vertices names each
+// of its distinct rows 4.7 times), so the plan of ops/dw_window.py, built
+// once a spiral table, lists each tile's distinct rows and gives every
+// entry (v, s) its index in its tile's list.  A block takes a run of (batch
+// element, vertex tile) items and one [BKT x BN] tile of dW.  Per item it
+// copies into shared memory, once, the tile's rows that its k-tile's slots
+// name (cp.async; the row numbers of eight pieces are loaded before any
+// copy, so that their loads are in flight together), then walks the tile's
+// vertices a stage at a time: each stage's dy' rows and local indices come
+// through a ring of NST stages (cp.async, issued NST - 1 stages ahead), and
+// every thread accumulates an 8 x TN tile in registers, reading x through
+// the indices (bf16 converted on load; single elements where C % 4 != 0).
+// The tile size T and the launch follow what a call shows (B, V1, S, C, Co,
+// the dtype): the largest T whose window fits the blocks an SM the kernel
+// is set for and still gives four blocks an SM.  Narrow outputs leave few
+// threads per tile, so RG groups of threads take alternate rows and are
+// added in group order at the end.  Each block writes its partial [K, Co]
+// tile into scratch that the caller allocated; a second kernel adds the
+// partials in a fixed order.
+
 // dx is a product per output row u with the batch as the tile's rows: all
 // batch elements share row u's entry list, so dx[:, u, :] = sum_j
 // dy'[:, v_j, :] [B x Co] . W_{s_j}^T [Co x C].  One warp takes one (u, batch
@@ -55,17 +64,22 @@
 // per chunk of the row S segmented sums of dy' rows in entry order, the chunk
 // sums added in chunk order, then one small product.
 //
-// What the card showed: both kernels run at the rate the L2 delivers gathered
-// rows to the SMs (about 2 TB/s: every x row and every dy' row is asked for S
-// times), not at the rate of the FMAs; PERF.md has the numbers.
+// What the card showed (PERF.md has the numbers): the first dW kernel did
+// not wait on the L2, though every x row was asked for S times: a table
+// whose every slot names the vertex itself ran no faster.  Its rows' loop
+// had a start known only at run time, so it was never unrolled, and each
+// 16-row stage waited on a chain of two dependent loads (the spiral index,
+// then the row).  Here the loop is unrolled, the index chains are gone from
+// the stages, and an 8 x 8 thread tile reads 16 floats from shared memory
+// for its 64 FMAs: shared-memory delivery and the FMAs now take about equal
+// time.  The dx kernels were read as waiting on the L2's gathered rows;
+// no such control has tested that yet.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
-
-constexpr int kSMs = 132;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -112,330 +126,365 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // ---------------------------------------------------------------- dW -------
 
-constexpr int kBR = 16;  // rows per stage
+constexpr int kSmemOne = 232448;  // the most a block may take
 
 template <int BKT, int BN, int TN, int RG>
 struct DwShape {
-  static constexpr int NTY = BKT / 8;
-  static constexpr int NTX = BN / TN;
+  static constexpr int KT = 8;          // k a thread
+  static constexpr int NTY = BKT / KT;  // threads along k
+  static constexpr int NTX = BN / TN;   // threads along n
   static constexpr int NT = NTY * NTX * RG;
-  static constexpr int QPR = BKT / 4;     // x units per row
-  static constexpr int RSTEP = NT / QPR;  // rows between a thread's units
-  static constexpr int GU = (kBR + RSTEP - 1) / RSTEP;      // x units/thread
-  static constexpr int DU = (kBR * BN / 4 + NT - 1) / NT;   // dy units/thread
-  static constexpr int STAGE = kBR * (BKT + BN);
-  static constexpr int SMEM =
-      (RG > 1 && BKT * BN > 2 * STAGE) ? BKT * BN : 2 * STAGE;
+  // blocks an SM the registers are set for: sixteen warps where the
+  // threads allow, at least two blocks
+  static constexpr int MINB = 512 / NT > 2 ? 512 / NT : 2;
+  // vertices a stage: 16 rows for each thread between two barriers, 8
+  // where more than two row groups share a stage
+  static constexpr int BR = RG > 2 ? 8 * RG : 16 * RG;
+  // stages of dy' rows and local indices in the ring: narrow tiles do
+  // little work a stage, so more of their loads are kept in flight
+  static constexpr int NST = BN >= 64 ? 2 : 3;
 };
 
-// A thread gathers the same four k of every row it loads: their spiral
-// slot s and channel c, found once (slot -1: k outside K).  With whole
-// 16-byte pieces (vec) only the first pair is used.
-struct KInfo {
-  int s[4];
-  int c[4];
+__device__ __forceinline__ void cp_async4_ca(void* smem, const void* g) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(g));
+}
+
+__host__ __device__ __forceinline__ int slots_padded(int S) {
+  return (S + 7) / 8 * 8;
+}
+
+// The window plan's arrays (ops/dw_window.py) and the launch's numbers.
+struct DwArgs {
+  const void* x;
+  const int* rows;        // each tile's distinct source rows, ascending
+  const int* offs;        // [n_vt + 1]
+  const unsigned* masks;  // slots that name each row, bit min(s, 31)
+  const short* lidx;      // [V1 padded, SP] index in the tile's list
+  const float* dy;
+  float* partial;
+  int B, V1, C, S, Co, TV, n_vt, items, per_chunk, n_chunks, smem,
+      win_bytes, xmode, vecd;
 };
 
-__device__ __forceinline__ KInfo k_info(int k, int K, int C) {
-  KInfo r;
+// One stage's rows into the thread's KT x TN tile: row r's KT x values from
+// the window through the row's local indices (one a group of four k, each
+// read once where neighbouring groups share a slot), its dy' row from the
+// ring.  FULL stages (every row live) run without a test in the loop.
+template <typename T, int BN, int TN, int RG, int KT, int BR, bool VEC,
+          bool FULL>
+__device__ __forceinline__ void dw_stage(float (&acc)[KT][TN], const T* win,
+                                         const short* lb, const float* db,
+                                         int SP, int C, int live,
+                                         const int (&gs)[KT],
+                                         const int (&gc)[KT],
+                                         const bool (&same)[KT], int rg,
+                                         int tx) {
+  constexpr int TNH = TN / 4;
+  constexpr int NG = VEC ? KT / 4 : KT;
+  // a trip count known to the compiler, so that it unrolls the rows and
+  // issues one row's loads under the previous row's products
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kk = k + i;
-    r.s[i] = kk < K ? kk / C : -1;
-    r.c[i] = kk < K ? kk - r.s[i] * C : 0;
+  for (int q = 0; q < BR / RG; ++q) {
+    const int r = rg + q * RG;
+    if (!FULL && r >= live) break;
+    const short* li = lb + r * SP;
+    float av[KT];
+    int l = 0;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      if (!same[g]) l = li[max(gs[g], 0)];
+      if (VEC) {
+        float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (gs[g] >= 0) v = load4(win + l * C + gc[g]);
+        av[4 * g] = v.x;
+        av[4 * g + 1] = v.y;
+        av[4 * g + 2] = v.z;
+        av[4 * g + 3] = v.w;
+      } else {
+        av[g] = gs[g] >= 0 ? to_f32(win[l * C + gc[g]]) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < TNH; ++h) {
+      const float4 bq = *reinterpret_cast<const float4*>(
+          db + r * BN + h * (BN / TNH) + tx * 4);
+      const float bv[4] = {bq.x, bq.y, bq.z, bq.w};
+#pragma unroll
+      for (int i = 0; i < KT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          acc[i][h * 4 + j] = fmaf(av[i], bv[j], acc[i][h * 4 + j]);
+    }
   }
-  return r;
 }
 
-// Four consecutive k of vertex v's gathered x in batch element b.
-template <typename T>
-__device__ __forceinline__ float4 gather_unit(
-    const T* __restrict__ x, const int* __restrict__ spiral, int b, int v,
-    int V1, int C, int S, const KInfo& ki, bool vec) {
-  const int* sp = spiral + (size_t)v * S;
-  const T* xb = x + (size_t)b * V1 * C;
-  if (vec) return load4(xb + (size_t)__ldg(sp + ki.s[0]) * C + ki.c[0]);
-  float e[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    e[i] = ki.s[i] >= 0
-               ? to_f32(xb[(size_t)__ldg(sp + ki.s[i]) * C + ki.c[i]])
-               : 0.f;
-  return make_float4(e[0], e[1], e[2], e[3]);
-}
-
-__device__ __forceinline__ float4 dy_unit(const float* __restrict__ dy, int m,
-                                          int m_end, int n, int Co, bool vec) {
-  float4 r = make_float4(0.f, 0.f, 0.f, 0.f);
-  if (m >= m_end || n >= Co) return r;
-  const float* p = dy + (size_t)m * Co + n;
-  if (vec) return load4(p);
-  r.x = p[0];
-  if (n + 1 < Co) r.y = p[1];
-  if (n + 2 < Co) r.z = p[2];
-  if (n + 3 < Co) r.w = p[3];
-  return r;
-}
-
-template <typename T, int BKT, int BN, int TN, int RG>
-__global__ void __launch_bounds__(DwShape<BKT, BN, TN, RG>::NT)
-dw_partial_kernel(const T* __restrict__ x, const int* __restrict__ spiral,
-                  const float* __restrict__ dy, float* __restrict__ partial,
-                  int M, int V1, int C, int S, int Co, int rows_per_chunk,
-                  int vecx, int vecd) {
+template <typename T, int BKT, int BN, int TN, int RG, bool VEC>
+__global__ void __launch_bounds__(DwShape<BKT, BN, TN, RG>::NT,
+                                  DwShape<BKT, BN, TN, RG>::MINB)
+dw_partial_kernel(const DwArgs a) {
   using Sh = DwShape<BKT, BN, TN, RG>;
+  constexpr int KT = Sh::KT;
   constexpr int NT = Sh::NT;
-  static_assert(NT % Sh::QPR == 0, "a thread's x units share their k");
-  constexpr int TNH = TN / 4;  // float4 halves along n
-  extern __shared__ __align__(16) float dw_smem[];
-  float* smem = dw_smem;
+  constexpr int NST = Sh::NST;
+  constexpr int BR = Sh::BR;
+  constexpr int TNH = TN / 4;
+  extern __shared__ __align__(16) unsigned char dw_smem[];
+  const int C = a.C, S = a.S, Co = a.Co, V1 = a.V1;
+  const int SP = slots_padded(S);
+  T* win = reinterpret_cast<T*>(dw_smem);
+  float* dys = reinterpret_cast<float*>(dw_smem + a.win_bytes);
+  short* lis = reinterpret_cast<short*>(dys + NST * BR * BN);
+  const T* x = static_cast<const T*>(a.x);
 
   const int K = S * C;
   const int tid = threadIdx.x;
   const int tx = tid % Sh::NTX;
   const int ty = (tid / Sh::NTX) % Sh::NTY;
   const int rg = tid / (Sh::NTX * Sh::NTY);
-  const int chunk = blockIdx.x;
   const int k0 = blockIdx.y * BKT;
   const int n0 = blockIdx.z * BN;
-  const int m0 = chunk * rows_per_chunk;
-  const int m_end = min(M, m0 + rows_per_chunk);
+  // the slots this k-tile reads: a window holds only the rows they name
+  const int s_lo = k0 / C;
+  const int s_hi = (min(K, k0 + BKT) - 1) / C;
+  unsigned rmask = 0;
+  for (int s = s_lo; s <= s_hi; ++s) rmask |= 1u << min(s, 31);
+  const bool every_row = s_lo == 0 && s_hi == S - 1;
 
-  float acc[8][TN];
+  // a thread's k are k0 + ty*KT + i: with C % 4 == 0 groups of four
+  // channels of one slot each, else single elements (slot -1: outside K);
+  // `same`: the group's slot is the previous group's
+  constexpr int NG = VEC ? KT / 4 : KT;
+  int gs[KT], gc[KT];
+  bool same[KT];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int g = 0; g < KT; ++g) {
+    const int k = k0 + ty * KT + (VEC ? 4 * g : g);
+    gs[g] = g < NG && k < K ? k / C : -1;
+    gc[g] = gs[g] >= 0 ? k - gs[g] * C : 0;
+    same[g] = g > 0 && gs[g] == gs[g - 1];
+  }
+
+  float acc[KT][TN];
+#pragma unroll
+  for (int i = 0; i < KT; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
 
-  float4 gq[Sh::GU];
-  float4 dq[Sh::DU];
-  const int gq_row = tid / Sh::QPR;  // the first row of a stage it gathers
-  const KInfo ki = k_info(k0 + 4 * (tid % Sh::QPR), K, C);
+  const int w0 = blockIdx.x * a.per_chunk;
+  const int w1 = min(a.items, w0 + a.per_chunk);
+  for (int w = w0; w < w1; ++w) {
+    const int b = w / a.n_vt;
+    const int vt = w - b * a.n_vt;
+    const int v_start = vt * a.TV;
+    const int v_end = min(V1, v_start + a.TV);
+    const int n_st = (v_end - v_start + BR - 1) / BR;
+    const float* dyb = a.dy + (size_t)b * V1 * Co;
 
-  // float32 rows in whole 16-byte pieces go from device memory straight
-  // into the next stage's buffer (cp.async); everything else is loaded
-  // into registers here and stored by stash() after the multiply
-  const bool direct = sizeof(T) == 4 && vecx != 0;
-  auto fetch = [&](int r0, int buf) {
-    const int b0 = r0 / V1;
-    const int v0 = r0 - b0 * V1;
-    float4* gs4 = reinterpret_cast<float4*>(smem + buf * Sh::STAGE);
-#pragma unroll
-    for (int i = 0; i < Sh::GU; ++i) {
-      const int r = gq_row + i * Sh::RSTEP;
-      const bool live = r < kBR && r0 + r < m_end && ki.s[0] >= 0;
-      gq[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-      int b = b0;
-      int v = v0 + r;
-      while (live && v >= V1) {
-        v -= V1;
-        ++b;
+    // stage j's local indices and dy' rows into ring buffer sb
+    auto load_stage = [&](int j, int sb) {
+      const int v0 = v_start + j * BR;
+      const int qi = SP / 8;
+      for (int u = tid; u < BR * qi; u += NT) {
+        const int r = u / qi;
+        cp_async16_ca(lis + (sb * BR + r) * SP + (u - r * qi) * 8,
+                      a.lidx + (size_t)(v0 + r) * SP + (u - r * qi) * 8);
       }
-      if (direct) {
-        if (r >= kBR) continue;
-        float4* dst = gs4 + tid + i * NT;
-        if (live)
-          cp_async16_cg(dst, x + ((size_t)b * V1 +
-                                  __ldg(spiral + (size_t)v * S + ki.s[0])) *
-                                     C + ki.c[0]);
-        else
-          *dst = gq[i];
-      } else if (live) {
-        gq[i] = gather_unit<T>(x, spiral, b, v, V1, C, S, ki, vecx != 0);
+      float* ds = dys + sb * BR * BN;
+      if (a.vecd) {
+        for (int u = tid; u < BR * BN / 4; u += NT) {
+          const int r = u / (BN / 4);
+          const int n = n0 + 4 * (u - r * (BN / 4));
+          float* dst = ds + 4 * u;
+          if (v0 + r < v_end && n < Co)
+            cp_async16_cg(dst, dyb + (size_t)(v0 + r) * Co + n);
+          else
+            *reinterpret_cast<float4*>(dst) = make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+      } else {
+        for (int u = tid; u < BR * BN; u += NT) {
+          const int r = u / BN;
+          const int n = n0 + u - r * BN;
+          if (v0 + r < v_end && n < Co)
+            cp_async4_ca(ds + u, dyb + (size_t)(v0 + r) * Co + n);
+          else
+            ds[u] = 0.f;
+        }
       }
-    }
-#pragma unroll
-    for (int i = 0; i < Sh::DU; ++i) {
-      const int e = tid + i * NT;
-      const int r = e / (BN / 4);
-      const int q = e - r * (BN / 4);
-      dq[i] = (e < kBR * BN / 4)
-                  ? dy_unit(dy, r0 + r, m_end, n0 + 4 * q, Co, vecd != 0)
-                  : make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-  };
-  auto stash = [&](int buf) {
-    float* gs = smem + buf * Sh::STAGE;
-    float* ds = gs + kBR * BKT;
-#pragma unroll
-    for (int i = 0; i < Sh::GU; ++i) {
-      const int e = tid + i * NT;  // row gq_row + i * RSTEP, the thread's k
-      if (!direct && e < kBR * BKT / 4)
-        reinterpret_cast<float4*>(gs)[e] = gq[i];
-    }
-#pragma unroll
-    for (int i = 0; i < Sh::DU; ++i) {
-      const int e = tid + i * NT;
-      if (e < kBR * BN / 4) reinterpret_cast<float4*>(ds)[e] = dq[i];
-    }
-  };
+    };
 
-  fetch(m0, 0);
-  stash(0);
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
-  int buf = 0;
-  for (int r0 = m0; r0 < m_end; r0 += kBR) {
-    const bool more = r0 + kBR < m_end;
-    if (more) {
-      fetch(r0 + kBR, buf ^ 1);
-      cp_async_commit();
-    }
-    const float* gs = smem + buf * Sh::STAGE;
-    const float* ds = gs + kBR * BKT;
+    __syncthreads();  // the last item's reads of the window and the ring
+    // the window: the rows of the tile's list that this k-tile reads, in
+    // pieces of 16 or 4 bytes (cp.async) or single elements; a thread
+    // reads the row numbers of kU pieces before it copies any, so that
+    // their loads are in flight together
+    {
+      const int lo = __ldg(a.offs + vt);
+      const int n = __ldg(a.offs + vt + 1) - lo;
+      const T* xb = x + (size_t)b * V1 * C;
+      const int psz = a.xmode ? a.xmode : (int)sizeof(T);
+      const int qr = C * (int)sizeof(T) / psz;  // pieces a row
+      const int total = n * qr;
+      constexpr int kU = 8;
+      for (int base = tid; base < total; base += kU * NT) {
+        int ii[kU], rid[kU];
+        unsigned mk[kU];
 #pragma unroll
-    for (int r = rg; r < kBR; r += RG) {
-      float4 a[2];
-      float4 b[TNH];
-      a[0] = *reinterpret_cast<const float4*>(gs + r * BKT + ty * 4);
-      a[1] = *reinterpret_cast<const float4*>(gs + r * BKT + BKT / 2 + ty * 4);
+        for (int q = 0; q < kU; ++q) {
+          ii[q] = min(base + q * NT, total - 1) / qr;
+          rid[q] = __ldg(a.rows + lo + ii[q]);
+          mk[q] = every_row ? 1u : __ldg(a.masks + lo + ii[q]);
+        }
 #pragma unroll
-      for (int h = 0; h < TNH; ++h)
-        b[h] = *reinterpret_cast<const float4*>(ds + r * BN + h * (BN / TNH) +
-                                                tx * 4);
-#pragma unroll
-      for (int ha = 0; ha < 2; ++ha) {
-        const float av[4] = {a[ha].x, a[ha].y, a[ha].z, a[ha].w};
-#pragma unroll
-        for (int hb = 0; hb < TNH; ++hb) {
-          const float bv[4] = {b[hb].x, b[hb].y, b[hb].z, b[hb].w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 4; ++j)
-              acc[ha * 4 + i][hb * 4 + j] =
-                  fmaf(av[i], bv[j], acc[ha * 4 + i][hb * 4 + j]);
+        for (int q = 0; q < kU; ++q) {
+          const int u = base + q * NT;
+          if (u >= total || !(every_row || (mk[q] & rmask))) continue;
+          const int piece = u - ii[q] * qr;
+          if (a.xmode == 0) {
+            win[u] = __ldg(xb + (size_t)rid[q] * C + piece);
+            continue;
+          }
+          unsigned char* dst = dw_smem + (size_t)u * psz;
+          const unsigned char* src =
+              reinterpret_cast<const unsigned char*>(xb + (size_t)rid[q] * C) +
+              piece * psz;
+          if (psz == 16)
+            cp_async16_cg(dst, src);
+          else
+            cp_async4_ca(dst, src);
         }
       }
     }
-    if (more) stash(buf ^ 1);
-    cp_async_wait<0>();
-    __syncthreads();
-    buf ^= 1;
+    cp_async_commit();
+#pragma unroll
+    for (int j = 0; j < NST - 1; ++j) {
+      if (j < n_st) load_stage(j, j);
+      cp_async_commit();
+    }
+
+    for (int j = 0; j < n_st; ++j) {
+      cp_async_wait<NST - 2>();
+      __syncthreads();
+      const int jn = j + NST - 1;
+      if (jn < n_st) load_stage(jn, jn % NST);
+      cp_async_commit();
+      const int live = v_end - v_start - j * BR;
+      const short* lb = lis + (j % NST) * BR * SP;
+      const float* db = dys + (j % NST) * BR * BN;
+      if (live >= BR)
+        dw_stage<T, BN, TN, RG, KT, BR, VEC, true>(
+            acc, win, lb, db, SP, C, live, gs, gc, same, rg, tx);
+      else
+        dw_stage<T, BN, TN, RG, KT, BR, VEC, false>(
+            acc, win, lb, db, SP, C, live, gs, gc, same, rg, tx);
+    }
   }
 
   // the row groups' tiles, added in group order into group 0's
+  auto n_of = [&](int j) { return (j / 4) * (BN / TNH) + tx * 4 + (j % 4); };
   if (RG > 1) {
-    float* red = smem;
+    float* red = reinterpret_cast<float*>(dw_smem);
     for (int g = 1; g < RG; ++g) {
       __syncthreads();
       if (rg == g) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < KT; ++i)
 #pragma unroll
           for (int j = 0; j < TN; ++j)
-            red[((i / 4) * (BKT / 2) + ty * 4 + (i % 4)) * BN +
-                (j / 4) * (BN / TNH) + tx * 4 + (j % 4)] = acc[i][j];
+            red[(ty * KT + i) * BN + n_of(j)] = acc[i][j];
       }
       __syncthreads();
       if (rg == 0) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+        for (int i = 0; i < KT; ++i)
 #pragma unroll
           for (int j = 0; j < TN; ++j)
-            acc[i][j] += red[((i / 4) * (BKT / 2) + ty * 4 + (i % 4)) * BN +
-                             (j / 4) * (BN / TNH) + tx * 4 + (j % 4)];
+            acc[i][j] += red[(ty * KT + i) * BN + n_of(j)];
       }
     }
   }
   if (rg != 0) return;
-  float* out = partial + (size_t)chunk * K * Co;
+  float* out = a.partial + (size_t)blockIdx.x * K * Co;
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int k = k0 + (i / 4) * (BKT / 2) + ty * 4 + (i % 4);
+  for (int i = 0; i < KT; ++i) {
+    const int k = k0 + ty * KT + i;
     if (k >= K) continue;
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
-      const int n = n0 + (j / 4) * (BN / TNH) + tx * 4 + (j % 4);
+      const int n = n0 + n_of(j);
       if (n < Co) out[(size_t)k * Co + n] = acc[i][j];
     }
   }
 }
 
-__global__ void dw_finish_kernel(const float* __restrict__ partial,
-                                 float* __restrict__ dw, int KCo,
-                                 int n_chunks) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= KCo) return;
+// The chunks' partial tiles added in a fixed order: a block takes 32
+// entries of dW, each of its kFinishGroups warps sums every kFinishGroups-th
+// chunk from its own in chunk order, and the group sums are added in group
+// order.
+constexpr int kFinishGroups = 8;
+
+__global__ void __launch_bounds__(32 * kFinishGroups)
+dw_finish_kernel(const float* __restrict__ partial, float* __restrict__ dw,
+                 int KCo, int n_chunks) {
+  __shared__ float sums[kFinishGroups][32];
+  const int e = blockIdx.x * 32 + threadIdx.x;
+  const int g = threadIdx.y;
   float s = 0.f;
-  for (int k = 0; k < n_chunks; ++k) s += partial[(size_t)k * KCo + e];
-  dw[e] = s;
+  if (e < KCo)
+    for (int k = g; k < n_chunks; k += kFinishGroups)
+      s += partial[(size_t)k * KCo + e];
+  sums[g][threadIdx.x] = s;
+  __syncthreads();
+  if (g != 0 || e >= KCo) return;
+  float t = 0.f;
+#pragma unroll
+  for (int i = 0; i < kFinishGroups; ++i) t += sums[i][threadIdx.x];
+  dw[e] = t;
 }
 
-// The tile shape follows Co and K.  Wide outputs take square tiles; narrow
-// ones (Co <= 32) take one tile over the whole of K where it fits, so that
-// the block that gathers a vertex's S neighbours finds the rows its
-// neighbouring vertices just gathered in L1.
-struct DwPlan {
-  int shape;  // index into the launch switch
-  int bkt, bn;
-};
-
-DwPlan dw_plan(int K, int Co) {
-  if (Co > 64) return {0, 128, 128};
-  if (Co > 32) return {1, 128, 64};
-  if (Co > 16) {
-    if (K <= 192) return {7, 192, 32};
-    if (K <= 256) return {2, 256, 32};
-    if (K <= 384) return {8, 384, 32};
-    return {2, 256, 32};  // measured faster than one 512-row tile at K = 512
-  }
-  if (K <= 64) return {Co > 4 ? 5 : 6, 64, Co > 4 ? 16 : 4};
-  if (Co > 4) return K <= 256 ? DwPlan{3, 256, 16} : DwPlan{10, 512, 16};
-  return {4, 256, 4};
-}
-
-// Chunks of rows: enough blocks for four per SM, rows a multiple of kBR.
-void dw_chunking(int M, int K, int Co, int* rows_per_chunk, int* n_chunks) {
-  const DwPlan p = dw_plan(K, Co);
-  const int tiles = ((K + p.bkt - 1) / p.bkt) * ((Co + p.bn - 1) / p.bn);
-  int want = (4 * kSMs + tiles - 1) / tiles;
-  const int most = (M + kBR - 1) / kBR;
-  if (want > most) want = most;
-  if (want < 1) want = 1;
-  int rows = (M + want - 1) / want;
-  rows = (rows + kBR - 1) / kBR * kBR;
-  *rows_per_chunk = rows;
-  *n_chunks = (M + rows - 1) / rows;
-}
-
+// A launch at tile shape <BKT, BN, TN, RG> (ops/dw_window.py:tile_shape
+// picks it from K and Co, TILES lists the switch below).  The dynamic
+// shared memory must hold the window, then the ring of dy' rows and local
+// indices, and the row groups' sums, which reuse it at the end.
 template <typename T, int BKT, int BN, int TN, int RG>
-void dw_launch(const void* x, const int* spiral, const float* dy,
-               float* partial, int M, int V1, int C, int S, int Co, int rows,
-               int n_chunks, int vecx, int vecd, cudaStream_t st) {
-  const int K = S * C;
-  const dim3 grid(n_chunks, (K + BKT - 1) / BKT, (Co + BN - 1) / BN);
+cudaError_t dw_launch(const DwArgs& a, cudaStream_t st) {
   using Sh = DwShape<BKT, BN, TN, RG>;
-  constexpr int smem_bytes = Sh::SMEM * (int)sizeof(float);
-  cudaFuncSetAttribute(dw_partial_kernel<T, BKT, BN, TN, RG>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       smem_bytes);
-  dw_partial_kernel<T, BKT, BN, TN, RG><<<grid, Sh::NT, smem_bytes, st>>>(
-          static_cast<const T*>(x), spiral, dy, partial, M, V1, C, S, Co, rows,
-          vecx, vecd);
+  const long long ring = (long long)Sh::NST * Sh::BR *
+                         (BN * 4 + slots_padded(a.S) * 2);
+  if (a.smem < a.win_bytes + ring ||
+      (RG > 1 && a.smem < (long long)BKT * BN * 4))
+    return cudaErrorInvalidValue;
+  auto kernel = (a.C % 4 == 0) ? dw_partial_kernel<T, BKT, BN, TN, RG, true>
+                               : dw_partial_kernel<T, BKT, BN, TN, RG, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, a.smem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const int K = a.S * a.C;
+  const dim3 grid(a.n_chunks, (K + BKT - 1) / BKT, (a.Co + BN - 1) / BN);
+  kernel<<<grid, Sh::NT, a.smem, st>>>(a);
+  return cudaSuccess;
 }
 
 template <typename T>
-void dw_dispatch(int shape, const void* x, const int* spiral, const float* dy,
-                 float* partial, int M, int V1, int C, int S, int Co, int rows,
-                 int n_chunks, int vecx, int vecd, cudaStream_t st) {
-#define SH_DW(BKT, BN, TN, RG)                                              \
-  dw_launch<T, BKT, BN, TN, RG>(x, spiral, dy, partial, M, V1, C, S, Co,    \
-                                rows, n_chunks, vecx, vecd, st)
+cudaError_t dw_dispatch(int shape, const DwArgs& a, cudaStream_t st) {
   switch (shape) {
-    case 0: SH_DW(128, 128, 8, 1); break;
-    case 1: SH_DW(128, 64, 8, 2); break;
-    case 2: SH_DW(256, 32, 8, 2); break;
-    case 3: SH_DW(256, 16, 4, 2); break;
-    case 4: SH_DW(256, 4, 4, 8); break;
-    case 5: SH_DW(64, 16, 4, 8); break;
-    case 6: SH_DW(64, 4, 4, 16); break;
-    case 7: SH_DW(192, 32, 8, 2); break;
-    case 8: SH_DW(384, 32, 8, 1); break;
-    default: SH_DW(512, 16, 4, 1); break;
+    case 0: return dw_launch<T, 128, 128, 8, 1>(a, st);
+    case 1: return dw_launch<T, 256, 64, 8, 1>(a, st);
+    case 2: return dw_launch<T, 256, 32, 8, 2>(a, st);
+    case 3: return dw_launch<T, 256, 16, 8, 2>(a, st);
+    case 4: return dw_launch<T, 256, 4, 4, 8>(a, st);
+    case 5: return dw_launch<T, 64, 16, 8, 8>(a, st);
+    case 6: return dw_launch<T, 64, 4, 4, 16>(a, st);
+    case 7: return dw_launch<T, 192, 32, 8, 2>(a, st);
+    case 8: return dw_launch<T, 384, 32, 8, 1>(a, st);
+    case 9: return dw_launch<T, 512, 16, 8, 2>(a, st);
+    case 10: return dw_launch<T, 512, 32, 8, 1>(a, st);
+    default: return cudaErrorInvalidValue;
   }
-#undef SH_DW
 }
 
 // ---------------------------------------------------------------- dx -------
@@ -836,45 +885,62 @@ cudaError_t dx_dispatch(const float* dy, const void* w, const int* offs,
 
 extern "C" {
 
-// The number of row chunks sh_spiral_conv_bwd_dw cuts B*V1 rows into: the
-// caller allocates `partial` as [chunks, S*C, Co] float32.
-int sh_spiral_conv_bwd_dw_chunks(int B, int V1, int C, int S, int Co) {
-  int rows, chunks;
-  dw_chunking(B * V1, S * C, Co, &rows, &chunks);
-  return chunks;
-}
-
-// Launches the partial and the finishing kernel on `stream` and returns a
-// CUDA error code (0 on success).  The caller has checked shapes, types and
-// contiguity and passes the chunk count it sized `partial` for.
-int sh_spiral_conv_bwd_dw(const void* x, const void* spiral, const void* dy,
-                          void* partial, void* dw, int B, int V1, int C, int S,
-                          int Co, int x_is_bf16, int n_chunks, void* stream) {
+// Launches the partial kernel and the finishing kernel on `stream` and
+// returns a CUDA error code (0 on success).  The caller has checked shapes,
+// types and contiguity and passes the window plan of its tile size TV (the
+// longest list max_rows) and the launch it planned (ops/dw_window.py:
+// launch_plan: tile shape, chunks of per_chunk items, shared memory); a
+// launch whose chunks miss an item or whose shared memory cannot hold the
+// window and its ring is refused.  `partial` is [n_chunks, S*C, Co].
+int sh_spiral_conv_bwd_dw(const void* x, const void* rows, const void* offs,
+                          const void* masks, const void* lidx, const void* dy,
+                          void* partial, void* dw, int B, int V1, int C,
+                          int S, int Co, int TV, int max_rows, int shape,
+                          int n_chunks, int per_chunk, int smem, int x_is_bf16,
+                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int M = B * V1;
   const int K = S * C;
-  int rows, chunks;
-  dw_chunking(M, K, Co, &rows, &chunks);
-  if (chunks != n_chunks) return static_cast<int>(cudaErrorInvalidValue);
   const int es = x_is_bf16 ? 2 : 4;
-  const int vecx =
-      (C % 4 == 0) && (reinterpret_cast<uintptr_t>(x) % (4 * es) == 0);
-  const int vecd = (Co % 4 == 0) && (reinterpret_cast<uintptr_t>(dy) % 16 == 0);
-  const int* sp = static_cast<const int*>(spiral);
-  const float* dyf = static_cast<const float*>(dy);
-  float* pf = static_cast<float*>(partial);
-  const int shape = dw_plan(K, Co).shape;
-  if (x_is_bf16)
-    dw_dispatch<__nv_bfloat16>(shape, x, sp, dyf, pf, M, V1, C, S, Co, rows,
-                               chunks, vecx, vecd, st);
-  else
-    dw_dispatch<float>(shape, x, sp, dyf, pf, M, V1, C, S, Co, rows, chunks,
-                       vecx, vecd, st);
-  cudaError_t err = cudaGetLastError();
+  const int n_vt = (V1 + TV - 1) / TV;
+  const long long items = (long long)n_vt * B;
+  if (TV <= 0 || TV % 16 != 0 || per_chunk <= 0 || items >= (1LL << 31) ||
+      n_chunks != (int)((items + per_chunk - 1) / per_chunk) ||
+      max_rows < 0 || smem > kSmemOne)
+    return static_cast<int>(cudaErrorInvalidValue);
+  DwArgs a;
+  a.x = x;
+  a.rows = static_cast<const int*>(rows);
+  a.offs = static_cast<const int*>(offs);
+  a.masks = static_cast<const unsigned*>(masks);
+  a.lidx = static_cast<const short*>(lidx);
+  a.dy = static_cast<const float*>(dy);
+  a.partial = static_cast<float*>(partial);
+  a.B = B;
+  a.V1 = V1;
+  a.C = C;
+  a.S = S;
+  a.Co = Co;
+  a.TV = TV;
+  a.n_vt = n_vt;
+  a.items = (int)items;
+  a.per_chunk = per_chunk;
+  a.n_chunks = n_chunks;
+  a.smem = smem;
+  a.win_bytes = (int)(((long long)max_rows * C * es + 15) / 16 * 16);
+  const int row_bytes = C * es;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  a.xmode = (row_bytes % 16 == 0 && xa % 16 == 0)  ? 16
+            : (row_bytes % 4 == 0 && xa % 4 == 0) ? 4
+                                                   : 0;
+  a.vecd = (Co % 4 == 0) && (reinterpret_cast<uintptr_t>(dy) % 16 == 0);
+  cudaError_t err = x_is_bf16 ? dw_dispatch<__nv_bfloat16>(shape, a, st)
+                              : dw_dispatch<float>(shape, a, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int KCo = K * Co;
-  dw_finish_kernel<<<(KCo + 255) / 256, 256, 0, st>>>(
-      pf, static_cast<float*>(dw), KCo, chunks);
+  dw_finish_kernel<<<(KCo + 31) / 32, dim3(32, kFinishGroups), 0, st>>>(
+      a.partial, static_cast<float*>(dw), KCo, n_chunks);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -72,9 +72,8 @@ SIGNATURES = {
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "spiral_conv_bwd": {
-        "sh_spiral_conv_bwd_dw": ([_VOIDP] * 5 + [_INT] * 7 + [_VOIDP],
+        "sh_spiral_conv_bwd_dw": ([_VOIDP] * 8 + [_INT] * 12 + [_VOIDP],
                                   _INT),
-        "sh_spiral_conv_bwd_dw_chunks": ([_INT] * 5, _INT),
         "sh_spiral_conv_bwd_dx": ([_VOIDP] * 10 + [_INT] * 9 + [_VOIDP],
                                   _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),

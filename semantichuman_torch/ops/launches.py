@@ -3,7 +3,9 @@
 Each kernel wrapper adds one to its counter where it launches its kernel
 on the card, and nowhere else (`spiral_conv.launches`,
 `csr_reduce.launches`, ...; part_dist counts per mode).  The conv
-backward counts its dx calls by route and shape (`spiral_conv.DX_CALLS`).
+backward counts its dx calls by route and shape (`spiral_conv.DX_CALLS`)
+and its fused dW calls by shape and window tile, with the rows the window
+copies and the entries read from it (`spiral_conv.DW_CALLS`).
 A captured graph (`train/graph.py:capture`) keeps what each counter gained
 while it was captured, its record (`graph_record(name)`), and each replay
 adds the record again (`replayer`): the counters count what a replayed
@@ -17,6 +19,8 @@ from __future__ import annotations
 import contextlib
 
 DX = "spiral_conv_dx"
+DW = "spiral_conv_dw"
+DW_KINDS = ("calls", "rows", "entries")
 GRAPH_KINDS = ("graph_captures", "graph_replays")
 
 # graph name -> {"graph_captures": n, "graph_replays": n, "record": {...}}
@@ -28,8 +32,9 @@ def _counters():
     from .csr_reduce import csr_reduce, csr_reduce_v1
     from .part_dist import part_dist_sums, part_dist_v1
     from .row_gather import row_gather
-    from .spiral_conv import (DX_CALLS, spiral_conv, spiral_conv_bwd_dw,
-                              spiral_conv_bwd_dx, spiral_conv_fwd_v1)
+    from .spiral_conv import (DW_CALLS, DX_CALLS, spiral_conv,
+                              spiral_conv_bwd_dw, spiral_conv_bwd_dx,
+                              spiral_conv_fwd_v1)
 
     return ({"spiral_conv_fwd": spiral_conv,
              "spiral_conv_fwd_v1": spiral_conv_fwd_v1,
@@ -39,18 +44,23 @@ def _counters():
              "part_dist_v1": part_dist_v1,
              "banded_gather_fwd": banded_gather_fwd,
              "banded_gather_bwd": banded_gather_bwd,
-             "row_gather": row_gather}, part_dist_sums.launches, DX_CALLS)
+             "row_gather": row_gather}, part_dist_sums.launches, DX_CALLS,
+            DW_CALLS)
 
 
 def read() -> dict:
     """{kernel: launches so far}, part_dist as part_dist_<mode>; besides,
     `spiral_conv_dx`: {"<route>:<B>,<V1>,<S>,<C_in>,<C_out>": dx calls}
-    (route fused, unfused or plain), and `graph_captures`,
-    `graph_replays`: {"total": n, "by_name": {graph name: n}}."""
-    fns, modes, dx = _counters()
+    (route fused, unfused or plain), `spiral_conv_dw`:
+    {"<B>,<V1>,<S>,<C_in>,<C_out>:<T>": {"calls", "rows", "entries"}}
+    (fused dW calls, window rows copied, entries read), and
+    `graph_captures`, `graph_replays`: {"total": n, "by_name": {graph
+    name: n}}."""
+    fns, modes, dx, dw = _counters()
     out = {name: fn.launches for name, fn in fns.items()}
     out.update({f"part_dist_{m}": n for m, n in modes.items()})
     out[DX] = dict(dx)
+    out[DW] = {k: dict(v) for k, v in dw.items()}
     for kind in GRAPH_KINDS:
         by_name = {n: g[kind] for n, g in _GRAPHS.items() if g[kind]}
         out[kind] = {"total": sum(by_name.values()), "by_name": by_name}
@@ -59,13 +69,15 @@ def read() -> dict:
 
 def restore(counts: dict) -> None:
     """Set every counter to `counts` (read()'s keys)."""
-    fns, modes, dx = _counters()
+    fns, modes, dx, dw = _counters()
     for name, fn in fns.items():
         fn.launches = counts[name]
     for m in modes:
         modes[m] = counts[f"part_dist_{m}"]
     dx.clear()
     dx.update(counts[DX])
+    dw.clear()
+    dw.update({k: dict(v) for k, v in counts[DW].items()})
     for kind in GRAPH_KINDS:
         for name, g in _GRAPHS.items():
             g[kind] = counts[kind]["by_name"].get(name, 0)
@@ -74,8 +86,8 @@ def restore(counts: dict) -> None:
 def reset() -> None:
     """Set every counter to 0 (the graphs' records stay)."""
     counts = read()
-    restore({k: 0 for k in counts if k != DX and k not in GRAPH_KINDS}
-            | {DX: {}, **{k: {"by_name": {}} for k in GRAPH_KINDS}})
+    restore({k: 0 for k in counts if k not in _KEYED}
+            | {DX: {}, DW: {}, **{k: {"by_name": {}} for k in GRAPH_KINDS}})
 
 
 def diff(after: dict, before: dict) -> dict:
@@ -85,15 +97,20 @@ def diff(after: dict, before: dict) -> dict:
             else v - before.get(k, 0) for k, v in after.items()}
 
 
+_KEYED = (DX, DW) + GRAPH_KINDS
+
+
 def _record(after: dict, before: dict) -> dict:
-    """The kernel and dx counts gained between two readings, zeros left
-    out."""
+    """The kernel, dx and dW counts gained between two readings, zeros
+    left out."""
     d = diff(after, before)
-    rec = {k: n for k, n in d.items()
-           if k != DX and k not in GRAPH_KINDS and n}
+    rec = {k: n for k, n in d.items() if k not in _KEYED and n}
     dx = {k: n for k, n in d[DX].items() if n}
     if dx:
         rec[DX] = dx
+    dw = {k: n for k, n in d[DW].items() if n["calls"]}
+    if dw:
+        rec[DW] = dw
     return rec
 
 
@@ -120,11 +137,12 @@ def replayer(name: str, record: dict):
     """-> a function that counts one replay of graph `name`, captured with
     `record`: its launches added to the counters, which are looked up once,
     here."""
-    fns, modes, dx = _counters()
+    fns, modes, dx, dw = _counters()
     ints = [(fns[k], n) for k, n in record.items() if k in fns]
     keyed = [(modes, k[len("part_dist_"):], n) for k, n in record.items()
-             if k != DX and k not in fns]
+             if k not in _KEYED and k not in fns]
     keyed += [(dx, k, n) for k, n in record.get(DX, {}).items()]
+    dws = list(record.get(DW, {}).items())
     graph = _graph(name)
 
     def replayed() -> None:
@@ -132,6 +150,10 @@ def replayer(name: str, record: dict):
             fn.launches += n
         for counts, k, n in keyed:
             counts[k] = counts.get(k, 0) + n
+        for k, n in dws:
+            got = dw.setdefault(k, dict.fromkeys(DW_KINDS, 0))
+            for kind in DW_KINDS:
+                got[kind] += n[kind]
         graph["graph_replays"] += 1
 
     return replayed
@@ -139,6 +161,7 @@ def replayer(name: str, record: dict):
 
 def graph_record(name: str) -> dict:
     """What the latest capture of graph `name` launched ({} for a name
-    never captured): kernel counts and `spiral_conv_dx`, zeros left out."""
+    never captured): kernel counts, `spiral_conv_dx` and `spiral_conv_dw`,
+    zeros left out."""
     g = _GRAPHS.get(name)
     return dict(g["record"]) if g else {}

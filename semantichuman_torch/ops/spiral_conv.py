@@ -27,9 +27,11 @@ shape to where the new kernel measured slower.  Its backward takes the activatio
 derivative from the output and db as a plain sum; dW and dx come from the
 two fused kernels of `csrc/spiral_conv_bwd.cu` (`spiral_conv_bwd_dw`,
 `spiral_conv_bwd_dx`, counted in their `.launches`), which gather on chip
-and write nothing of width S*C to device memory.  The earlier card route,
-torch matmuls around the gathered buffers and the CSR reduce
-(`ops/csr_reduce.py`), stays as `spiral_conv_bwd_unfused`: a table keyed
+and write nothing of width S*C to device memory; dW reads x through the
+spiral table's window plan (`ops/dw_window.py:window_of`, built with the
+tables: each tile of vertices' distinct source rows staged once).  The
+earlier card route, torch matmuls around the gathered buffers and the CSR
+reduce (`ops/csr_reduce.py`), stays as `spiral_conv_bwd_unfused`: a table keyed
 by the conv's static shape sends a shape there where the fused kernel
 measured slower, and dx at batch <= 16 takes it too.  The JAX package's one-hot form is a TPU gather-engine
 workaround with the take route's values and is not ported.
@@ -42,6 +44,7 @@ import torch.nn.functional as F
 
 from .banded_gather import BandedGatherFn, BandTable
 from .csr_reduce import LONG_ROW, CSRTable, csr_reduce, csr_reduce_plain
+from .dw_window import window_of
 from .kernels import LIB, build
 from .row_gather import RowGatherFn
 
@@ -451,8 +454,10 @@ def spiral_conv_bwd_dw(x: torch.Tensor, spiral_idx: torch.Tensor,
     """dW[s*C + c, n] = sum_{b, v} x[b, spiral[v, s], c] * dy[b, v, n].
     x [B, V1, C] f32 or bf16, spiral_idx [V1, S] int32, dy [B, V1, Co] f32
     -> [S*C, Co] float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (per-chunk partial sums into scratch, added
-    in chunk order: no atomics) or raise."""
+    tensors launch the kernel through spiral_idx's window plan
+    (`window_of`: the tables' are built with them, another table's on its
+    first call; per-chunk partial sums into scratch, added in chunk
+    order: no atomics) or raise."""
     if dy.device.type == "cpu":
         return spiral_conv_bwd_dw_plain(x, spiral_idx, dy)
     if dy.device.type != "cuda":
@@ -467,16 +472,23 @@ def spiral_conv_bwd_dw(x: torch.Tensor, spiral_idx: torch.Tensor,
         return dw
     if b * v1 == 0:
         return dw.zero_()
-    lib = build.load("spiral_conv_bwd")
-    n_chunks = lib.sh_spiral_conv_bwd_dw_chunks(b, v1, c, s, co)
-    partial = torch.empty((n_chunks, s * c, co), dtype=torch.float32,
+    window = window_of(spiral_idx)
+    plan = window.launch_plan(b, c, co, x.dtype)
+    if plan is None:
+        raise ValueError(f"S = {s}, C = {c}: no window of 16 vertices fits "
+                         "the dW kernel's shared memory")
+    p = window.plans[plan["t"]]
+    partial = torch.empty((plan["chunks"], s * c, co), dtype=torch.float32,
                           device=dy.device)
+    lib = build.load("spiral_conv_bwd")
     with torch.cuda.device(dy.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.sh_spiral_conv_bwd_dw(
-            x.data_ptr(), spiral_idx.data_ptr(), dy.data_ptr(),
-            partial.data_ptr(), dw.data_ptr(), b, v1, c, s, co,
-            int(x.dtype == torch.bfloat16), n_chunks, stream)
+            x.data_ptr(), p.rows.data_ptr(), p.offs.data_ptr(),
+            p.masks.data_ptr(), p.lidx.data_ptr(), dy.data_ptr(),
+            partial.data_ptr(), dw.data_ptr(), b, v1, c, s, co, p.t,
+            p.max_rows, plan["shape"], plan["chunks"], plan["per_chunk"],
+            plan["smem"], int(x.dtype == torch.bfloat16), stream)
     build.check(lib, rc, "spiral_conv_bwd_dw kernel launch")
     spiral_conv_bwd_dw.launches += 1
     return dw
@@ -606,18 +618,45 @@ def _count_dx(x, w, dy, spiral_idx, unfused) -> None:
     DX_CALLS[key] = DX_CALLS.get(key, 0) + 1
 
 
+# The conv backward's fused dW calls by shape and window tile:
+# "<B>,<V1>,<S>,<C_in>,<C_out>:<T>" -> {"calls": n, "rows": x rows the
+# window copies, "entries": spiral entries read from it}, rows and entries
+# summed over the calls (each call's are the launch plan's, on the CPU
+# too, where the plain version runs).  entries / rows is how many reads of
+# a gathered row from L2 one staged row replaces.  Read as
+# `spiral_conv_dw` by `ops/launches.py` and carried in a captured graph's
+# record like every launch counter.
+DW_CALLS: dict = {}
+
+
+def _count_dw(x, dy, spiral_idx) -> None:
+    b, v1, c = x.shape
+    co = dy.shape[2]
+    if b * v1 * c * co == 0:
+        return
+    plan = window_of(spiral_idx).launch_plan(b, c, co, x.dtype)
+    if plan is None:  # the kernel refuses the shape
+        return
+    key = f"{b},{v1},{spiral_idx.shape[1]},{c},{co}:{plan['t']}"
+    n = DW_CALLS.setdefault(key, {"calls": 0, "rows": 0, "entries": 0})
+    n["calls"] += 1
+    n["rows"] += plan["rows"]
+    n["entries"] += plan["entries"]
+
+
 def _conv_backward(x, w, dy, spiral_idx, csr, need_x, need_w, unfused=()):
     """(dx, dW) in float32 for dy already times act' with a zero dummy
     row: the halves named in `unfused` ("dx", "dw") through
     `spiral_conv_bwd_unfused`, the others through the fused wrappers
     (kernels on the card, their plain versions on the CPU).  Each dx is
-    counted in DX_CALLS by its route."""
+    counted in DX_CALLS by its route, each fused dW in DW_CALLS."""
     if need_x:
         _count_dx(x, w, dy, spiral_idx, unfused)
     dx, dw = spiral_conv_bwd_unfused(
         x, w, dy, spiral_idx, csr, need_x and "dx" in unfused,
         need_w and "dw" in unfused)
     if need_w and dw is None:
+        _count_dw(x, dy, spiral_idx)
         dw = spiral_conv_bwd_dw(x, spiral_idx, dy)
     if need_x and dx is None:
         dx = spiral_conv_bwd_dx(dy, w, csr, tuple(spiral_idx.shape))

@@ -712,6 +712,79 @@ def test_spiral_conv_bwd_dw_matches_plain(cuda, full_tables, dtype):
                                    msg=lambda m: f"{label}: {m}")
 
 
+def _permuted_level(spiral, seed):
+    """The level's table with its vertices in a random order (the dummy
+    row stays last): the same spirals, with no locality for a window."""
+    sp = spiral.cpu().numpy()
+    v = sp.shape[0] - 1
+    perm = np.append(np.random.default_rng(seed).permutation(v), v)
+    out = np.empty_like(sp)
+    out[perm] = perm[sp]
+    return torch.from_numpy(out).to(spiral.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 12, 128])
+def test_spiral_conv_bwd_dw_window_at_model_convs(cuda, full_tables, b,
+                                                  dtype):
+    """The dW kernel through the tables' window plans at the nine convs,
+    and on the level-0 and level-3 tables with their vertices permuted
+    (little reuse): against the plain version, max |err| <= 1e-4 of the
+    largest entry as above; two runs bit-equal."""
+    cases = [(f"L{lvl} {c}->{co}", full_tables.spirals[lvl], c, co)
+             for lvl, c, co in MODEL_CONVS]
+    for lvl, c, co in ((0, 32, 16), (3, 128, 64)):
+        cases.append((f"L{lvl} permuted {c}->{co}",
+                      _permuted_level(full_tables.spirals[lvl], lvl), c, co))
+    for i, (label, spiral, c, co) in enumerate(cases):
+        v1, s = spiral.shape
+        x, _w, dy = _bwd_inputs(b, v1, s, c, co, dtype, cuda, 300 + i)
+        got = TC.spiral_conv_bwd_dw(x, spiral, dy)
+        again = TC.spiral_conv_bwd_dw(x, spiral, dy)
+        ref = TC.spiral_conv_bwd_dw_plain(x, spiral, dy)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), f"{label} B={b}"
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()),
+                                   msg=lambda m: f"{label} B={b}: {m}")
+        del x, dy, ref
+
+
+@pytest.mark.cuda
+def test_spiral_conv_bwd_dw_launches_two_kernels_and_counts(cuda,
+                                                            full_tables):
+    """A fused dW call is one `dw_partial_kernel` and one `dw_finish_kernel`
+    on the device and nothing else, and the conv backward records it in
+    `spiral_conv_dw` with the launch plan's rows and entries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantichuman_torch.ops import launches
+    from semantichuman_torch.ops.dw_window import window_of
+    lvl, c, co, b = 0, 32, 16, 16
+    spiral = full_tables.spirals[lvl]
+    v1, s = spiral.shape
+    x, w, dy = _bwd_inputs(b, v1, s, c, co, torch.float32, cuda, 9)
+    TC.spiral_conv_bwd_dw(x, spiral, dy)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        TC.spiral_conv_bwd_dw(x, spiral, dy)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 2, kernels
+    assert "dw_partial_kernel" in kernels[0], kernels
+    assert "dw_finish_kernel" in kernels[1], kernels
+    before = launches.read()
+    TC._conv_backward(x, w, dy, spiral, full_tables.spiral_csr[lvl], False,
+                      True)
+    got = {k: n for k, n in launches.diff(launches.read(), before)[
+        "spiral_conv_dw"].items() if n["calls"]}
+    plan = window_of(spiral).launch_plan(b, c, co, torch.float32)
+    assert got == {f"{b},{v1},{s},{c},{co}:{plan['t']}": {
+        "calls": 1, "rows": plan["rows"], "entries": plan["entries"]}}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_spiral_conv_bwd_dx_matches_plain(cuda, full_tables, dtype):

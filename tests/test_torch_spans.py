@@ -199,24 +199,30 @@ def fake_counters(monkeypatch):
     """launches' counters swapped for fakes, and no graph known."""
     fns = {k: types.SimpleNamespace(launches=0)
            for k in ("spiral_conv_fwd", "row_gather", "csr_reduce")}
-    modes, dx = {"fwd": 0, "fwd_grad": 0}, {}
-    monkeypatch.setattr(launches, "_counters", lambda: (fns, modes, dx))
+    modes, dx, dw = {"fwd": 0, "fwd_grad": 0}, {}, {}
+    monkeypatch.setattr(launches, "_counters",
+                        lambda: (fns, modes, dx, dw))
     monkeypatch.setattr(launches, "_GRAPHS", {})
-    return fns, modes, dx
+    return fns, modes, dx, dw
 
 
 def test_capture_record_and_replays(fake_counters):
     """What the counters gain inside a recorded capture is its record;
     k replays add k x the record, and the graph counts follow."""
-    fns, modes, dx = fake_counters
+    fns, modes, dx, dw = fake_counters
     fns["row_gather"].launches = 5          # before the capture: not in it
+    dw["128,10,9,16,32:16"] = {"calls": 1, "rows": 5, "entries": 9}
     with launches.recording("train/abc/ori") as rec:
         fns["spiral_conv_fwd"].launches += 9
         fns["row_gather"].launches += 2
         modes["fwd_grad"] += 2
         dx["fused:128,10,9,16,32"] = dx.get("fused:128,10,9,16,32", 0) + 1
+        for kind, n in (("calls", 1), ("rows", 5), ("entries", 9)):
+            dw["128,10,9,16,32:16"][kind] += n
+    one = {"calls": 1, "rows": 5, "entries": 9}
     want = {"spiral_conv_fwd": 9, "row_gather": 2, "part_dist_fwd_grad": 2,
-            "spiral_conv_dx": {"fused:128,10,9,16,32": 1}}
+            "spiral_conv_dx": {"fused:128,10,9,16,32": 1},
+            "spiral_conv_dw": {"128,10,9,16,32:16": one}}
     assert rec == want == launches.graph_record("train/abc/ori")
     at_capture = launches.read()
     k = 4
@@ -230,6 +236,8 @@ def test_capture_record_and_replays(fake_counters):
     assert got["part_dist_fwd_grad"] == 2 * (k + 1)
     assert got["part_dist_fwd"] == 0 and got["csr_reduce"] == 0
     assert got["spiral_conv_dx"] == {"fused:128,10,9,16,32": k + 1}
+    assert got["spiral_conv_dw"] == {"128,10,9,16,32:16": {
+        kind: n * (k + 2) for kind, n in one.items()}}
     assert got["graph_captures"] == {"total": 1,
                                      "by_name": {"train/abc/ori": 1}}
     assert got["graph_replays"] == {"total": k,
@@ -237,9 +245,12 @@ def test_capture_record_and_replays(fake_counters):
     d = launches.diff(got, at_capture)
     assert d["spiral_conv_fwd"] == 9 * k
     assert d["spiral_conv_dx"] == {"fused:128,10,9,16,32": k}
+    assert d["spiral_conv_dw"] == {"128,10,9,16,32:16": {
+        kind: n * k for kind, n in one.items()}}
     launches.reset()
     zero = launches.read()
     assert zero["spiral_conv_fwd"] == 0 and zero["spiral_conv_dx"] == {}
+    assert zero["spiral_conv_dw"] == {}
     assert zero["graph_replays"] == {"total": 0, "by_name": {}}
     assert launches.graph_record("train/abc/ori") == want
     launches.restore(got)
@@ -247,14 +258,14 @@ def test_capture_record_and_replays(fake_counters):
 
 
 def test_read_names_every_counter():
-    """read() holds every kernel counter as an int, the dx calls and the
-    graph counts; restore(read()) changes nothing."""
+    """read() holds every kernel counter as an int, the dx and dW calls
+    and the graph counts; restore(read()) changes nothing."""
     got = launches.read()
     ints = {k for k, v in got.items() if not isinstance(v, dict)}
     assert {"spiral_conv_fwd", "spiral_conv_bwd_dx", "row_gather",
             "part_dist_fwd_grad"} <= ints
-    assert set(got) - ints == {"spiral_conv_dx", "graph_captures",
-                               "graph_replays"}
+    assert set(got) - ints == {"spiral_conv_dx", "spiral_conv_dw",
+                               "graph_captures", "graph_replays"}
     launches.restore(got)
     assert launches.read() == got
 
@@ -265,7 +276,8 @@ def test_read_names_every_counter():
 def test_replays_count_and_stay_off_the_device_timeline():
     """On the card: after k replays of a captured conv step (forward and
     backward at batch 32, its dx fused), launches.read() is the reading
-    after the capture plus k x the graph's record; a profiled replay shows
+    after the capture plus k x the graph's record, the dW calls' window
+    rows and entries included; a profiled replay shows
     its sh:replay span on the host and no sh: event among the device's
     operations."""
     if not torch.cuda.is_available():
@@ -296,6 +308,9 @@ def test_replays_count_and_stay_off_the_device_timeline():
     rec = launches.graph_record("test/conv")
     assert rec["spiral_conv_fwd"] == 1 and rec["spiral_conv_bwd_dx"] == 1
     assert rec["spiral_conv_dx"] == {f"fused:{b},{v1},{s},{c},{co}": 1}
+    (dw_key, dw_rec), = rec["spiral_conv_dw"].items()
+    assert dw_key.startswith(f"{b},{v1},{s},{c},{co}:") and \
+        dw_rec["calls"] == 1
     at_capture = launches.read()
     k = 5
     for _ in range(k):
@@ -303,11 +318,15 @@ def test_replays_count_and_stay_off_the_device_timeline():
     torch.cuda.synchronize()
     got = launches.read()
     for key, n in at_capture.items():
-        if key in ("spiral_conv_dx", "graph_captures", "graph_replays"):
+        if key in ("spiral_conv_dx", "spiral_conv_dw", "graph_captures",
+                   "graph_replays"):
             continue
         assert got[key] == n + k * rec.get(key, 0), key
     assert got["spiral_conv_dx"][f"fused:{b},{v1},{s},{c},{co}"] == \
         at_capture["spiral_conv_dx"][f"fused:{b},{v1},{s},{c},{co}"] + k
+    assert got["spiral_conv_dw"][dw_key] == {
+        kind: n + k * dw_rec[kind]
+        for kind, n in at_capture["spiral_conv_dw"][dw_key].items()}
     assert got["graph_replays"]["by_name"]["test/conv"] == \
         at_capture["graph_replays"]["by_name"].get("test/conv", 0) + k
 

@@ -1,7 +1,8 @@
 """The spiral conv's backward, half by half: the plain versions of the dW
 and dx kernels (`spiral_conv_bwd_dw_plain`, `spiral_conv_bwd_dx_plain`)
 against jax.vjp of spiral_conv_take, the unfused route against them, the
-dispatch of SpiralConvFn.backward, and the wrappers' checks.  The kernels
+dispatch of SpiralConvFn.backward, the wrappers' checks, and the dW
+kernel's window plan (`ops/dw_window.py`) walked on the CPU.  The kernels
 against their plain versions on the card are in test_torch_kernels_cuda.py."""
 
 import importlib
@@ -14,6 +15,7 @@ import torch
 
 from semantichuman_torch.models.tables import inverse_spiral_csr
 from semantichuman_torch.ops import csr_reduce as TR
+from semantichuman_torch.ops import dw_window as DW
 from semantichuman_tpu.ops.spiral_conv import spiral_conv_take
 
 # the module: `semantichuman_torch.ops.spiral_conv` is the function
@@ -290,3 +292,190 @@ def test_wrappers_refuse_other_devices():
         TC.spiral_conv_bwd_dw(x.to("meta"), idx.to("meta"), dy.to("meta"))
     with pytest.raises(ValueError, match="cpu or cuda"):
         TC.spiral_conv_bwd_dx(dy.to("meta"), w, table, tuple(idx.shape))
+
+
+# --- the dW kernel's window plan (ops/dw_window.py) ---------------------------
+
+TOPOLOGY = "assets/topology_synth_full_2222.npz"
+# (level, C_in, C_out) of the nine convs of PartAE and of neural3DMM (the
+# same widths), in forward order
+MODEL_CONVS = [(0, 3, 16), (1, 16, 32), (2, 32, 64), (3, 64, 128),
+               (3, 128, 64), (2, 64, 32), (1, 32, 32), (0, 32, 16),
+               (0, 16, 3)]
+
+
+def _levels():
+    with np.load(TOPOLOGY) as z:
+        return [z[f"spirals_{l}"] for l in range(int(z["n_levels"]))]
+
+
+def _permuted(spiral, seed=0):
+    """The table with its vertices in a random order, the dummy row last:
+    the case with no locality."""
+    v = spiral.shape[0] - 1
+    perm = np.append(np.random.default_rng(seed).permutation(v), v)
+    out = np.empty_like(spiral)
+    out[perm] = perm[spiral]
+    return out
+
+
+def _tables():
+    """(label, spiral) of every bundled level, each level permuted, and a
+    small random table with pads."""
+    levels = _levels()
+    out = [(f"L{l}", s) for l, s in enumerate(levels)]
+    out += [(f"L{l} permuted", _permuted(s, l)) for l, s in enumerate(levels)]
+    _x, idx, *_rest = _case(SHAPES[2])
+    return out + [("random 700x7", idx)]
+
+
+@pytest.mark.parametrize("label,spiral", _tables(),
+                         ids=[t[0] for t in _tables()])
+def test_window_plan_maps_back_to_the_spiral(label, spiral):
+    """At every tile size: each tile's list is sorted and unique, every
+    (v, s) maps back to spiral[v, s] through its tile's list, each row's
+    mask is the set of slots that name it in the tile, and the index pads
+    are 0."""
+    win = DW.DwWindow.build(spiral, "cpu")
+    v1, s = spiral.shape
+    assert win.spiral_shape == (v1, s) and min(win.plans) == 16
+    for t, p in win.plans.items():
+        rows, lidx = p.rows.long().numpy(), p.lidx.long().numpy()
+        assert lidx.shape == (-(-v1 // 16) * 16 + DW.LIDX_PAD, DW.s_pad(s))
+        assert not lidx[v1:].any() and not lidx[:, s:].any()
+        offs = p.host_offs
+        assert offs[0] == 0 and offs[-1] == len(rows)
+        assert len(offs) == -(-v1 // t) + 1
+        assert p.max_rows == np.diff(offs).max()
+        for tile in range(len(offs) - 1):
+            lst = rows[offs[tile]:offs[tile + 1]]
+            assert np.all(np.diff(lst) > 0), (label, t, tile)
+            vs = slice(tile * t, min(v1, (tile + 1) * t))
+            np.testing.assert_array_equal(lst[lidx[vs, :s]], spiral[vs])
+            assert set(lst) == set(spiral[vs].ravel())
+            want = np.zeros(len(lst), np.int64)
+            for j in range(s):
+                np.bitwise_or.at(want, lidx[vs, j], 1 << min(j, 31))
+            np.testing.assert_array_equal(
+                p.host_masks[offs[tile]:offs[tile + 1]].astype(np.uint32),
+                want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("permuted", [False, True])
+def test_window_fits_the_shared_memory_budget(dtype, permuted):
+    """At every conv of the bundled topology, at batch 1, 12 and 128 and
+    on a vertex order with no locality, the plan's window fits: the blocks
+    an SM the kernel is set for where any tile size allows, else one; its shared memory is the
+    window's longest list C wide beside the ring; T is the largest that
+    fits and still gives four blocks an SM, else the smallest that fits;
+    the chunks cover every item once."""
+    levels = _levels()
+    es = 2 if dtype == torch.bfloat16 else 4
+    for lvl, c, co in MODEL_CONVS:
+        spiral = _permuted(levels[lvl], lvl) if permuted else levels[lvl]
+        win = DW.DwWindow.build(spiral, "cpu")
+        v1, s = spiral.shape
+        for b in (1, 12, 128):
+            plan = win.launch_plan(b, c, co, dtype)
+            t, shape = plan["t"], plan["shape"]
+            assert plan["smem"] == DW.smem_bytes(win.plans[t].max_rows, c, s,
+                                                 shape, es)
+            budget = DW.budget(shape) if any(
+                DW.smem_bytes(p.max_rows, c, s, shape, es)
+                <= DW.budget(shape) for p in win.plans.values()) \
+                else DW.SMEM_ONE
+            fits = [u for u, p in win.plans.items()
+                    if DW.smem_bytes(p.max_rows, c, s, shape, es) <= budget]
+            assert plan["smem"] <= budget and t in fits
+            blocks = [u for u in fits if -(-v1 // u) * b * plan["kt"]
+                      * plan["nt"] >= 4 * DW.SMS]
+            assert t == (max(blocks) if blocks else min(fits))
+            assert plan["items"] == -(-v1 // t) * b
+            assert (plan["chunks"] - 1) * plan["per_chunk"] < plan["items"] \
+                <= plan["chunks"] * plan["per_chunk"]
+            assert plan["rows"] <= plan["entries"]
+        if not permuted and lvl == 0:
+            # the level-0 convs at trunk 128: each staged row replaces
+            # more than 1.5 reads of a gathered row
+            plan = win.launch_plan(128, c, co, dtype)
+            assert plan["entries"] > 1.5 * plan["rows"]
+
+
+WALK_CASES = [(0, 3, 16, 1), (4, 16, 3, 3), (4, 32, 64, 2), (3, 128, 64, 1),
+              (3, 64, 128, 2), (2, 24, 40, 2), (4, 5, 7, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", WALK_CASES, ids=str)
+def test_window_walk_gives_plain_dw(case, dtype):
+    """The plan walked in the kernel's order (chunks of batch-major items,
+    each k-tile's window holding only the rows it copies, the rest NaN)
+    gives spiral_conv_bwd_dw_plain's dW: the same products, f32 sums in
+    another order (1e-5 of the largest entry); also on the level with its
+    vertices permuted."""
+    lvl, c, co, b = case
+    for spiral in (_levels()[lvl], _permuted(_levels()[lvl], 7)):
+        v1, s = spiral.shape
+        rng = np.random.default_rng(lvl + c + co)
+        x = torch.from_numpy(rng.standard_normal((b, v1, c)).astype(
+            np.float32)).to(dtype)
+        dy = torch.from_numpy(rng.standard_normal((b, v1, co)).astype(
+            np.float32))
+        win = DW.DwWindow.build(spiral, "cpu")
+        plan = win.launch_plan(b, c, co, dtype)
+        got = DW.walk_plain(x, dy, win, plan)
+        ref = TC.spiral_conv_bwd_dw_plain(x, torch.from_numpy(spiral), dy)
+        assert torch.isfinite(got).all()
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()))
+
+
+def test_dw_counter_equals_the_plan():
+    """A conv's backward on the CPU records its dW call in
+    `spiral_conv_dw` under "<B>,<V1>,<S>,<C>,<Co>:<T>", with the launch
+    plan's rows and entries; a graph's record carries it."""
+    from semantichuman_torch.ops import launches
+
+    spiral = _levels()[0]
+    b, c, co = 2, 32, 16
+    v1, s = spiral.shape
+    it = torch.from_numpy(spiral)
+    win = DW.window_of(it)
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.standard_normal((b, v1, c)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((s * c, co)).astype(np.float32))
+    dy = torch.from_numpy(rng.standard_normal((b, v1, co)).astype(np.float32))
+    plan = win.launch_plan(b, c, co, torch.float32)
+    key = f"{b},{v1},{s},{c},{co}:{plan['t']}"
+    with launches.recording("test/dw") as rec:
+        TC._conv_backward(x, w, dy, it, None, False, True)
+        TC._conv_backward(x, w, dy, it, None, False, True)
+    assert rec["spiral_conv_dw"] == {key: {
+        "calls": 2, "rows": 2 * plan["rows"],
+        "entries": 2 * plan["entries"]}}
+    assert launches.graph_record("test/dw")["spiral_conv_dw"] == \
+        rec["spiral_conv_dw"]
+    assert "spiral_conv_bwd_dw" not in rec  # no launch on the CPU
+
+
+def test_window_refuses_another_table():
+    """`window_of` gives a spiral tensor one plan for as long as it lives,
+    and another tensor of the same shape a plan of its own, not the
+    first's; building the tables builds each level's."""
+    from semantichuman_torch.models.tables import device_tables
+    from semantichuman_torch.topology import MeshHierarchy
+
+    _x, idx, *_rest = _check_args()
+    other = torch.roll(idx, 1, dims=0)
+    win = DW.window_of(idx)
+    assert DW.window_of(idx) is win
+    got = DW.window_of(other)
+    assert got is not win and got.spiral_shape == win.spiral_shape
+    assert any(not torch.equal(p.lidx, q.lidx) or not torch.equal(p.rows,
+                                                                  q.rows)
+               for p, q in zip(win.plans.values(), got.plans.values()))
+    tables = device_tables(MeshHierarchy.load(TOPOLOGY), "cpu")
+    for spiral in tables.spirals:
+        hit = DW._BUILT.get(id(spiral))
+        assert hit is not None and hit[0]() is spiral
