@@ -1,0 +1,3 @@
+"""conv_fwd_roofline.n3dmm: `layers.conv_fwd_roofline_train`, read in the neural3DMM training cells."""
+
+from bench_port.layers import conv_fwd_roofline_train as read  # noqa: F401

@@ -179,8 +179,8 @@ run:
    the preprocessing and the compiles.
 9. the neural3DMM baseline and reference checkpoints (`phase_baseline`):
    (a) `cli.train` with configs/train_neural3dmm.yaml (nz 256, B = 16,
-   zeroroot, banded_conv off, f32), only root_dir, asset_dir, n_val and
-   3 epochs set, on phase 8's dataset (preprocessed anew when phase 8 did
+   zeroroot, banded_conv off, f32), only root_dir, asset_dir, n_val,
+   3 epochs and the loop (epoch_scan off) set, on phase 8's dataset (preprocessed anew when phase 8 did
    not run), the launch counts set to 0 just before: finite falling epoch
    losses, a finite test eval, per step TRAIN_LAUNCHES_N3DMM (9 conv
    forwards, 9 dW, 0 dx, 9 row gathers, 17 csr_reduce) and per eval
@@ -188,7 +188,13 @@ run:
    against the plain conv (rtol 1e-4, each gradient leaf within 1e-4 of
    its largest entry); ms/step (a synchronize after each step, the median
    of epoch 3), meshes/s, the idle share and the kernel families of one
-   profiled epoch (the index_add_ family 0).  (b) for each model family,
+   profiled epoch (the index_add_ family 0).  Then the file as written,
+   whose baseline takes the Trainer's epoch path, on the same dataset,
+   the counts set to 0 just before: one capture, graph train/<flags>/ori,
+   whose record is TRAIN_LAUNCHES_N3DMM, replayed once a step; launches
+   as TRAIN_LAUNCHES_N3DMM for its two warm-up steps and the capture plus
+   VAL_LAUNCHES_N3DMM per eval batch; epoch losses and the 22 parameter
+   tensors bit-equal to the loop's; ms/step.  (b) for each model family,
    the port's epoch-2 checkpoint (neural3DMM: (a)'s, saved after its
    second epoch; PartAE: phase 7's loop fit at Config() defaults, resumed
    on its epoch path) written in the reference's `.pth.tar` layout
@@ -3329,17 +3335,21 @@ N3DMM_CONFIG = ROOT / "configs" / "train_neural3dmm.yaml"
 N3DMM_EPOCHS = 3
 
 
-def n3dmm_config(root: Path, out: Path) -> str:
+def n3dmm_config(root: Path, out: Path, loop: bool = True) -> str:
     """configs/train_neural3dmm.yaml with root_dir, asset_dir and n_val set
-    to the preprocessed dataset and N3DMM_EPOCHS epochs, written as a YAML
-    file for cli.train (nz 256, B 16, zeroroot, banded_conv off as the
-    file has them)."""
+    to the preprocessed dataset and N3DMM_EPOCHS epochs, and with `loop`
+    the loop (epoch_scan off, which loop_probe times; without it the
+    file's epoch path, the Trainer's default), written as a YAML file for
+    cli.train (nz 256, B 16, zeroroot, banded_conv off as the file has
+    them)."""
     import yaml
 
     raw = yaml.safe_load(N3DMM_CONFIG.read_text())
     raw["data"].update(root_dir=str(root), asset_dir=str(root / "asset"),
                        n_val=DFAUST_VAL)
     raw["train"]["n_epochs"] = N3DMM_EPOCHS
+    if loop:
+        raw["train"]["epoch_scan"] = False
     out.write_text(yaml.safe_dump(raw))
     return str(out)
 
@@ -3557,7 +3567,8 @@ def resume_round_trip(name: str, cfg, workdir, ckpt: str, tmp: Path,
 def phase_baseline(card: str, tmp: Path, partae_ckpt: str | None) -> dict:
     """Phase 9, in the directory tmp: (a) cli.train with
     configs/train_neural3dmm.yaml (n3dmm_config) for N3DMM_EPOCHS epochs
-    on phase 8's dataset (`dfaust_dataset`), its gates and times; (b)
+    on phase 8's dataset (`dfaust_dataset`) through the loop, its gates
+    and times, then the file as written on the epoch path against it; (b)
     resume_torch bit-equal to a native resume for both model families: the
     neural3DMM run of (a) on the loop from the checkpoint loop_probe saves
     at epoch 2, and PartAE at Config() defaults on its epoch path from
@@ -3566,6 +3577,7 @@ def phase_baseline(card: str, tmp: Path, partae_ckpt: str | None) -> dict:
     from semantichuman_torch.cli import train as train_cli
     from semantichuman_torch.config import Config
     from semantichuman_torch.models import SpiralAE
+    from semantichuman_torch.ops import launches
     from semantichuman_torch.ops.spiral_conv import spiral_conv_plain
     from semantichuman_torch.train.loop import Trainer
     from semantichuman_torch.train.step import (flags_for_epoch,
@@ -3600,6 +3612,8 @@ def phase_baseline(card: str, tmp: Path, partae_ckpt: str | None) -> dict:
             and tr.device_data is not None,
             "(a) is not the neural3DMM recipe (nz 256, B 16, zeroroot, "
             "f32 take route) on staged data through the loop")
+    # the loop's state after its fit, before the checks below train on
+    loop_params = [t.detach().clone() for t in tree_leaves(tr.params)]
     hist = tr.history
     losses = [h["train"] for h in hist]
     log(f"[baseline] (a) epochs {[(h['epoch'], h['train'], h['val'], h['sec']) for h in hist]}")
@@ -3663,6 +3677,67 @@ def phase_baseline(card: str, tmp: Path, partae_ckpt: str | None) -> dict:
         f"a step, idle share {idle}; test eval l1 {l1:.6f}, {mm:.3f} mm")
     n3dmm_ckpt = str(wd / "checkpoints")
     del tr
+    torch.cuda.empty_cache()
+
+    # --- (a) again: the file as written, the epoch path, counts from 0 ----
+    wd_epoch = tmp / "p9_n3dmm_epoch"
+    copy_cache(wd / "topology_2222.npz", wd_epoch)
+    epoch_cfg = n3dmm_config(root, tmp / "train_neural3dmm_epoch.yaml",
+                             loop=False)
+    with graph_probe() as caps:
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        tr = train_cli.main(["--config", epoch_cfg, "--workdir",
+                             str(wd_epoch), "--device", DEVICE])
+        sync()
+        out["epoch_path_run_s"] = time.perf_counter() - t0
+        counts = read_counts()
+        replays = launches.read()["graph_replays"]["by_name"]
+    require(isinstance(tr.model, SpiralAE) and tr._epoch_scan_ok()
+            and tr.cfg.train.batch_train == 16,
+            "(a) as written does not take the epoch path")
+    n_steps = len(tr.train_loader) * N3DMM_EPOCHS
+    replays = {name: n for name, n in replays.items() if n}
+    log(f"[baseline] (a) epoch path: captures "
+        f"{[c['counts'] for c in caps]}, replays {replays}")
+    require(len(caps) == 1
+            and caps[0]["counts"] == expect(TRAIN_LAUNCHES_N3DMM),
+            f"(a) epoch path: captured steps' launches "
+            f"{[c['counts'] for c in caps]}, want one with "
+            f"{expect(TRAIN_LAUNCHES_N3DMM)}")
+    (name, n), = replays.items()
+    require(re.fullmatch(r"train/[0-9a-f]+/ori", name) is not None
+            and n == n_steps
+            and expect(launches.graph_record(name))
+            == expect(TRAIN_LAUNCHES_N3DMM),
+            f"(a) epoch path: replays {replays}, want {n_steps} of one "
+            "train/<flags>/ori graph")
+    # the two warm-up steps and the captured one (read_counts leaves the
+    # replays out), the validation and test batches and the staging
+    want = {k: TRAIN_LAUNCHES_N3DMM.get(k, 0) * 3
+            + VAL_LAUNCHES_N3DMM.get(k, 0) * n_eval for k in KERNEL_COUNTS}
+    want["row_gather"] += STAGE_GATHERS
+    require(counts == want, f"(a) epoch path: launches {counts}, want "
+            f"{want}")
+    got = [h["train"] for h in tr.history]
+    same = [torch.equal(x, y) for x, y in zip(loop_params,
+                                              tree_leaves(tr.params))]
+    k = len(tr.train_loader)
+    epoch_ms = tr.history[-1]["train_sec"] / k * 1e3
+    log(f"[baseline] (a) epoch path {card}: epoch losses {got} (loop "
+        f"{losses}); {sum(same)} of {len(same)} parameter tensors bit-equal "
+        f"to the loop's; epoch {N3DMM_EPOCHS} {epoch_ms:.3f} ms/step "
+        f"({k} steps, no synchronize), {b / epoch_ms * 1e3:.1f} meshes/s")
+    if not (got == losses and all(same)):
+        for i, (x, y) in enumerate(zip(loop_params, tree_leaves(tr.params))):
+            log(f"[baseline]   leaf {i}: max |epoch path - loop| "
+                f"{float((x - y).abs().max()):.3e}")
+    require(got == losses and all(same) and len(same) == 22,
+            "(a): the epoch path's fit differs from the loop's")
+    out.update(epoch_path_losses=got, epoch_path_ms_per_step=epoch_ms,
+               epoch_path_counts=counts)
+    del tr, loop_params
     torch.cuda.empty_cache()
 
     # --- (b) resume_torch against the native resume, both families --------
@@ -5474,6 +5549,7 @@ def main(argv=None) -> int:
     dp_drill_counts = dp_drill.pop("counts")
     baseline_counts = {
         "neural3dmm": baseline.pop("counts"),
+        "neural3dmm_epoch": baseline.pop("epoch_path_counts"),
         "neural3dmm_resume_torch": baseline["n3dmm_resume"].pop("counts"),
         "partae_resume_torch": baseline["partae_resume"].pop("counts")}
 
@@ -5486,6 +5562,8 @@ def main(argv=None) -> int:
     # step is captured): the forced banded arms (FORCED_GATES), the only
     # runs of rows 5-6 on a path a user drives, since the card's
     # measurements closed both gates; neural3dmm: phase 9 (a)'s cli.train;
+    # neural3dmm_epoch: (a) again on the epoch path (warm-ups, capture,
+    # validation and test; replays left out);
     # *_resume_torch: the epoch 3 resumed from a reference checkpoint;
     # phase 10: edit (one run_demo), export_serve (the eager programs),
     # graph_serve (per batch the two warm-ups and the capture; replays

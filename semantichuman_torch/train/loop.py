@@ -12,15 +12,19 @@ one of two paths, as the JAX Trainer does:
     a chunk of epochs (up to train.scan_epochs, clipped at every
     checkpoint, validation, sample dump and loss-gate change) has its
     whole schedule (batch indices, edit specs, Adam's lr and bias
-    corrections) staged on the device once, and each step reads its row
-    there (`step.py:make_epoch_scan_step`).  On the card the step is
-    captured once per (loss flags, exchange variant) as a CUDA graph
-    (`graph.py`) and replayed once per step; on the CPU the same step
-    runs uncaptured.  A capture that fails raises: the Trainer does not
-    fall back to the loop.
-  * the loop (epoch_scan off, data that is not staged, or the neural3DMM
-    baseline): eager steps, their batches and edit specs moved to the
-    device one step at a time.
+    corrections; the baseline's batch indices and Adam's scalars alone)
+    staged on the device once, and each step reads its row there
+    (`step.py:make_epoch_scan_step`, `make_baseline_epoch_scan_step`).
+    On the card the step is captured once per (loss flags, exchange
+    variant; the baseline's is 'ori') as a CUDA graph (`graph.py`) and
+    replayed once per step; on the CPU the same step runs uncaptured.  A
+    capture that fails raises: the Trainer does not fall back to the
+    loop.  The baseline trains here too, where the JAX Trainer trains it
+    through its loop (ROADMAP.md, the port's own departures): the
+    numbers equal the loop's.
+  * the loop (epoch_scan off, data that is not staged, data parallelism
+    or a trace window): eager steps, their batches and edit specs moved
+    to the device one step at a time.
 
 The model is PartAE ('multiz+partkps') or the baseline SpiralAE
 ('neural3DMM', whose step is reconstruction and edgereg alone).  A run
@@ -108,7 +112,8 @@ from . import graph as G
 from . import losses as L
 from .edits import EditSampler
 from .optim import AdamState, make_optimizer
-from .step import (EpochBuffers, flags_for_epoch, make_baseline_train_step,
+from .step import (EpochBuffers, flags_for_epoch,
+                   make_baseline_epoch_scan_step, make_baseline_train_step,
                    make_epoch_scan_step, make_eval_step, make_train_step,
                    to_device)
 
@@ -677,30 +682,38 @@ class Trainer:
     # --- the epoch path ---------------------------------------------------------
     def _epoch_scan_ok(self) -> bool:
         """The epoch path applies with the JAX Trainer's prerequisites: the
-        flag on, the part model (the baseline trains through the loop),
-        one process, no trace window, and device-resident train and interp
-        loaders over one source."""
+        flag on, one process, no trace window, and a device-resident train
+        loader, for the part model with its interp loader over the same
+        source.  Unlike the JAX Trainer's, it applies to the baseline too,
+        whose step reads the train batches alone."""
         return bool(
             self.cfg.train.epoch_scan
-            and self.is_part_model
             and self.n_processes == 1
             and self.trace_window is None
             and isinstance(self.train_loader, DeviceBatchLoader)
-            and isinstance(self.interp_loader, DeviceBatchLoader)
-            and self.train_loader.source is self.interp_loader.source)
+            and (not self.is_part_model
+                 or (isinstance(self.interp_loader, DeviceBatchLoader)
+                     and self.train_loader.source
+                     is self.interp_loader.source)))
 
     def _get_scan_step(self, epoch: int, variant: str):
         """(run, step): run() is one step of the epoch path on the
         Trainer's EpochBuffers, on the card the replay of a graph captured
-        at first use per (loss flags, exchange variant), on the CPU the
-        step itself; step.metric_names name its metric columns once it has
-        run."""
+        at first use per (loss flags, exchange variant; 'ori' for the
+        baseline), on the CPU the step itself; step.metric_names name its
+        metric columns once it has run."""
         key = ("scan", flags_for_epoch(self.cfg.train, epoch), variant)
         if key not in self._step_cache:
             buf = self._epoch_buffers
-            step = make_epoch_scan_step(
-                self.model, self.tables, self.optimizer, key[1], variant,
-                self.train_loader.source.batch_fn)
+            batch_fn = self.train_loader.source.batch_fn
+            if self.is_part_model:
+                step = make_epoch_scan_step(
+                    self.model, self.tables, self.optimizer, key[1],
+                    variant, batch_fn)
+            else:
+                step = make_baseline_epoch_scan_step(
+                    self.model, self.tables, self.optimizer, key[1],
+                    batch_fn)
             if self.device.type == "cuda":
                 if self._graph_pool is None:
                     self._graph_pool = torch.cuda.graph_pool_handle()
@@ -732,7 +745,7 @@ class Trainer:
         chunk's largest gnorm, the last batch or None)."""
         cfg = self.cfg
         src = self.train_loader.source
-        exc_dyn = self.sampler.exc_mode == "ori_or_m"
+        exc_dyn = self.is_part_model and self.sampler.exc_mode == "ori_or_m"
         with span("trainer.stage"):
             k, epoch_of_step, variant, last_meta = self._stage_chunk(e0, e1)
         run, step = self._get_scan_step(e0,
@@ -773,19 +786,28 @@ class Trainer:
     def _stage_chunk(self, e0: int, e1: int) -> tuple:
         """Build epochs e0..e1's schedule on the host and stage it on the
         device (`EpochBuffers.stage`): -> (steps, each step's epoch, the
-        last exchange variant drawn, the last batch's meta)."""
+        last exchange variant drawn ('ori' for the baseline, which stages
+        its batch indices alone), the last batch's meta)."""
         cfg = self.cfg
+        part = self.is_part_model
         exc_dyn = self.sampler.exc_mode == "ori_or_m"
-        host_meas = self.interp_loader.loader.source.measures
+        if part:
+            host_meas = self.interp_loader.loader.source.measures
         idx_tr, idx_in, idx_ex, specs, epoch_of_step = [], [], [], [], []
-        variant = last_meta = None
+        variant = None if part else "ori"
+        last_meta = None
         for e in range(e0, e1 + 1):
             self.train_loader.set_epoch(e)
             self.sampler.reseed(e)
-            interp_metas = self.interp_loader.meta_cycle(anchor=e)
+            if part:
+                interp_metas = self.interp_loader.meta_cycle(anchor=e)
             for meta in self.train_loader.loader.iter_indices():
-                mi, me = next(interp_metas), next(interp_metas)
                 idx_tr.append(meta["global_idx"])
+                epoch_of_step.append(e)
+                last_meta = meta
+                if not part:
+                    continue
+                mi, me = next(interp_metas), next(interp_metas)
                 idx_in.append(mi["global_idx"])
                 idx_ex.append(me["global_idx"])
                 variant = self.sampler.sample_exc_variant()
@@ -797,14 +819,13 @@ class Trainer:
                 if exc_dyn:
                     spec["exc_is_ori"] = np.float32(variant == "ori")
                 specs.append(spec)
-                epoch_of_step.append(e)
-                last_meta = meta
         k = len(idx_tr)
-        sched = {"idx_tr": np.stack(idx_tr).astype(np.int64),
-                 "idx_in": np.stack(idx_in).astype(np.int64),
-                 "idx_ex": np.stack(idx_ex).astype(np.int64),
-                 **{f"spec:{n}": np.stack([s[n] for s in specs])
-                    for n in specs[0]}}
+        sched = {"idx_tr": np.stack(idx_tr).astype(np.int64)}
+        if part:
+            sched.update({"idx_in": np.stack(idx_in).astype(np.int64),
+                          "idx_ex": np.stack(idx_ex).astype(np.int64),
+                          **{f"spec:{n}": np.stack([s[n] for s in specs])
+                             for n in specs[0]}})
         if self._epoch_buffers is None:
             self._epoch_buffers = EpochBuffers(
                 self.params, max(cfg.train.scan_epochs, 1)

@@ -14,8 +14,9 @@ Batches ({"verts" [B, V+1, 3], "measure" [B, 32], optional
 (`EditSampler.sample_interp` as tensors, `to_device`) live on the model's
 device before the step is called, as they do for the jitted JAX step.
 
-`make_epoch_scan_step` is the step of the epoch path: it reads its batch,
-edit spec and Adam scalars from a chunk's schedule staged on the device
+`make_epoch_scan_step` (PartAE) and `make_baseline_epoch_scan_step` (the
+baseline) are the steps of the epoch path: each reads its batch, edit
+spec and Adam scalars from a chunk's schedule staged on the device
 (`EpochBuffers`) through a device step counter and updates the parameters
 and moments in place, so one capture of it (`train/graph.py`) serves
 every step of every epoch.
@@ -429,7 +430,28 @@ def make_epoch_scan_step(model, tables: L.LossTables, optimizer,
     captured as a CUDA graph.  exc_variant 'dynamic' reads each step's
     'ori'/'m' draw from spec "exc_is_ori".  batch_fn(idx [B]) -> a batch
     dict (`DeviceDataSource.batch_fn`)."""
-    loss_fn = make_loss_fn(model, tables, flags, exc_variant, sums_fn)
+    def inputs(row, sched):
+        spec = {name[5:]: row(name) for name in sched
+                if name.startswith("spec:")}
+        return (batch_fn(row("idx_tr")), batch_fn(row("idx_in")),
+                batch_fn(row("idx_ex")), spec)
+
+    return _epoch_step(make_loss_fn(model, tables, flags, exc_variant,
+                                    sums_fn), optimizer, inputs)
+
+
+def make_baseline_epoch_scan_step(model, tables: L.LossTables, optimizer,
+                                  flags: StepFlags, batch_fn):
+    """The neural3DMM baseline's step of the epoch path: as
+    `make_epoch_scan_step`, on `make_baseline_loss_fn`, reading only
+    "idx_tr" of the staged schedule."""
+    return _epoch_step(make_baseline_loss_fn(model, tables, flags), optimizer,
+                       lambda row, _sched: (batch_fn(row("idx_tr")),))
+
+
+def _epoch_step(loss_fn, optimizer, inputs):
+    """step(buf) of the epoch path for loss_fn(params, *inputs(row,
+    buf.sched)), row(name) the staged schedule's row buf.k of `name`."""
     names: list = []
 
     def step(buf: EpochBuffers):
@@ -438,11 +460,8 @@ def make_epoch_scan_step(model, tables: L.LossTables, optimizer,
         def row(name):
             return sched[name].index_select(0, k)[0]
 
-        spec = {name[5:]: row(name) for name in sched
-                if name.startswith("spec:")}
-        _, metrics, grads = value_and_grad(
-            loss_fn, buf.params, batch_fn(row("idx_tr")),
-            batch_fn(row("idx_in")), batch_fn(row("idx_ex")), spec)
+        _, metrics, grads = value_and_grad(loss_fn, buf.params,
+                                           *inputs(row, sched))
         grads = tree_leaves(grads)
         metrics["gnorm"] = global_norm(grads)
         keep = optimizer.update_(grads, buf.leaves, buf.mu, buf.nu,

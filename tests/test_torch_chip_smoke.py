@@ -224,8 +224,8 @@ def test_baseline_mode_parses():
 
 def test_n3dmm_config_overrides_only_the_dataset(tmp_path):
     """Phase 9's config is configs/train_neural3dmm.yaml with root_dir,
-    asset_dir, n_val and the epochs set: nz 256, B 16, zeroroot and
-    banded_conv off as the file has them."""
+    asset_dir, n_val, the epochs and the loop (epoch_scan off) set: nz
+    256, B 16, zeroroot and banded_conv off as the file has them."""
     from semantichuman_torch.config import Config
     path = CS.n3dmm_config(tmp_path / "DF", tmp_path / "c.yaml")
     got = Config.from_yaml(path).to_dict()
@@ -233,12 +233,28 @@ def test_n3dmm_config_overrides_only_the_dataset(tmp_path):
     want["data"].update(root_dir=str(tmp_path / "DF"),
                         asset_dir=str(tmp_path / "DF" / "asset"),
                         n_val=CS.DFAUST_VAL)
-    want["train"]["n_epochs"] = CS.N3DMM_EPOCHS
+    want["train"].update(n_epochs=CS.N3DMM_EPOCHS, epoch_scan=False)
     assert got == want
     assert (got["model"]["model_type"], got["model"]["nz"],
             got["train"]["batch_train"], got["data"]["normalization"],
             got["model"]["banded_conv"]) == ("neural3DMM", 256, 16,
                                              "zeroroot", False)
+
+
+def test_n3dmm_epoch_config_is_the_file_as_written(tmp_path):
+    """Phase 9's second run is configs/train_neural3dmm.yaml with only
+    root_dir, asset_dir, n_val and the epochs set: epoch_scan stays on as
+    the file (and the Trainer's default) has it, so the baseline takes
+    the epoch path."""
+    from semantichuman_torch.config import Config
+    path = CS.n3dmm_config(tmp_path / "DF", tmp_path / "c.yaml", loop=False)
+    got = Config.from_yaml(path).to_dict()
+    want = Config.from_yaml(str(CS.N3DMM_CONFIG)).to_dict()
+    want["data"].update(root_dir=str(tmp_path / "DF"),
+                        asset_dir=str(tmp_path / "DF" / "asset"),
+                        n_val=CS.DFAUST_VAL)
+    want["train"]["n_epochs"] = CS.N3DMM_EPOCHS
+    assert got == want and got["train"]["epoch_scan"] is True
 
 
 def test_n3dmm_launch_literals():

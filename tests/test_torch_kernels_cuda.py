@@ -1225,10 +1225,10 @@ def test_csr_reduce_kernels_reject_bad_input(cuda, name):
     assert fn.launches == before
 
 
-def _graph_trainer(tmp_path, name):
+def _graph_trainer(tmp_path, name, n_train=12, **model):
     """A small-width Trainer on the epoch path on the card: the bundled
     6892-vertex topology, 12 synthetic train meshes (3 steps an epoch at
-    B = 4), narrow filters."""
+    B = 4), narrow filters; `model` overrides the model's settings."""
     import shutil
 
     from semantichuman_torch.config import Config
@@ -1241,8 +1241,8 @@ def _graph_trainer(tmp_path, name):
     cfg = Config.from_dict({
         "model": {"filter_sizes_enc": [[3, 8, 8, 16, 16], [[]] * 5],
                   "filter_sizes_dec": [[16, 16, 8, 8, 8],
-                                       [[], [], [], [], 3]]},
-        "data": {"synthetic": True, "synthetic_train": 12,
+                                       [[], [], [], [], 3]], **model},
+        "data": {"synthetic": True, "synthetic_train": n_train,
                  "synthetic_test": 4},
         "train": {"n_epochs": 1, "save_recons": False, "batch_test": 4}})
     tr = Trainer(cfg, str(wd), device="cuda")
@@ -1271,6 +1271,45 @@ def test_captured_step_replays_equal_eager_steps(cuda, tmp_path,
         eager.fit()
     assert captured.global_step == eager.global_step == 3
     assert captured.history[0]["train"] == eager.history[0]["train"]
+    for a, b in zip(tree_leaves(captured.params) + captured.opt_state.mu
+                    + captured.opt_state.nu,
+                    tree_leaves(eager.params) + eager.opt_state.mu
+                    + eager.opt_state.nu):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_captured_baseline_step_replays_equal_eager_steps(cuda, tmp_path,
+                                                          monkeypatch):
+    """The neural3DMM baseline on the epoch path at small width: 2 replays
+    of its captured step (graph train/<flags>/ori) give the parameters,
+    moments and losses of the same step run twice eagerly on the same
+    rows, bit for bit; the graph's replays count one a step."""
+    import types
+
+    from semantichuman_torch.ops import launches
+    from semantichuman_torch.train import graph as G
+    from semantichuman_torch.utils.params import tree_leaves
+
+    n3dmm = {"model_type": "neural3DMM", "nz": 16, "banded_conv": False}
+    captured = _graph_trainer(tmp_path, "graph", n_train=8, **n3dmm)
+    before = launches.read()
+    captured.fit()
+    got = launches.diff(launches.read(), before)
+    replays = {k: n for k, n in got["graph_replays"]["by_name"].items()
+               if n}
+    assert len(replays) == 1
+    (name, n), = replays.items()
+    assert name.startswith("train/") and name.endswith("/ori") and n == 2
+    with monkeypatch.context() as mp:
+        mp.setattr(G, "warm_up", lambda fn, reset, name, steps=2: None)
+        mp.setattr(G, "capture",
+                   lambda fn, pool, name: types.SimpleNamespace(replay=fn))
+        eager = _graph_trainer(tmp_path, "eager", n_train=8, **n3dmm)
+        eager.fit()
+    assert captured.global_step == eager.global_step == 2
+    assert captured.history[0]["train"] == eager.history[0]["train"]
+    assert captured.history[0]["val"] == eager.history[0]["val"]
     for a, b in zip(tree_leaves(captured.params) + captured.opt_state.mu
                     + captured.opt_state.nu,
                     tree_leaves(eager.params) + eager.opt_state.mu

@@ -269,9 +269,9 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir,
     every batch, writes nothing and takes the loop), and the other ported
     pieces build: a reference checkpoint through
     train.resume_torch (weights only: with finetune, else it raises for
-    the missing optimizer state) and model_type neural3DMM (the loop); an
-    on-disk dataset that is not there raises naming its file; the default
-    device is the card."""
+    the missing optimizer state) and model_type neural3DMM (the epoch
+    path); an on-disk dataset that is not there raises naming its file;
+    the default device is the card."""
     want = np.load(topology_dir / "topology_2222.npz")
     key = (topology_dir / "topology_2222.npz.meta").read_text()
     empty = tmp_path / "empty"
@@ -334,7 +334,7 @@ def test_trainer_refuses_what_is_not_ported(tmp_path, topology_dir,
         cfg.model, model_type="neural3DMM"))
     tr = TorchTrainer(cfg, d, device="cpu")
     assert type(tr.model).__name__ == "SpiralAE"
-    assert not tr.is_part_model and not tr._epoch_scan_ok()
+    assert not tr.is_part_model and tr._epoch_scan_ok()
     cfg = dataclasses.replace(cfg, data=dataclasses.replace(
         cfg.data, synthetic=False, asset_dir=str(tmp_path / "no_assets")),
         model=_port_cfg().model)
