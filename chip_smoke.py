@@ -292,7 +292,9 @@ The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
 before printing any result.  `python3 chip_smoke.py --conv-forward` runs
 phase 1 and phase 2 alone, `--conv-backward` phase 1 and phase 4's conv
-backward alone, each with a per-kernel profile, `--part-dist` phase 1 and
+backward alone, each with a per-kernel profile (the conv backward's mode
+also runs the dx kernels on two control tables, `phase_dx_controls`),
+`--part-dist` phase 1 and
 the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
 row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
 reduce's checks and times of phases 4 and 6 with a sweep of its batch
@@ -1110,6 +1112,106 @@ def phase_conv_backward(model, profile: bool = False):
                 f"{np.round(row['unfused_ms_runs'], 3).tolist()}")
             del y, y_out, y_pl, leaves, plain_in, xc, wc
     return rows
+
+
+# the batches of the dx controls: the fast recipe's trunk and neural3DMM's
+DX_CONTROL_B = (128, 256)
+
+
+def dx_control_tables(csr, s: int) -> dict:
+    """The inverse spiral table `csr` and two controls with the same rows
+    and row lengths, each entry j = v*S + s rewritten: "own" names its
+    row's vertex u (u*S + s: dy' delivery trivial, every entry of a row
+    reads the same dy' row) and "slot0" names slot 0 (v*S: every entry
+    reads one weight slab)."""
+    from semantichuman_torch.ops.csr_reduce import CSRTable
+
+    offs = csr.offs.cpu().numpy().astype(np.int64)
+    cols = csr.cols.cpu().numpy().astype(np.int64)
+    rows = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
+    dev = csr.offs.device
+    return {"table": csr,
+            "own": CSRTable.build(offs, rows * s + cols % s, csr.n_src, dev),
+            "slot0": CSRTable.build(offs, cols - cols % s, csr.n_src, dev)}
+
+
+def phase_dx_controls(model) -> dict:
+    """The dx kernels (`spiral_conv_bwd_dx`) at the seven convs whose dx
+    the step computes fused, at B = 128 and 256 (DX_CONTROL_B), on the
+    real inverse table and on the two controls of `dx_control_tables`:
+    device ms of the short-row kernels (`dx_short`, `dx_narrow`) and of
+    every dx kernel, by the profiler, the three tables in turns (table,
+    own, slot0, slot0, own, table) and each the mean of its two readings.
+    Also the short kernels' share of the f32 peak on their operations
+    (2 B S C Co per entry of a short row), and, at a conv whose dx the
+    dispatch sends unfused (64 -> 128), the kernels against the unfused
+    route in turns.  No gate: the controls say how much of the short
+    kernels' time is dy' delivery and how much the weight slabs' copies."""
+    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
+    from semantichuman_torch.ops.csr_reduce import LONG_ROW
+
+    out = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(5)
+    convs = conv_layers(model)[1:]  # the first conv's input has no dx
+    for b in DX_CONTROL_B:
+        sums = {}
+        for label, v1, s, cin, cout, _act, spiral, csr in convs:
+            x = torch.empty((b, v1, cin), device=DEVICE)
+            w = torch.randn((s * cin, cout), generator=gen, device=DEVICE)
+            w /= (s * cin) ** 0.5
+            dy = torch.randn((b, v1, cout), generator=gen, device=DEVICE)
+            dy[:, -1] = 0.0
+            if "dx" in SC._unfused_halves(x, w, spiral):
+                # a dx the dispatch sends unfused: the kernels against the
+                # unfused route, in turns
+                runs = in_turns({
+                    "fused": lambda: SC.spiral_conv_bwd_dx(dy, w, csr,
+                                                           (v1, s)),
+                    "unfused": lambda: SC.spiral_conv_bwd_unfused(
+                        x, w, dy, spiral, csr, need_w=False)})
+                row = {k: float(np.mean(v)) for k, v in runs.items()}
+                out[f"B={b} {label} (dispatched unfused)"] = row
+                log(f"[dx-controls] B={b} {label:18s} dispatched unfused: "
+                    f"fused {row['fused']:.4f} ms, unfused "
+                    f"{row['unfused']:.4f} ms (runs {runs})")
+                continue
+            tables = dx_control_tables(csr, s)
+            deg = np.diff(csr.offs.cpu().numpy())
+            short_entries = int(deg[deg <= LONG_ROW].sum())
+            reads = {k: [] for k in tables}
+            for name in list(tables) + list(tables)[::-1]:
+                by = device_by_name(lambda t=tables[name]: SC.spiral_conv_bwd_dx(
+                    dy, w, t, (v1, s)), reps=5)
+                short = sum(t for n, t in by.items()
+                            if "dx_short" in n or "dx_narrow" in n)
+                total = sum(t for n, t in by.items() if "dx_" in n)
+                reads[name].append((short, total))
+            row = {}
+            least = 2 * b * short_entries * cin * cout / PEAK_FLOPS[
+                torch.float32] * 1e3
+            for name, rs in reads.items():
+                short = float(np.mean([r[0] for r in rs]))
+                total = float(np.mean([r[1] for r in rs]))
+                row[name] = {"short_ms": short, "dx_ms": total,
+                             "short_runs": [r[0] for r in rs]}
+                for k, v in (("short_ms", short), ("dx_ms", total)):
+                    sums.setdefault(name, {}).setdefault(k, 0.0)
+                    sums[name][k] += v
+            row["short_peak_share"] = least / row["table"]["short_ms"]
+            sums.setdefault("least_ms", 0.0)
+            sums["least_ms"] += least
+            out[f"B={b} {label}"] = row
+            log(f"[dx-controls] B={b} {label:18s} short ms table "
+                f"{row['table']['short_ms']:.4f} own "
+                f"{row['own']['short_ms']:.4f} slot0 "
+                f"{row['slot0']['short_ms']:.4f} | all dx ms table "
+                f"{row['table']['dx_ms']:.4f} own {row['own']['dx_ms']:.4f} "
+                f"slot0 {row['slot0']['dx_ms']:.4f} | short kernel at "
+                f"{100 * row['short_peak_share']:.1f} % of the f32 peak")
+            del dy, w, x, tables
+        out[f"B={b} sums"] = sums
+        log(f"[dx-controls] B={b} seven convs: {json.dumps(sums)}")
+    return out
 
 
 def csr_families(model) -> dict:
@@ -5317,7 +5419,8 @@ def parse_args(argv):
     mode.add_argument("--conv-forward", action="store_true",
                       help="phase 1 and the conv forward's phase 2 alone")
     mode.add_argument("--conv-backward", action="store_true",
-                      help="phase 1 and the conv backward's phase alone")
+                      help="phase 1 and the conv backward's phase alone, "
+                      "with the dx controls")
     mode.add_argument("--part-dist", action="store_true",
                       help="phase 1 and the part_dist kernel's checks and "
                       "times alone (phase 4's and phase 6's)")
@@ -5465,6 +5568,7 @@ def main(argv=None) -> int:
         log(json.dumps({k: sum(r[k] for r in bwd32) for k in (
             "ms", "fused_ms", "unfused_ms", "dw_ms", "dw_unfused_ms",
             "dx_ms", "dx_unfused_ms", "bound_ms")}))
+        log(json.dumps({"dx_controls": phase_dx_controls(model)}))
         log(card)
         return 0
     if args.part_dist:

@@ -48,18 +48,21 @@
 
 // dx is a product per output row u with the batch as the tile's rows: all
 // batch elements share row u's entry list, so dx[:, u, :] = sum_j
-// dy'[:, v_j, :] [B x Co] . W_{s_j}^T [Co x C].  One warp takes one (u, batch
-// tile) and accumulates an 8 x 8 tile per lane; per entry and 16 output
-// channels it copies the dy' rows (contiguous pieces of Co floats) and the
-// weight slab into its own shared memory with cp.async, double-buffered, and
-// multiplies four channels at a time from rows padded against bank conflicts.
-// Warps never wait for each other.  dy' rows are read by the S neighbouring
-// rows u that gather them; the launch orders the batch tiles of one u next to
-// each other, so that the warps of a block ask for the same weight slabs at
-// about the same time (L1) and the card works on a few hundred neighbouring u
-// at once, whose dy' rows the 50 MB L2 holds.  Rows longer than the caller's
-// threshold (the dummy row, which every spiral pad points at: 34,041 of
-// level 0's 103,395 entries) would serialise one warp, so they take
+// dy'[:, v_j, :] [B x Co] . W_{s_j}^T [Co x C].  A block owns a slice of CP
+// input channels and keeps that slice of W, for every slot and every output
+// channel, in shared memory for its life (one block an SM, eight warps).
+// The short rows' plan of ops/dx_plan.py, built once an inverse table,
+// lists each short row's entries as packed (v, s); a unit is one row at one
+// batch tile, and each warp streams the units that start in its equal share
+// of the call's entries, so no warp waits for another and no row's first
+// stage is exposed.  Per entry and 16 output channels a warp's lane 0 asks
+// for its tile's dy' rows (64-byte pieces of a row of Co floats) with one
+// tensor copy into the warp's ring, double-buffered on barriers in shared
+// memory, and every lane accumulates an 8 x 8 tile from the rows, whose
+// pieces the copy swizzles against bank conflicts.  Rows longer than the
+// caller's threshold (the dummy row, which every spiral pad points at:
+// 34,041 of level 0's 103,395 entries) would serialise one warp, so they
+// take
 //   sum_j dy'[v_j] W_{s_j}^T = sum_s (sum_{j: s_j = s} dy'[v_j]) W_s^T :
 // per chunk of the row S segmented sums of dy' rows in entry order, the chunk
 // sums added in chunk order, then one small product.
@@ -72,9 +75,25 @@
 // then the row).  Here the loop is unrolled, the index chains are gone from
 // the stages, and an 8 x 8 thread tile reads 16 floats from shared memory
 // for its 64 FMAs: shared-memory delivery and the FMAs now take about equal
-// time.  The dx kernels were read as waiting on the L2's gathered rows;
-// no such control has tested that yet.
+// time.  The earlier dx kernel, one warp per (row, batch tile) copying a
+// weight slab beside the dy' rows for every entry, did not wait on the L2
+// either: tables whose entries all name their row's own vertex, or all
+// slot 0, ran within 1.5 % of the real one.  What paced it was the SM:
+// with the weight slice resident but the rows still copied by every lane
+// (cp.async, 16 bytes each), the kernel took 75-80 % of its time on the
+// C = 32 convs with the copies left out and 45-60 % with the products
+// left out, the two sharing the SM's load/store path.  One tensor copy a
+// stage takes the copies off that path: a fifth less time again, a third
+// on the 16 -> 32 conv, whose dy' bytes a FMA are the most.  A
+// window of dy' rows shared by the rows of a tile was not built: 16
+// consecutive rows of level 0 name 89 distinct vertices (1.8 entries a
+// staged row), 4 KB each for 64 batch elements and 16 channels.  Three
+// stages, weight fragments loaded a step ahead, L1-allocating copies and
+// twelve warps an SM each moved the time by less than 5 %; 16 batch rows
+// a lane ran half again slower.
 
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -496,167 +515,298 @@ __device__ __forceinline__ int entry_vertex(int col, unsigned s_inv) {
   return (int)__umulhi((unsigned)col, s_inv);
 }
 
-constexpr int kDxWarps = 4;
-constexpr int kNB = 16;   // output channels n per stage
-constexpr int kAST = 20;  // floats per staged dy' row: 16 + 4 against conflicts
+constexpr int kDxStages = 2;     // stages of dy' rows in a warp's ring
+constexpr int kDxMaxWarps = 8;   // warps a block, at most: one block an SM
+constexpr int kNB = 16;          // output channels n per stage: 64-byte rows
 
-template <typename T>
-struct WRow {  // elements per staged weight row, and per 16-byte unit
-  static constexpr int ST = sizeof(T) == 4 ? 20 : 24;
-  static constexpr int EPU = 16 / sizeof(T);
-};
-
-template <typename T, int NTC>
+// A warp's tile is BT batch elements x CP input channels, 8 x 8 a lane; a
+// block's c-slice is CP channels wide.  A stage holds BT dy' rows of kNB
+// floats, 64 bytes each, their four 16-byte pieces swizzled as the tensor
+// copy's 64-byte mode lays them: piece q of row r at q ^ ((r >> 1) & 3).
+template <int NTC>
 struct DxShape {
   static constexpr int NTB = 32 / NTC;
-  static constexpr int BT = 8 * NTB;   // batch elements per warp tile
-  static constexpr int CP = 8 * NTC;   // input channels c per warp tile
-  static constexpr int A_BYTES = BT * kAST * 4;
-  static constexpr int W_BYTES = CP * WRow<T>::ST * sizeof(T);
-  static constexpr int WARP_BYTES = 2 * (A_BYTES + W_BYTES);
-  static constexpr int SMEM = kDxWarps * WARP_BYTES;
+  static constexpr int BT = 8 * NTB;  // batch elements per warp tile
+  static constexpr int CP = 8 * NTC;  // input channels c per tile
+  static constexpr int A_FLOATS = BT * kNB;
 };
 
+__device__ __forceinline__ int dx_piece(int row, int q) {
+  return row * kNB + ((q ^ ((row >> 1) & 3)) << 2);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(s)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT;\n"
+      "}\n" ::"r"(s),
+      "r"(parity)
+      : "memory");
+}
+// One tensor copy of a box of dy' (16 channels x 1 vertex x BT batch
+// elements) into shared memory, reported to `bar` with its bytes.
+__device__ __forceinline__ void tma_dy_rows(float* dst, const CUtensorMap* tm,
+                                            uint64_t* bar, int n0, int v,
+                                            int b0, int bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const unsigned m = static_cast<unsigned>(__cvta_generic_to_shared(bar));
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(m), "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(d),
+      "l"(reinterpret_cast<uint64_t>(tm)), "r"(m), "r"(n0), "r"(v), "r"(b0)
+      : "memory");
+}
+
+// The short rows' plan (ops/dx_plan.py) and the launch's numbers.  A unit
+// is one short row r (u = rows[r], entries ents[roffs[r]:roffs[r+1]], each
+// (v << 8) | s in the inverse table's order) at one batch tile bt; units
+// run batch-tile-major, unit (bt, r) starting at position bt*(E + R) +
+// keys[r] with keys[r] = roffs[r] + r (each unit weighs its entries plus
+// one for its output rows).
+struct DxArgs {
+  const float* dy;
+  const void* w;
+  const int* rows;
+  const int* keys;
+  const int* roffs;
+  const int* ents;
+  float* dx;
+  int B, V1, C, S, Co, R, E, n_bt, wst, veca, vecw;
+};
+
+// Shared memory past the weight slice: the rings start at the next 1024
+// bytes (the swizzle's repeat), then each warp's slots, then its barriers.
+constexpr int kDxAlign = 1024;
+
+// The weight slice of the block's CP channels, for every slot and every
+// output channel, as f32 in shared memory: ws[(s*CP + c)*wst + n], zero
+// past C and Co (n runs to Co rounded up to kNB).
+template <typename T, int CP>
+__device__ __forceinline__ void dx_stage_weights(float* ws, const DxArgs& a,
+                                                 int c0) {
+  const int np = (a.Co + kNB - 1) / kNB * kNB;
+  const T* w = static_cast<const T*>(a.w);
+  if (a.vecw) {  // Co % 4 == 0: four n at a time
+    const int q = np / 4;
+    for (int e = threadIdx.x; e < a.S * CP * q; e += blockDim.x) {
+      const int row = e / q;
+      const int n = 4 * (e - row * q);
+      const int s = row / CP;
+      const int c = c0 + row - s * CP;
+      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (c < a.C && n < a.Co) v = load4(w + ((size_t)s * a.C + c) * a.Co + n);
+      *reinterpret_cast<float4*>(ws + row * a.wst + n) = v;
+    }
+  } else {
+    for (int e = threadIdx.x; e < a.S * CP * np; e += blockDim.x) {
+      const int row = e / np;
+      const int n = e - row * np;
+      const int s = row / CP;
+      const int c = c0 + row - s * CP;
+      ws[row * a.wst + n] = (c < a.C && n < a.Co)
+                                ? to_f32(w[((size_t)s * a.C + c) * a.Co + n])
+                                : 0.f;
+    }
+  }
+}
+
+// The first unit whose start position is at least p: (batch tile, row).
+__device__ __forceinline__ void dx_unit_at(const DxArgs& a, long long p,
+                                           int& bt, int& r) {
+  const long long per = (long long)a.E + a.R;
+  bt = (int)(p / per);
+  const int rem = (int)(p - (long long)bt * per);
+  int lo = 0, hi = a.R;  // keys[R] = E + R > rem
+  while (lo < hi) {
+    const int mid = (lo + hi) / 2;
+    if (__ldg(a.keys + mid) >= rem) hi = mid;
+    else lo = mid + 1;
+  }
+  r = lo;
+  if (r == a.R) {
+    ++bt;
+    r = 0;
+  }
+}
+
+// Short rows.  A block owns one c-slice of CP channels and keeps that
+// slice of W resident in shared memory for its life; its warps each take
+// a run of units whose entries (plus one per unit) split the call's evenly,
+// and stream them as one pipeline of stages (one entry's dy' rows for the
+// warp's batch tile and 16 output channels, through a ring of kDxStages
+// buffers filled by tensor copies, or by loads where dy's rows do not go
+// in 16-byte pieces), rows following each other with no stage exposed.  A row's entries are added in the table's order, each entry's
+// channels in order, so the sums are those of the earlier kernel bit for
+// bit.
 template <typename T, int NTC>
-__global__ void __launch_bounds__(32 * kDxWarps)
-dx_short_kernel(const float* __restrict__ dy, const T* __restrict__ w,
-                const int* __restrict__ offs, const int* __restrict__ cols,
-                float* __restrict__ dx, int B, int V1, int C, int S, int Co,
-                unsigned s_inv, int long_thresh, int n_btiles, int veca,
-                int vecw) {
-  using Sh = DxShape<T, NTC>;
+__global__ void __launch_bounds__(32 * kDxMaxWarps, 1)
+dx_short_kernel(const DxArgs a, const __grid_constant__ CUtensorMap tm) {
+  using Sh = DxShape<NTC>;
   constexpr int NTB = Sh::NTB;
   constexpr int BT = Sh::BT;
   constexpr int CP = Sh::CP;
-  constexpr int WST = WRow<T>::ST;
-  constexpr int EPU = WRow<T>::EPU;
-  constexpr int UPR = kNB / EPU;  // 16-byte units per staged weight row
+  constexpr int NST = kDxStages;
   extern __shared__ __align__(16) unsigned char dx_smem[];
-
+  const int nw = blockDim.x / 32;
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const long long unit = (long long)blockIdx.x * kDxWarps + warp;
-  if (unit >= (long long)V1 * n_btiles) return;
-  const int u = (int)(unit / n_btiles);
-  const int bt = (int)(unit - (long long)u * n_btiles);
-  const int b0 = bt * BT;
   const int c0 = blockIdx.y * CP;
-  const int lo = offs[u];
-  const int hi = offs[u + 1];
-  if (hi - lo > long_thresh) return;  // written by the long-row kernels
+  const int wst = a.wst;
+  float* ws = reinterpret_cast<float*>(dx_smem);
+  const unsigned end_w = static_cast<unsigned>(
+      __cvta_generic_to_shared(ws + a.S * CP * wst));
+  float* ring0 = reinterpret_cast<float*>(
+      reinterpret_cast<unsigned char*>(ws + a.S * CP * wst) +
+      ((kDxAlign - end_w % kDxAlign) % kDxAlign));
+  float* as = ring0 + warp * NST * Sh::A_FLOATS;
+  int* sring = reinterpret_cast<int*>(ring0 + nw * NST * Sh::A_FLOATS) +
+               warp * NST;
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+                       reinterpret_cast<int*>(ring0 + nw * NST * Sh::A_FLOATS) +
+                       (nw * NST + 1) / 2 * 2) +
+                   warp * NST;
 
-  unsigned char* mine = dx_smem + warp * Sh::WARP_BYTES;
-  // two stage buffers each of dy' rows and of weight rows
-  auto a_buf = [&](int buf) {
-    return reinterpret_cast<float*>(mine + buf * Sh::A_BYTES);
-  };
-  auto w_buf = [&](int buf) {
-    return reinterpret_cast<T*>(mine + 2 * Sh::A_BYTES + buf * Sh::W_BYTES);
-  };
+  dx_stage_weights<T, CP>(ws, a, c0);
+  if (a.veca && lane == 0) {
+#pragma unroll
+    for (int j = 0; j < NST; ++j) mbar_init(bars + j);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the warp's units: those starting in [p_lo, p_hi)
+  const long long total = (long long)a.n_bt * (a.E + a.R);
+  const long long g = (long long)blockIdx.x * nw + warp;
+  const long long gs = (long long)gridDim.x * nw;
+  int bt, r, bt_end, r_end;
+  dx_unit_at(a, total * g / gs, bt, r);
+  dx_unit_at(a, total * (g + 1) / gs, bt_end, r_end);
+  if (bt >= a.n_bt) return;
+  // its entries, batch-tile-major: positions pe .. pe_end of n_bt x E
+  const long long pe = (long long)bt * a.E + __ldg(a.roffs + r);
+  const long long pe_end =
+      (long long)bt_end * a.E + (bt_end < a.n_bt ? __ldg(a.roffs + r_end) : 0);
+  const int nch = (a.Co + kNB - 1) / kNB;
+  const int n_stages = (int)((pe_end - pe) * nch);
+
   const int tc = lane % NTC;
   const int tb = lane / NTC;
-  const int nch = (Co + kNB - 1) / kNB;
-  const int n_stages = (hi - lo) * nch;
 
-  float acc[8][8];
+  // the loader: the next stage's entry (batch tile lbt, entry lj), its
+  // chunk lk, and the packed entry after it, read a stage ahead
+  int lbt = bt;
+  int lj = (int)(pe - (long long)bt * a.E);
+  if (lj == a.E) {  // the rest of batch tile bt is empty rows
+    lj = 0;
+    ++lbt;
+  }
+  int lk = 0;
+  auto next_j = [&](int j) { return j + 1 < a.E ? j + 1 : 0; };
+  int pk = 0, pk_next = 0;
+  if (n_stages > 0) {
+    pk = __ldg(a.ents + lj);
+    pk_next = __ldg(a.ents + next_j(lj));
+  }
+  // a stage's rows: one tensor copy by lane 0 where dy's rows go in
+  // 16-byte pieces (the copy fills zeros past B and Co), else loads
+  auto load_stage = [&](int buf) {
+    const int v = pk >> 8;
+    const int n0 = lk * kNB;
+    float* dst0 = as + buf * Sh::A_FLOATS;
+    if (a.veca) {
+      if (lane == 0)
+        tma_dy_rows(dst0, &tm, bars + buf, n0, v, lbt * BT,
+                    Sh::A_FLOATS * 4);
+    } else {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-
-  // stage t's entry is read from the table a stage before its loads are
-  // issued, so that the loads never wait for it
-  auto entry = [&](int t) {
-    return t < n_stages ? __ldg(cols + lo + t / nch) : 0;
-  };
-  auto load_stage = [&](int t, int buf, int col) {
-    const int n0 = (t % nch) * kNB;
-    const int v = entry_vertex(col, s_inv);
-    const int s = col - v * S;
-    float* as = a_buf(buf);
-#pragma unroll
-    for (int i = 0; i < BT * 4 / 32; ++i) {
-      const int e = lane + 32 * i;
-      const int row = e / 4;
-      const int q = e % 4;
-      const int b = b0 + row;
-      const int n = n0 + 4 * q;
-      float* dst = as + row * kAST + 4 * q;
-      const float* src = dy + ((size_t)b * V1 + v) * Co + n;
-      if (veca && b < B && n < Co) {
-        cp_async16_cg(dst, src);
-      } else {
+      for (int i = 0; i < BT * 4 / 32; ++i) {
+        const int e = lane + 32 * i;
+        const int row = e / 4;
+        const int q = e % 4;
+        const int b = lbt * BT + row;
+        const int n = n0 + 4 * q;
+        float* dst = dst0 + dx_piece(row, q);
+        const float* src = a.dy + ((size_t)b * a.V1 + v) * a.Co + n;
 #pragma unroll
         for (int d = 0; d < 4; ++d)
-          dst[d] = (b < B && n + d < Co) ? src[d] : 0.f;
+          dst[d] = (b < a.B && n + d < a.Co) ? src[d] : 0.f;
       }
     }
-    T* ws = w_buf(buf);
-#pragma unroll
-    for (int i = 0; i < (CP * UPR + 31) / 32; ++i) {
-      const int e = lane + 32 * i;
-      if (e >= CP * UPR) break;
-      const int row = e / UPR;
-      const int q = e % UPR;
-      const int c = c0 + row;
-      const int n = n0 + q * EPU;
-      T* dst = ws + row * WST + q * EPU;
-      const T* src = w + ((size_t)s * C + c) * Co + n;
-      if (vecw && c < C && n < Co) {
-        cp_async16_ca(dst, src);
-      } else {
-#pragma unroll
-        for (int d = 0; d < EPU; ++d)
-          dst[d] = (c < C && n + d < Co) ? src[d] : T(0.f);
-      }
+    if (lane == 0) sring[buf] = pk & 0xff;
+    if (++lk == nch) {  // the next entry
+      lk = 0;
+      pk = pk_next;
+      lj = next_j(lj);
+      if (lj == 0) ++lbt;
+      pk_next = __ldg(a.ents + next_j(lj));
     }
   };
 
-  int col_next = entry(1);
-  if (n_stages > 0) {
-    load_stage(0, 0, entry(0));
-    cp_async_commit();
-  }
-  for (int t = 0; t < n_stages; ++t) {
-    const int buf = t & 1;
-    if (t + 1 < n_stages) {
-      const int col = col_next;
-      col_next = entry(t + 2);
-      load_stage(t + 1, buf ^ 1, col);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncwarp();
-    const float* as = a_buf(buf);
-    const T* ws = w_buf(buf);
 #pragma unroll
-    for (int q = 0; q < kNB / 4; ++q) {
-      float4 wv[8];
+  for (int j = 0; j < NST - 1; ++j)
+    if (j < n_stages) load_stage(j);
+
+  float acc[8][8];
+  int t = 0;  // the next stage to compute
+  while (bt < bt_end || (bt == bt_end && r < r_end)) {
+    const int len = __ldg(a.roffs + r + 1) - __ldg(a.roffs + r);
+    const int u = __ldg(a.rows + r);
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-        wv[j] = load4(ws + (tc + j * NTC) * WST + 4 * q);
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float4 av = *reinterpret_cast<const float4*>(
-            as + (tb + i * NTB) * kAST + 4 * q);
+      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int e = 0; e < len; ++e) {
+      for (int k = 0; k < nch; ++k, ++t) {
+        const int buf = t % NST;
+        if (t + NST - 1 < n_stages) load_stage((t + NST - 1) % NST);
+        if (a.veca) mbar_wait(bars + buf, (t / NST) & 1);
+        __syncwarp();
+        const float* ab = as + buf * Sh::A_FLOATS;
+        const float* wb = ws + sring[buf] * CP * wst + k * kNB;
 #pragma unroll
-        for (int j = 0; j < 8; ++j) fma4(acc[i][j], av, wv[j]);
+        for (int q = 0; q < kNB / 4; ++q) {
+          float4 wv[8];
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            wv[j] = *reinterpret_cast<const float4*>(
+                wb + (tc + j * NTC) * wst + 4 * q);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float4 av = *reinterpret_cast<const float4*>(
+                ab + dx_piece(tb + i * NTB, q));
+#pragma unroll
+            for (int j = 0; j < 8; ++j) fma4(acc[i][j], av, wv[j]);
+          }
+        }
+        __syncwarp();
       }
     }
-    __syncwarp();
-  }
-
 #pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int b = b0 + tb + i * NTB;
-    if (b >= B) continue;
-    float* row = dx + ((size_t)b * V1 + u) * C;
+    for (int i = 0; i < 8; ++i) {
+      const int b = bt * BT + tb + i * NTB;
+      if (b >= a.B) continue;
+      float* row = a.dx + ((size_t)b * a.V1 + u) * a.C;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = c0 + tc + j * NTC;
-      if (c < C) row[c] = acc[i][j];
+      for (int j = 0; j < 8; ++j) {
+        const int c = c0 + tc + j * NTC;
+        if (c < a.C) row[c] = acc[i][j];
+      }
+    }
+    if (++r == a.R) {
+      r = 0;
+      ++bt;
     }
   }
 }
@@ -801,23 +951,65 @@ __global__ void dx_long_finish_kernel(const float* __restrict__ partial,
   }
 }
 
+// The driver's tensor-map encoder, looked up once through the runtime (no
+// link to the driver library).
+PFN_cuTensorMapEncodeTiled_v12000 dx_encoder() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// The short-row launch that ops/dx_plan.py:launch_plan chose: NTC, nw
+// warps a block, nbx blocks a c-slice, shared memory (the weight slice,
+// then each warp's ring of dy' rows, its slots and its barriers); a plan
+// whose shared memory cannot hold them is refused.  dy' [B, V1, Co] is
+// described to the tensor copies as a 3-d tensor, a box 16 channels x 1
+// vertex x BT batch elements.
 template <typename T, int NTC>
-cudaError_t dx_short_launch(const float* dy, const void* w, const int* offs,
-                            const int* cols, float* dx, int B, int V1, int C,
-                            int S, int Co, unsigned s_inv, int long_thresh,
-                            int veca, int vecw, cudaStream_t st) {
-  using Sh = DxShape<T, NTC>;
+cudaError_t dx_short_launch(DxArgs a, int nw, int nbx, int smem,
+                            cudaStream_t st) {
+  using Sh = DxShape<NTC>;
+  const long long slots = (long long)nw * kDxStages;
+  const long long need = 4LL * a.S * Sh::CP * a.wst + kDxAlign +
+                         slots * Sh::A_FLOATS * 4 + (slots + 1) / 2 * 8 +
+                         slots * 8;
+  if (nw < 1 || nw > kDxMaxWarps || nbx < 1 || smem < need ||
+      smem > kSmemOne)
+    return cudaErrorInvalidValue;
+  CUtensorMap tm = {};
+  if (a.veca) {
+    PFN_cuTensorMapEncodeTiled_v12000 enc = dx_encoder();
+    const cuuint64_t dims[3] = {(cuuint64_t)a.Co, (cuuint64_t)a.V1,
+                                (cuuint64_t)a.B};
+    const cuuint64_t strides[2] = {(cuuint64_t)a.Co * 4,
+                                   (cuuint64_t)a.V1 * a.Co * 4};
+    const cuuint32_t box[3] = {kNB, 1, Sh::BT};
+    const cuuint32_t unit[3] = {1, 1, 1};
+    if (enc == nullptr ||
+        enc(&tm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3,
+            const_cast<float*>(a.dy), dims, strides, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      a.veca = 0;  // the rows by loads
+  }
   auto kernel = dx_short_kernel<T, NTC>;
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::SMEM);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  const int n_btiles = (B + Sh::BT - 1) / Sh::BT;
-  const long long units = (long long)V1 * n_btiles;
-  const dim3 grid((unsigned)((units + kDxWarps - 1) / kDxWarps),
-                  (C + Sh::CP - 1) / Sh::CP);
-  kernel<<<grid, 32 * kDxWarps, Sh::SMEM, st>>>(
-      dy, static_cast<const T*>(w), offs, cols, dx, B, V1, C, S, Co, s_inv,
-      long_thresh, n_btiles, veca, vecw);
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(nbx, (a.C + Sh::CP - 1) / Sh::CP);
+  kernel<<<grid, 32 * nw, smem, st>>>(a, tm);
   return cudaSuccess;
 }
 
@@ -826,18 +1018,13 @@ cudaError_t dx_dispatch(const float* dy, const void* w, const int* offs,
                         const int* cols, const int* chunk_lo,
                         const int* chunk_hi, const int* long_rows,
                         const int* chunk_offs, float* partial, float* dx,
-                        int B, int V1, int C, int S, int Co, int long_thresh,
-                        int n_long, int n_chunks, cudaStream_t st) {
-  const int veca = (Co % 4 == 0) && (reinterpret_cast<uintptr_t>(dy) % 16 == 0);
-  const int vecw = (Co % WRow<T>::EPU == 0) &&
-                   (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+                        const DxArgs& sa, int ntc, int nw, int nbx,
+                        int smem, int B, int V1, int C, int S, int Co,
+                        int long_thresh, int n_long, int n_chunks,
+                        cudaStream_t st) {
   if ((long long)V1 * S * S >= (1LL << 32)) return cudaErrorInvalidValue;
   const unsigned s_inv = (unsigned)(((1ULL << 32) + S - 1) / S);
   cudaError_t err = cudaSuccess;
-#define SH_DX(NTC)                                                          \
-  err = dx_short_launch<T, NTC>(dy, w, offs, cols, dx, B, V1, C, S, Co,     \
-                                s_inv, long_thresh, veca, vecw, st)
-  // the warp's tile is 2048 outputs: wide in c for wide convs, else in b
   if (Co <= 4) {
     const int narrow_smem = S * (C + 1) * (int)sizeof(float4);
     err = cudaFuncSetAttribute(dx_narrow_kernel<T>,
@@ -851,13 +1038,15 @@ cudaError_t dx_dispatch(const float* dy, const void* w, const int* offs,
            kNarrowThreads, narrow_smem, st>>>(
             dy, static_cast<const T*>(w), offs, cols, dx, V1, C, S, Co, s_inv,
             long_thresh);
+  } else if (sa.R > 0) {
+    switch (ntc) {
+      case 8: err = dx_short_launch<T, 8>(sa, nw, nbx, smem, st); break;
+      case 4: err = dx_short_launch<T, 4>(sa, nw, nbx, smem, st); break;
+      case 2: err = dx_short_launch<T, 2>(sa, nw, nbx, smem, st); break;
+      case 1: err = dx_short_launch<T, 1>(sa, nw, nbx, smem, st); break;
+      default: return cudaErrorInvalidValue;
+    }
   }
-  else if (C > 64) SH_DX(16);
-  else if (C > 32) SH_DX(8);
-  else if (C > 16) SH_DX(4);
-  else if (C > 8) SH_DX(2);
-  else SH_DX(1);
-#undef SH_DX
   if (err != cudaSuccess) return err;
   if (n_long > 0) {
     const int SCo = S * Co;
@@ -944,18 +1133,23 @@ int sh_spiral_conv_bwd_dw(const void* x, const void* rows, const void* offs,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Launches the short-row kernel and, for the n_long rows longer than
-// long_thresh (cut into n_chunks chunks [chunk_lo[k], chunk_hi[k]), chunks
-// chunk_offs[i]..chunk_offs[i+1] of long row i), the two long-row kernels;
-// `partial` is [max(n_chunks, 1), B, S*Co] float32.  Returns a CUDA error
-// code (0 on success).
+// Launches the short-row kernel (or, for Co <= 4, the narrow kernel) and,
+// for the n_long rows longer than long_thresh (cut into n_chunks chunks
+// [chunk_lo[k], chunk_hi[k]), chunks chunk_offs[i]..chunk_offs[i+1] of long
+// row i), the two long-row kernels; `partial` is [max(n_chunks, 1), B,
+// S*Co] float32.  The short rows come from the plan of ops/dx_plan.py (its
+// R rows, keys, offsets and E packed entries) with the launch its
+// launch_plan chose (ntc, nw, nbx, smem).  Returns a CUDA error code
+// (0 on success).
 int sh_spiral_conv_bwd_dx(const void* dy, const void* w, const void* offs,
                           const void* cols, const void* chunk_lo,
                           const void* chunk_hi, const void* long_rows,
                           const void* chunk_offs, void* partial, void* dx,
-                          int B, int V1, int C, int S, int Co, int long_thresh,
-                          int n_long, int n_chunks, int w_is_bf16,
-                          void* stream) {
+                          const void* rows, const void* keys,
+                          const void* roffs, const void* ents, int B, int V1,
+                          int C, int S, int Co, int long_thresh, int n_long,
+                          int n_chunks, int w_is_bf16, int R, int E, int ntc,
+                          int nw, int nbx, int smem, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* dyf = static_cast<const float*>(dy);
   const int* of = static_cast<const int*>(offs);
@@ -966,14 +1160,39 @@ int sh_spiral_conv_bwd_dx(const void* dy, const void* w, const void* offs,
   const int* co = static_cast<const int*>(chunk_offs);
   float* pf = static_cast<float*>(partial);
   float* dxf = static_cast<float*>(dx);
+  if (R < 0 || E < 0 || (long long)E + R >= (1LL << 31) || S > 255 ||
+      V1 >= (1 << 23))
+    return static_cast<int>(cudaErrorInvalidValue);
+  DxArgs a;
+  a.dy = dyf;
+  a.w = w;
+  a.rows = static_cast<const int*>(rows);
+  a.keys = static_cast<const int*>(keys);
+  a.roffs = static_cast<const int*>(roffs);
+  a.ents = static_cast<const int*>(ents);
+  a.dx = dxf;
+  a.B = B;
+  a.V1 = V1;
+  a.C = C;
+  a.S = S;
+  a.Co = Co;
+  a.R = R;
+  a.E = E;
+  const int bt = ntc > 0 ? 8 * (32 / ntc) : 1;
+  a.n_bt = (B + bt - 1) / bt;
+  a.wst = (Co + kNB - 1) / kNB * kNB + 4;
+  a.veca = (Co % 4 == 0) && (reinterpret_cast<uintptr_t>(dy) % 16 == 0);
+  a.vecw = (Co % 4 == 0) &&
+           (reinterpret_cast<uintptr_t>(w) % (w_is_bf16 ? 8 : 16) == 0);
   cudaError_t err;
   if (w_is_bf16)
     err = dx_dispatch<__nv_bfloat16>(dyf, w, of, cl, clo, chi, lr, co, pf, dxf,
-                                     B, V1, C, S, Co, long_thresh, n_long,
-                                     n_chunks, st);
+                                     a, ntc, nw, nbx, smem, B, V1, C, S,
+                                     Co, long_thresh, n_long, n_chunks, st);
   else
-    err = dx_dispatch<float>(dyf, w, of, cl, clo, chi, lr, co, pf, dxf, B, V1,
-                             C, S, Co, long_thresh, n_long, n_chunks, st);
+    err = dx_dispatch<float>(dyf, w, of, cl, clo, chi, lr, co, pf, dxf, a,
+                             ntc, nw, nbx, smem, B, V1, C, S, Co,
+                             long_thresh, n_long, n_chunks, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }

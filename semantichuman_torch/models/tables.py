@@ -4,7 +4,8 @@ spiral tables that the spiral conv's backward reduces over and the gather
 tables of pool and unpool (`ops/row_gather.py:GatherTable`: the index, the
 unpool weights and the inverse their backward reduces over).  Building
 the tables also builds each spiral table's window plan for W's gradient
-(`ops/dw_window.py:window_of`), so that no capture builds one.
+(`ops/dw_window.py:window_of`) and each inverse table's short-row plan for
+x's (`ops/dx_plan.py:dx_plan_of`), so that no capture builds one.
 
 With `banded=True` (ModelConfig.banded_conv, on by default as in the JAX
 package) the fine spiral levels and the large unpool transitions also carry
@@ -23,6 +24,7 @@ from ..ops import banding
 from ..ops.banded_gather import BandTable
 from ..ops.csr_reduce import CSRTable, inverse_csr
 from ..ops.dw_window import window_of
+from ..ops.dx_plan import dx_plan_of
 from ..ops.row_gather import GatherTable
 from ..utils.device import resolve_device
 
@@ -130,8 +132,9 @@ def device_tables(hier, device="cuda", banded: bool = False) -> DeviceTables:
         CSRTable.build(*inverse_spiral_csr(s), n_src=np.asarray(s).size,
                        device=dev)
         for s in hier.spirals)
-    for s in spirals:
+    for s, csr in zip(spirals, spiral_csr):
         window_of(s)
+        dx_plan_of(csr)
     pool_gather = tuple(GatherTable.build(p, sizes[l] + 1, dev)
                         for l, p in enumerate(hier.pool_idx))
     unpool_gather = tuple(

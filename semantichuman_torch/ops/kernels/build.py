@@ -74,7 +74,7 @@ SIGNATURES = {
     "spiral_conv_bwd": {
         "sh_spiral_conv_bwd_dw": ([_VOIDP] * 8 + [_INT] * 12 + [_VOIDP],
                                   _INT),
-        "sh_spiral_conv_bwd_dx": ([_VOIDP] * 10 + [_INT] * 9 + [_VOIDP],
+        "sh_spiral_conv_bwd_dx": ([_VOIDP] * 14 + [_INT] * 15 + [_VOIDP],
                                   _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },

@@ -29,7 +29,10 @@ two fused kernels of `csrc/spiral_conv_bwd.cu` (`spiral_conv_bwd_dw`,
 `spiral_conv_bwd_dx`, counted in their `.launches`), which gather on chip
 and write nothing of width S*C to device memory; dW reads x through the
 spiral table's window plan (`ops/dw_window.py:window_of`, built with the
-tables: each tile of vertices' distinct source rows staged once).  The
+tables: each tile of vertices' distinct source rows staged once), dx walks
+the inverse table's short-row plan (`ops/dx_plan.py:dx_plan_of`, built
+with the tables: each block's slice of W resident, each warp a balanced
+run of rows).  The
 earlier card route, torch matmuls around the gathered buffers and the CSR
 reduce (`ops/csr_reduce.py`), stays as `spiral_conv_bwd_unfused`: a table keyed
 by the conv's static shape sends a shape there where the fused kernel
@@ -45,6 +48,7 @@ import torch.nn.functional as F
 from .banded_gather import BandedGatherFn, BandTable
 from .csr_reduce import LONG_ROW, CSRTable, csr_reduce, csr_reduce_plain
 from .dw_window import window_of
+from .dx_plan import dx_plan_of, warp_tile
 from .kernels import LIB, build
 from .row_gather import RowGatherFn
 
@@ -522,6 +526,11 @@ def _check_bwd_dx(dy, w, csr, spiral_shape) -> None:
     if dy.shape[2] <= 4 and 16 * s * (w.shape[0] // s + 1) > 200 * 1024:
         raise ValueError(f"w {tuple(w.shape)} exceeds the narrow-output "
                          "kernel's shared memory")
+    co = dy.shape[2]
+    if co > 4 and warp_tile(w.shape[0] // s, co, s) is None:
+        raise ValueError(f"S = {s}, Co = {co}: no weight slice "
+                         "fits the short-row kernel's shared memory (the "
+                         "dispatch sends such a dx unfused)")
     for name, t in (("w", w), ("table", csr.offs), ("dy", dy)):
         if t.device != dy.device:
             raise ValueError(f"{name} is on {t.device}, dy on {dy.device}")
@@ -535,8 +544,9 @@ def spiral_conv_bwd_dx(dy: torch.Tensor, w: torch.Tensor, csr: CSRTable,
     inverse table `csr` of sum_n dy[b, v, n] * W[s*C + c, n].
     dy [B, V1, Co] f32, w [S*C, Co] f32 or bf16, spiral_shape (V1, S)
     -> [B, V1, C] float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel (every sum in a fixed order, no atomics) or
-    raise."""
+    tensors launch the kernels through the table's short-row plan
+    (`dx_plan_of`: the tables' are built with them, another table's on
+    its first call; every sum in a fixed order, no atomics) or raise."""
     if dy.device.type == "cpu":
         return spiral_conv_bwd_dx_plain(dy, w, csr, spiral_shape)
     if dy.device.type != "cuda":
@@ -551,6 +561,9 @@ def spiral_conv_bwd_dx(dy: torch.Tensor, w: torch.Tensor, csr: CSRTable,
         return dx
     if co == 0:
         return dx.zero_()
+    plan = dx_plan_of(csr)
+    lp = plan.launch_plan(b, c, co) or {"ntc": 0, "warps": 0, "blocks": 0,
+                                        "smem": 0}
     n_chunks = csr.chunk_lo.shape[0]
     partial = torch.empty((max(n_chunks, 1), b, s * co),
                           dtype=torch.float32, device=dy.device)
@@ -562,8 +575,12 @@ def spiral_conv_bwd_dx(dy: torch.Tensor, w: torch.Tensor, csr: CSRTable,
             csr.cols.data_ptr(), csr.chunk_lo.data_ptr(),
             csr.chunk_hi.data_ptr(), csr.long_rows.data_ptr(),
             csr.chunk_offs.data_ptr(), partial.data_ptr(), dx.data_ptr(),
+            plan.rows.data_ptr(), plan.keys.data_ptr(),
+            plan.roffs.data_ptr(), plan.ents.data_ptr(),
             b, v1, c, s, co, LONG_ROW, csr.long_rows.shape[0], n_chunks,
-            int(w.dtype == torch.bfloat16), stream)
+            int(w.dtype == torch.bfloat16), plan.n_rows, plan.n_entries,
+            lp["ntc"], lp["warps"], lp["blocks"], lp["smem"],
+            stream)
     build.check(lib, rc, "spiral_conv_bwd_dx kernel launch")
     spiral_conv_bwd_dx.launches += 1
     return dx
@@ -575,28 +592,33 @@ spiral_conv_bwd_dx.launches = 0
 # the unfused route on the card: the halves named here ("dx", "dw")
 # measured slower fused than unfused at trunk batch 384 (chip_smoke.py's
 # conv-backward phase; the per-shape times are in PERF.md, section 6).
-# Every shape not named here runs both fused kernels.  The one dx half
-# below is the 64 -> 128 conv's at level 3, where each warp reloads a 32 KB
-# weight slab per entry: the only conv whose backward, as the training
-# step runs it, measured slower all fused than unfused.
+# Every shape not named here runs both fused kernels, but a dx whose
+# short-row weight slice cannot fit (`dx_plan.warp_tile` None: Co above
+# about 192 at S = 15, for one).  The one dx half below is the 64 -> 128 conv's at level 3: its 128 output channels make
+# the short-row kernel's resident weight slice 135 KB for 32 channels, and
+# it measured slower fused than unfused at trunk 128, though faster at 256
+# and 384 (PERF.md, section 6).
 _UNFUSED = {
     (64, 128, 8): ("dx",),
 }
 # At batch <= 16 the dx half takes the unfused route whatever the shape:
-# the fused dx kernel's warp tile spans 8 * (32 / NTC) batch elements, so
-# twelve leave most of it empty, and it measured slower than its plain
-# version at the Trainer's batch 12 (PERF.md, section 5).
+# the fused dx kernel's warp tile spans at least 8 * (32 / NTC) batch
+# elements, so twelve leave most of it empty, and it measured slower than
+# its plain version at the Trainer's batch 12 (PERF.md, section 5).
 _DX_FUSED_MIN_B = 17
 
 
 def _unfused_halves(x, w, spiral_idx) -> tuple:
     """The halves of this conv's backward that take the unfused route:
     none on the CPU (the plain versions run there), else what `_UNFUSED`
-    names for the static shape (C, Co, S), and dx at batch <= 16."""
+    names for the static shape (C, Co, S), dx at batch <= 16, and dx where
+    Co > 4 and no short-row weight slice fits the shared memory."""
     if x.device.type == "cpu":
         return ()
-    halves = _UNFUSED.get((x.shape[2], w.shape[1], spiral_idx.shape[1]), ())
-    if x.shape[0] < _DX_FUSED_MIN_B and "dx" not in halves:
+    c, co, s = x.shape[2], w.shape[1], spiral_idx.shape[1]
+    halves = _UNFUSED.get((c, co, s), ())
+    if "dx" not in halves and (x.shape[0] < _DX_FUSED_MIN_B or (
+            co > 4 and warp_tile(c, co, s) is None)):
         halves = ("dx",) + halves
     return halves
 

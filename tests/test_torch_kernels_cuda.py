@@ -813,6 +813,107 @@ def test_spiral_conv_bwd_dx_matches_plain(cuda, full_tables, dtype):
                                    msg=lambda m: f"{label} real rows: {m}")
 
 
+# (level, C, Co) of the convs whose dx the step computes fused, and the
+# 64 -> 128 conv, which the dispatch sends unfused
+DX_FUSED_CONVS = [(1, 16, 32), (2, 32, 64), (3, 128, 64), (2, 64, 32),
+                  (1, 32, 32), (0, 32, 16), (0, 16, 3), (3, 64, 128)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [17, 128, 256])
+def test_spiral_conv_bwd_dx_at_fused_convs(cuda, full_tables, b, dtype):
+    """The dx kernels through the tables' short-row plans at every conv
+    whose dx runs fused, and at 64 -> 128, at B = 17, 128 and 256: against
+    the plain version, max |err| <= 1e-4 of the largest entry (and of the
+    largest real row's); two runs bit-equal; one counted launch a call."""
+    for i, (lvl, c, co) in enumerate(DX_FUSED_CONVS):
+        spiral, csr_t = full_tables.spirals[lvl], full_tables.spiral_csr[lvl]
+        v1, s = spiral.shape
+        label = f"L{lvl} {c}->{co} B={b}"
+        _x, w, dy = _bwd_inputs(b, v1, s, c, co, dtype, cuda, 400 + i)
+        before = TC.spiral_conv_bwd_dx.launches
+        got = TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        again = TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        ref = TC.spiral_conv_bwd_dx_plain(dy, w, csr_t, (v1, s))
+        torch.cuda.synchronize()
+        assert TC.spiral_conv_bwd_dx.launches == before + 2
+        assert torch.equal(got, again), label
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-4 * float(ref.abs().max()),
+                                   msg=lambda m: f"{label}: {m}")
+        real = ref[:, :-1].abs().max()
+        torch.testing.assert_close(got[:, :-1], ref[:, :-1], rtol=0,
+                                   atol=1e-4 * float(real),
+                                   msg=lambda m: f"{label} real rows: {m}")
+        del _x, w, dy, got, again, ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spiral_conv_bwd_dx_every_instance(cuda, full_tables, dtype):
+    """Each short-row instance (lanes along c 1, 2, 4, 8), reached through
+    C = 8, 16, 32 and 40 at a level-1 conv, and a ragged random table
+    whose Co = 7 takes the load path: against the plain version, max
+    |err| <= 1e-4 of the largest entry; two runs bit-equal."""
+    from semantichuman_torch.ops.dx_plan import dx_plan_of
+    rng = np.random.default_rng(21)
+    idx = _spiral_with_pads(333, 7, rng)
+    cases = [(f"L1 {c}->24", full_tables.spirals[1],
+              full_tables.spiral_csr[1], c, 24, 19, ntc)
+             for c, ntc in ((8, 1), (16, 2), (32, 4), (40, 8))]
+    cases.append(("ragged 333x7 12->7", torch.from_numpy(idx).to(cuda),
+                  _csr(idx, cuda), 12, 7, 70, 2))
+    for label, spiral, csr_t, c, co, b, ntc in cases:
+        v1, s = spiral.shape
+        assert dx_plan_of(csr_t).launch_plan(b, c, co)["ntc"] == ntc, label
+        _x, w, dy = _bwd_inputs(b, v1, s, c, co, dtype, cuda, 7)
+        ref = TC.spiral_conv_bwd_dx_plain(dy, w, csr_t, (v1, s))
+        got = TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        again = TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), label
+        torch.testing.assert_close(
+            got, ref, rtol=0, atol=1e-4 * float(ref.abs().max()),
+            msg=lambda m: f"{label}: {m}")
+
+
+@pytest.mark.cuda
+def test_spiral_conv_bwd_dx_kernel_names_and_counter(cuda, full_tables):
+    """A fused dx call at a level-0 conv launches, on the device, only
+    kernels whose names hold one of the names that
+    `conv_dx_roofline.*` reads (dx_short_kernel, dx_narrow_kernel,
+    dx_long_partial_kernel, dx_long_finish_kernel): the short-row kernel
+    once and the two long-row kernels for the dummy row; and the conv
+    backward records the call in `spiral_conv_dx` as fused."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantichuman_torch.ops import launches
+    names = ("dx_short_kernel", "dx_narrow_kernel", "dx_long_partial_kernel",
+             "dx_long_finish_kernel")
+    lvl, c, co, b = 0, 32, 16, 128
+    spiral, csr_t = full_tables.spirals[lvl], full_tables.spiral_csr[lvl]
+    v1, s = spiral.shape
+    x, w, dy = _bwd_inputs(b, v1, s, c, co, torch.float32, cuda, 11)
+    TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s))
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert kernels and all(any(n in k for n in names) for k in kernels), \
+        kernels
+    assert sum("dx_short_kernel" in k for k in kernels) == 1, kernels
+    assert sum("dx_long_" in k for k in kernels) == 2, kernels
+    before = launches.read()
+    TC._conv_backward(x, w, dy, spiral, csr_t, True, False)
+    got = launches.diff(launches.read(), before)
+    assert {k: v for k, v in got["spiral_conv_dx"].items() if v} == {
+        f"fused:{b},{v1},{s},{c},{co}": 1}
+    assert got["spiral_conv_bwd_dx"] == 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_spiral_conv_fused_backward_through_autograd(cuda, full_tables, dtype,

@@ -1,8 +1,9 @@
 """The spiral conv's backward, half by half: the plain versions of the dW
 and dx kernels (`spiral_conv_bwd_dw_plain`, `spiral_conv_bwd_dx_plain`)
 against jax.vjp of spiral_conv_take, the unfused route against them, the
-dispatch of SpiralConvFn.backward, the wrappers' checks, and the dW
-kernel's window plan (`ops/dw_window.py`) walked on the CPU.  The kernels
+dispatch of SpiralConvFn.backward, the wrappers' checks, the dW
+kernel's window plan (`ops/dw_window.py`) and the dx kernel's short-row
+plan (`ops/dx_plan.py`) walked on the CPU.  The kernels
 against their plain versions on the card are in test_torch_kernels_cuda.py."""
 
 import importlib
@@ -16,6 +17,7 @@ import torch
 from semantichuman_torch.models.tables import inverse_spiral_csr
 from semantichuman_torch.ops import csr_reduce as TR
 from semantichuman_torch.ops import dw_window as DW
+from semantichuman_torch.ops import dx_plan as DX
 from semantichuman_tpu.ops.spiral_conv import spiral_conv_take
 
 # the module: `semantichuman_torch.ops.spiral_conv` is the function
@@ -255,7 +257,7 @@ def test_dw_check_raises(fault, error):
     ("w_dtype", TypeError), ("dy_dtype", TypeError), ("w_cols", ValueError),
     ("w_rows", ValueError), ("dy_rows", ValueError), ("table", ValueError),
     ("w_strided", ValueError), ("dy_strided", ValueError),
-    ("device", ValueError), ("wide", ValueError)])
+    ("device", ValueError), ("wide", ValueError), ("slice", ValueError)])
 def test_dx_check_raises(fault, error):
     _x, idx, w, dy, table = _check_args()
     shape = tuple(idx.shape)
@@ -282,6 +284,9 @@ def test_dx_check_raises(fault, error):
     elif fault == "wide":
         dy = torch.zeros((2, 40, 1200))
         w = torch.zeros((48, 1200))
+    elif fault == "slice":  # S*Co within the long-row scratch, but no
+        dy = torch.zeros((2, 40, 900))  # short-row weight slice fits
+        w = torch.zeros((48, 900))
     with pytest.raises(error):
         TC._check_bwd_dx(dy, w, table, shape)
 
@@ -479,3 +484,213 @@ def test_window_refuses_another_table():
     for spiral in tables.spirals:
         hit = DW._BUILT.get(id(spiral))
         assert hit is not None and hit[0]() is spiral
+
+
+# --- the dx kernel's short-row plan (ops/dx_plan.py) ---------------------------
+
+def _inverse(spiral):
+    return inverse_spiral_csr(spiral)
+
+
+@pytest.mark.parametrize("label,spiral", _tables(),
+                         ids=[t[0] for t in _tables()])
+def test_dx_plan_maps_back_to_the_inverse_table(label, spiral):
+    """Every short row (at most LONG_ROW entries) appears once, in
+    ascending order, and no long row does; each short row's packed
+    entries (v << 8 | s) are its inverse-table entries v*S + s in the
+    table's order; keys are the offsets plus the row index."""
+    offs, cols = _inverse(spiral)
+    v1, s = spiral.shape
+    plan = DX.DxPlan.build(offs, cols, s, "cpu")
+    deg = np.diff(offs)
+    np.testing.assert_array_equal(plan.host_rows,
+                                  np.nonzero(deg <= TR.LONG_ROW)[0])
+    assert plan.spiral_shape == (v1, s)
+    assert plan.host_roffs[0] == 0 and plan.n_entries == deg[deg <= TR.LONG_ROW].sum()
+    np.testing.assert_array_equal(plan.keys.numpy(),
+                                  plan.host_roffs + np.arange(plan.n_rows + 1))
+    ents = plan.host_ents.astype(np.int64)
+    got = (ents >> 8) * s + (ents & 255)
+    for r, u in enumerate(plan.host_rows):
+        lo, hi = plan.host_roffs[r], plan.host_roffs[r + 1]
+        np.testing.assert_array_equal(got[lo:hi], cols[offs[u]:offs[u + 1]],
+                                      err_msg=f"{label} row {u}")
+    assert np.all((ents & 255) < s) and np.all(spiral[ents >> 8, ents & 255]
+                                               == np.repeat(plan.host_rows,
+                                                            np.diff(plan.host_roffs)))
+
+
+def _warp_units(plan, lp, g, n_warps):
+    """The units (batch tile, short row index) of warp g of n_warps, as
+    the kernel splits them: those that start in [P g / G, P (g+1) / G) of
+    the P = n_bt x (E + R) positions (`keys`: each unit weighs its entries
+    and one)."""
+    r_n, e_n = plan.n_rows, plan.n_entries
+    total = lp["n_bt"] * (e_n + r_n)
+    keys = plan.host_roffs.astype(np.int64) + np.arange(r_n + 1)
+
+    def unit_at(p):
+        bt, rem = divmod(p, e_n + r_n)
+        r = int(np.searchsorted(keys[:r_n], rem, side="left"))
+        return (bt + 1, 0) if r == r_n else (bt, r)
+
+    lo, hi = unit_at(total * g // n_warps), unit_at(total * (g + 1) // n_warps)
+    out = []
+    while lo < hi:
+        out.append(lo)
+        lo = (lo[0] + 1, 0) if lo[1] + 1 == r_n else (lo[0], lo[1] + 1)
+    return out
+
+
+def _walk_plain(dy, w, plan, lp, long_dx):
+    """dx as the kernel walks the plan, in plain PyTorch: per c-slice, per
+    warp of the grid its units in order, each row's entries added in the
+    plan's order from the packed (v, s); the long rows' values from
+    `long_dx` (the long-row kernels' part).  Every other entry of dx
+    starts NaN, so a row no warp writes shows.  dy [B, V1, Co], w [S*C,
+    Co] -> [B, V1, C] float32."""
+    b, v1, co = dy.shape
+    s = plan.spiral_shape[1]
+    c = w.shape[0] // s
+    wf = w.float().reshape(s, c, co)
+    out = torch.full((b, v1, c), float("nan"))
+    short = np.zeros(v1, bool)
+    short[plan.host_rows] = True
+    out[:, ~torch.from_numpy(short)] = long_dx[:, ~torch.from_numpy(short)]
+    n_warps = lp["blocks"] * lp["warps"]
+    bt_n = lp["bt"]
+    for sl in range(lp["slices"]):
+        c0, c1 = sl * lp["cp"], min(c, (sl + 1) * lp["cp"])
+        for g in range(n_warps):
+            for bt, r in _warp_units(plan, lp, g, n_warps):
+                b0, b1 = bt * bt_n, min(b, (bt + 1) * bt_n)
+                acc = torch.zeros((b1 - b0, c1 - c0))
+                for j in range(plan.host_roffs[r], plan.host_roffs[r + 1]):
+                    v, slot = plan.host_ents[j] >> 8, plan.host_ents[j] & 255
+                    acc += dy[b0:b1, v] @ wf[slot, c0:c1].t()
+                out[b0:b1, plan.host_rows[r], c0:c1] = acc
+    return out
+
+
+def _other_launch(lp, b, c, ntc, warps, blocks):
+    """`lp`, for B = b and C = c, with another warp tile, warps a block and
+    blocks a slice: the walk's order of units and sums then changes, its
+    values must not."""
+    bt, cp = DX.tile_of(ntc)
+    return dict(lp, ntc=ntc, warps=warps, blocks=blocks, bt=bt, cp=cp,
+                n_bt=-(-b // bt), slices=-(-c // cp))
+
+
+# every conv whose dx the model computes: the first conv's input is data
+DX_CONVS = MODEL_CONVS[1:]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dx_plan_fits_the_shared_memory_budget(dtype):
+    """At every conv of the bundled topology whose dx runs, and at the
+    64 -> 128 conv, at B = 17, 128, 256 and 384 (W is staged as f32 for
+    either type, so the plan is the same): the launch's shared memory is
+    the weight slice and the warps' rings, within one block's most; the
+    widest warp tile that fits four warps; as many warps as fit, at most
+    eight; the c-slices and batch tiles cover C and B; one wave of blocks
+    on a card of the plan's SMs (another count of SMs changes only the
+    blocks); the warps' units cover every (batch tile, short row) once;
+    Co <= 4 takes the narrow kernel (no plan)."""
+    levels = _levels()
+    for lvl, c, co in DX_CONVS:
+        spiral = levels[lvl]
+        v1, s = spiral.shape
+        plan = DX.DxPlan.build(*_inverse(spiral), s, "cpu")
+        for b in (17, 128, 256, 384):
+            lp = plan.launch_plan(b, c, co)
+            if co <= 4:
+                assert lp is None
+                continue
+            assert lp["smem"] == DX.smem_bytes(s, co, lp["ntc"],
+                                               lp["warps"])
+            assert lp["smem"] <= DX.SMEM_ONE
+            assert DX.MIN_WARPS <= lp["warps"] <= DX.MAX_WARPS
+            assert lp["warps"] == DX.max_warps(s, co, lp["ntc"])
+            assert (lp["bt"], lp["cp"]) == DX.tile_of(lp["ntc"])
+            assert lp["ntc"] == DX.warp_tile(c, co, s) <= DX.ntc_for(c)
+            wider = [t for t in DX.NTCS if lp["ntc"] < t <= DX.ntc_for(c)]
+            assert all(DX.smem_bytes(s, co, t, DX.MIN_WARPS) > DX.SMEM_ONE
+                       for t in wider)
+            assert lp["slices"] * lp["cp"] >= c > (lp["slices"] - 1) * lp["cp"]
+            assert lp["blocks"] * lp["slices"] <= DX.SMS_NO_CARD
+            assert lp["n_bt"] * lp["bt"] >= b > (lp["n_bt"] - 1) * lp["bt"]
+            assert lp == DX.launch_plan(b, c, co, s, DX.SMS_NO_CARD)
+            small = DX.launch_plan(b, c, co, s, 114)
+            assert small["blocks"] * small["slices"] <= 114
+            assert dict(small, blocks=lp["blocks"]) == lp
+            if b in (17, 256):
+                n_warps = lp["blocks"] * lp["warps"]
+                units = [u for g in range(n_warps)
+                         for u in _warp_units(plan, lp, g, n_warps)]
+                assert units == [(bt, r) for bt in range(lp["n_bt"])
+                                 for r in range(plan.n_rows)]
+
+
+DX_WALK_CASES = [(1, 16, 32, 3), (2, 32, 64, 2), (3, 128, 64, 2),
+                 (3, 64, 128, 1), (3, 64, 32, 70), (4, 5, 7, 2)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", DX_WALK_CASES, ids=str)
+def test_dx_plan_walk_gives_plain_dx(case, dtype):
+    """The plan walked in the kernel's order (per c-slice, per warp of the
+    grid its units, each short row's entries in the plan's order, the long
+    rows from the plain dx; every row starts NaN) gives
+    spiral_conv_bwd_dx_plain's dx: the same products, f32 sums in another
+    order (1e-5 of the largest entry); also on the level with its vertices
+    permuted, and under a narrower tile of fewer warps and blocks."""
+    lvl, c, co, b = case
+    for spiral in (_levels()[lvl], _permuted(_levels()[lvl], 9)):
+        v1, s = spiral.shape
+        rng = np.random.default_rng(lvl + c + co)
+        w = torch.from_numpy((rng.standard_normal((s * c, co))
+                              / np.sqrt(s * c)).astype(np.float32)).to(dtype)
+        dy = torch.from_numpy(rng.standard_normal((b, v1, co)).astype(
+            np.float32))
+        dy[:, -1] = 0.0
+        table = _csr(spiral)
+        ref = TC.spiral_conv_bwd_dx_plain(dy, w, table, (v1, s))
+        plan = DX.DxPlan.build(*_inverse(spiral), s, "cpu")
+        lp = plan.launch_plan(b, c, co)
+        for launch in (lp, _other_launch(lp, b, c, 1, 4, 7),
+                       _other_launch(lp, b, c, 2, 3, 114)):
+            got = _walk_plain(dy, w, plan, launch, ref)
+            assert torch.isfinite(got).all()
+            torch.testing.assert_close(got, ref, rtol=0,
+                                       atol=1e-5 * float(ref.abs().max()))
+
+
+def test_dispatch_sends_a_dx_whose_slice_cannot_fit_unfused():
+    """At level 0 (S = 15) a conv with Co = 256 has no weight slice that
+    fits the short-row kernel: the dispatch sends its dx unfused at any
+    batch, by shape, and keeps the fused dW; Co = 192 there, and Co = 256
+    at S = 9, fit and stay fused; the dx wrapper's check refuses the
+    shape that does not fit."""
+    v1, s, c = 50, 15, 16
+    assert DX.warp_tile(c, 256, s) is None
+    assert DX.warp_tile(c, 192, s) is not None
+    assert DX.warp_tile(c, 256, 9) is not None
+
+    def halves(b, s, co):
+        return TC._unfused_halves(
+            torch.empty((b, v1, c), device="meta"),
+            torch.empty((s * c, co), device="meta"),
+            torch.empty((v1, s), dtype=torch.int32, device="meta"))
+
+    for b in (17, 128, 384):
+        assert halves(b, 15, 256) == ("dx",)
+        assert halves(b, 15, 192) == ()
+        assert halves(b, 9, 256) == ()
+    assert halves(4, 15, 256) == ("dx",)
+    idx = np.random.default_rng(3).integers(0, v1, (v1, s)).astype(np.int32)
+    dy = torch.zeros((2, v1, 256))
+    w = torch.zeros((s * c, 256))
+    with pytest.raises(ValueError, match="no weight slice"):
+        TC._check_bwd_dx(dy, w, _csr(idx), (v1, s))
+    TC._check_bwd_dx(dy[..., :192].contiguous(), w[:, :192].contiguous(),
+                     _csr(idx), (v1, s))
