@@ -7,19 +7,17 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, nine sources, in parallel) and print the
+   csrc/` (one nvcc per source, six sources, in parallel) and print the
    card.
 2. the conv forward: at each of the nine full-width conv shapes (the
    bundled 6892-vertex topology's spiral tables), in float32 and bfloat16
    inputs, at B = 1, 12, 16, 64 and 384, hold the forward kernel
    (`csrc/spiral_conv_fwd.cu`, as `spiral_conv` dispatches it) against its
-   plain PyTorch version and against the port's first kernel
-   (`spiral_conv_fwd_v1`, `csrc/spiral_conv.cu`, the yardstick): rtol
-   1e-4, atol 1e-5 (the only difference is the order of f32 sums over
-   K <= 480), an exactly zero dummy row, two runs bit-equal.  At B = 64
-   and 384 time the kernel, v1, the plain version and cuBLAS's SGEMM alone
-   on the pre-gathered [B*V1, S*C] buffer in turns; the nine float32 convs
-   must be faster through the kernel than through v1 at both.
+   plain PyTorch version: rtol 1e-4, atol 1e-5 (the only difference is
+   the order of f32 sums over K <= 480), an exactly zero dummy row, two
+   runs bit-equal.  At B = 64 and 384 time the kernel, the plain version
+   and cuBLAS's SGEMM alone on the pre-gathered [B*V1, S*C] buffer in
+   turns.
 3. serving: build the full-width PartAE from the default ModelConfig (seed
    0, banded_conv on), export a bundle (`torch.export` programs with a
    symbolic batch), load it on the card, answer forward from the programs
@@ -54,25 +52,21 @@ run:
    level 3, the 4 pools' and the part head's backward, the 4 unpools'
    weighted backward, the loss's 7 gathers with a gradient), and at the
    nine convs' dx shapes at 384 (the stress case of the long dummy row):
-   bit-equal to the port's first kernel (`csr_reduce_v1`,
-   `csrc/csr_reduce_v1.cu`, the yardstick, which keeps the same order of
-   sums and rounding), two runs bit-equal, within 1e-5 (1e-4 for a
-   spiral inverse) of the plain version's largest entry; device times of
-   the kernel and v1 in turns, the plain version and `index_add_` beside
-   the byte bound, summed by family; the row gather
+   two runs bit-equal, within 1e-5 (1e-4 for a spiral inverse) of the
+   plain version's largest entry; device times of the kernel, the plain
+   version and `index_add_` beside the byte bound, summed by family; the
+   row gather
    (`csrc/row_gather.cu`, row 7) at the step's gathers (the four unpools
    and pool L0 at 384, the face gather at 128; float32 and bfloat16)
    against its plain version (copies bit-equal, weighted sums within 2e-6
    of the largest entry, two runs bit-equal) beside index_select or
    embedding_bag and its byte bound; the part_dist kernel
    (`csrc/part_dist.cu`, modes fwd, fwd_grad, bwd) against its plain
-   versions and against the port's first part_dist kernel
-   (`part_dist_v1`, `csrc/part_dist_v1.cu`, the yardstick) at 17 parts x
-   B = 128, for w_mode threshold, sin and all_one, relat on: counts equal
-   exactly (v1's too), two runs bit-equal; the shares of ordered pairs in
-   the mask and of unordered pairs whose two Gram orders round otherwise
-   printed; kernel, v1 and plain timed in turns, and fwd_grad in
-   threshold mode must beat v1.  Errors, times and bounds per kernel.
+   versions at 17 parts x B = 128, for w_mode threshold, sin and all_one,
+   relat on: counts equal exactly, two runs bit-equal; the shares of
+   ordered pairs in the mask and of unordered pairs whose two Gram orders
+   round otherwise printed; kernel and plain timed in turns.  Errors,
+   times and bounds per kernel.
 5. the training step: the full-width model from seed 0, `make_train_step`
    with StepFlags(), exc_variant 'ori', EditSampler(seed=0) at epoch 200
    and make_optimizer(1e-3, 5e-5, 0.99, steps_per_epoch=1), three segments
@@ -87,15 +81,9 @@ run:
    part_dist fwd_grad launches (0 fwd, 0 bwd).  Then ms/step, meshes/s
    (128 per step, as bench.py counts), the device idle share, the top
    kernels and the device ms by family (torch.profiler: the index_add_
-   family must be 0), the step's part_dist device ms through
-   the kernel against the same steps with part_dist_v1 swapped in, in
-   turns (the kernel must be faster), with the share of the step's pairs
-   whose two Gram orders round otherwise; the step with its gathers
-   swapped back to index_select and autograd against the kernels, in
-   turns (ms/step and device ms by family, no gate); the step with every
-   csr_reduce swapped to csr_reduce_v1, in turns (kernel, v1, v1,
-   kernel): ms/step, device ms and the two CSR families' device ms, no
-   gate; one bf16-trunk step (finite loss).
+   family must be 0); the step with its gathers swapped back to
+   index_select and autograd against the kernels, in turns (ms/step and
+   device ms by family, no gate); one bf16-trunk step (finite loss).
    At trunk batch 384 no banded route engages: 0 banded launches.
 6. banded kernels, at the trainer's shapes (trunk batch 12 = three
    segments of B = 4, the bundled topology's band tables): every banded
@@ -112,8 +100,8 @@ run:
    dx kernel's batch tiles only partly), float32 and bfloat16: each
    within 1e-4 of the largest entry of its plain version, two runs
    bit-equal.  Then the part_dist kernel's three modes at the Trainer's
-   grid (17 parts x B = 4, each tile split over blocks) as in phase 4;
-   fwd_grad in threshold mode must beat v1 in device time there too.
+   grid (17 parts x B = 4, each tile split over blocks) as in phase 4,
+   with fwd_grad's device time.
    Then the CSR reduce at the shapes of one Trainer step's calls (batch
    12, the default take route: the 8 unfused dx, the gathers' backward),
    recorded from one loss + gradient, checked and timed as in phase 4.
@@ -127,8 +115,7 @@ run:
    loss's 11), 24 csr_reduce (the 8 unfused dx, the 16 gathers with a
    gradient), 2 part_dist fwd_grad, one row gather and one csr_reduce
    fewer on a step whose skeleton exchange drew 'm' (no volume term);
-   plus 9 forward launches and 11 row gathers per validation pass.  The
-   v1 forward, part_dist and CSR reduce kernels launch on no main path.
+   plus 9 forward launches and 11 row gathers per validation pass.
    fit() runs as a user's does, with torch's default algorithms, and a
    second fit() from the same seed must give its epoch losses and final
    parameters bit for bit.  Four runs resumed from its epoch-2
@@ -152,9 +139,9 @@ run:
    record holds the 9 dW calls in `spiral_conv_dw` and, at each level-0
    conv, more than DW_MIN_REUSE entries read a window row staged, and
    over one replayed epoch the profiler counts each of the port's kernels a whole number of
-   times the epoch's 16 steps, the index_add_ family and the yardsticks
-   at 0; (e) forced banded and take, each on both paths in turns (graph,
-   loop, loop, graph), resumed from that checkpoint and timed over two
+   times the epoch's 16 steps, the index_add_ family at 0; (e) forced
+   banded and take, each on both paths in turns (graph, loop, loop,
+   graph), resumed from that checkpoint and timed over two
    more epochs: ms/step, s/epoch with and without validation, device
    busy ms a step, the idle share, the host time of the capture; the
    forced banded arm's captured step launches GRAPH_LAUNCHES_BANDED (9
@@ -249,7 +236,7 @@ run:
    within DP_TIMEOUT s, or the phase fails and its processes are killed;
    (c) the B = 4 loop with a trace window over global steps [2, 5): the
    trace file names the kernels of rows 1, 3, 7 and 8 and no plain
-   version's or yardstick's, the logged losses equal the untraced fit's
+   version's, the logged losses equal the untraced fit's
    bit for bit, the window's cost in ms a step; (d) `ops/geometry.py`
    and distance.py's vertex normals and volumes on icosphere(3) (with
    the spectral basis and the biharmonic distance) and on the full-scale
@@ -290,23 +277,20 @@ run:
 
 The last two lines are a JSON object with each kernel's launches, error and
 times, and `{"ok": true, "device": {...}}`.  Without a card it exits 1
-before printing any result.  `python3 chip_smoke.py --conv-forward` runs
+before printing any result. `python3 chip_smoke.py --conv-forward` runs
 phase 1 and phase 2 alone, `--conv-backward` phase 1 and phase 4's conv
-backward alone, each with a per-kernel profile (the conv backward's mode
-also runs the dx kernels on two control tables, `phase_dx_controls`),
-`--part-dist` phase 1 and
-the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and the
-row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
-reduce's checks and times of phases 4 and 6 with a sweep of its batch
-tile, for tuning those kernels, `--trainer` phase 1 and phase 7,
-`--dfaust` phase 1 and phase 8, `--baseline` phase 1 and phase 9,
-`--deploy` phase 1 and phase 10, `--parallel` phase 1 and phase 11,
-`--drill` phase 1 and phase 12, `--shard-diagnostic` phase 1 and phase
-12 (a)'s diagnostic on its own (PartAE.init(0)), and `--band-gates` phase
-1 and each banded gate measured on its own against the take route in
-turns (serving
-at B = 1, 16, 64, the Trainer's epoch path at trunk 12 and the fast
-recipe's 128), the measurement that set both gates: they print no result
+backward alone, each with a per-kernel profile, `--part-dist` phase 1
+and the part_dist checks of phases 4 and 6, `--gather-rows` phase 1 and
+the row gather's checks of phase 4, `--csr-reduce` phase 1 and the CSR
+reduce's checks and times of phases 4 and 6, for tuning those kernels,
+`--trainer` phase 1 and phase 7, `--dfaust` phase 1 and phase 8,
+`--baseline` phase 1 and phase 9, `--deploy` phase 1 and phase 10,
+`--parallel` phase 1 and phase 11, `--drill` phase 1 and phase 12,
+`--shard-diagnostic` phase 1 and phase 12 (a)'s diagnostic on its own
+(PartAE.init(0)), and `--band-gates` phase 1 and each banded gate
+measured on its own against the take route in turns (serving at B = 1,
+16, 64, the Trainer's epoch path at trunk 12 and the fast recipe's 128),
+the measurement that set both gates: they print no result
 line and are no gate.
 """
 
@@ -344,13 +328,10 @@ TRAIN_STEPS = 10
 TRAINER_B = 4                  # the paper recipe's batch_train/batch_interp
 TRAINER_TRUNK_B = 3 * TRAINER_B
 DEVICE = "cuda"
-KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_fwd_v1",
-                 "spiral_conv_bwd_dw", "spiral_conv_bwd_dx", "csr_reduce",
-                 "csr_reduce_v1", "part_dist_fwd", "part_dist_fwd_grad",
-                 "part_dist_bwd", "part_dist_v1", "banded_gather_fwd",
+KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_bwd_dw",
+                 "spiral_conv_bwd_dx", "csr_reduce", "part_dist_fwd",
+                 "part_dist_fwd_grad", "part_dist_bwd", "banded_gather_fwd",
                  "banded_gather_bwd", "row_gather")
-# the yardsticks: counted, and 0 on every main path
-YARDSTICKS = ("spiral_conv_fwd_v1", "part_dist_v1", "csr_reduce_v1")
 # row gathers (`ops/row_gather.py:gather_rows`, the row_gather kernel) of
 # one encode: the 4 pools and the part and keypoint heads; all but the
 # keypoint head's (its input is data) take a gradient, whose backward is
@@ -495,15 +476,13 @@ PEAK_SFU = 16 * 132 * 1.98e9
 
 # kernel families of the step's profile, by a substring of the kernel name
 PROFILE_GROUPS = {"conv_fwd": "sc_fwd_",
-                  "conv_fwd_v1": "spiral_conv_fwd_kernel",
                   "conv_bwd_dw": "dw_partial_kernel",
                   "conv_bwd_dw_finish": "dw_finish_kernel",
                   "conv_bwd_dx_short": "dx_short_kernel",
                   "conv_bwd_dx_narrow": "dx_narrow_kernel",
                   "conv_bwd_dx_long": "dx_long_",
-                  "csr_reduce": "csr_rows_", "csr_reduce_v1": "csr_v1_",
+                  "csr_reduce": "csr_rows_",
                   "part_dist": "part_dist_rows_",
-                  "part_dist_v1": "part_dist_v1_",
                   "row_gather": "gather_copy_kernel",
                   "row_gather_sum": "gather_sum_kernel",
                   "gemm": "gemm", "index_add": "indexFunc",
@@ -640,13 +619,12 @@ def phase_kernels(model, profile: bool = False):
     and bfloat16, at B = 1, 12, 16, 64 and 384 (FWD_BATCHES): the dispatched
     kernel (`spiral_conv`'s take route) against the plain version (rtol
     1e-4, atol 1e-5: the same products, f32 sums over K <= 480 in another
-    order) and against the v1 kernel (`spiral_conv_fwd_v1`, the same
-    tolerance), an exactly zero dummy row, two runs bit-equal, one counted
+    order), an exactly zero dummy row, two runs bit-equal, one counted
     launch a call.  At B = 64 and 384 (FWD_TIMED) the routes are timed in
-    turns with both readings kept (`*_runs`): the kernel (`ms`), v1
-    (`v1_ms`) and, in float32, the plain version (`plain_ms`) and cuBLAS's
-    SGEMM alone on the pre-gathered [B*V1, S*C] buffer (`gemm_ms`: the
-    yardstick of a library GEMM of the same M x K x N, which computes no
+    turns with both readings kept (`*_runs`): the kernel (`ms`) and, in
+    float32, the plain version (`plain_ms`) and cuBLAS's SGEMM alone on
+    the pre-gathered [B*V1, S*C] buffer (`gemm_ms`: the yardstick of a
+    library GEMM of the same M x K x N, which computes no
     conv and which the port never calls).  `profile` adds the device time
     by kernel of each float32 conv at B = 384."""
     SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
@@ -670,37 +648,29 @@ def phase_kernels(model, profile: bool = False):
                 def kernel():
                     return SC.spiral_conv(xc, spiral, wc, bias, act)
 
-                def yardstick():
-                    return SC.spiral_conv_fwd_v1(xc, spiral, wc, bias, act)
-
                 def plain():
                     return SC.spiral_conv_plain(xc, spiral, wc, bias, act)
 
-                got, again, v1_out, ref = kernel(), kernel(), yardstick(), \
-                    plain()
+                got, again, ref = kernel(), kernel(), plain()
                 sync()
                 got_counts = counts_diff(read_counts(), before)
-                require(got_counts["spiral_conv_fwd"] == 2
-                        and got_counts["spiral_conv_fwd_v1"] == 1,
+                require(got_counts["spiral_conv_fwd"] == 2,
                         f"{tag}: launches {got_counts}")
                 require(torch.equal(got, again), f"{tag}: two runs differ")
                 require(torch.count_nonzero(got[:, -1]) == 0,
                         f"{tag}: dummy row not zero")
                 torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
                                            msg=lambda m: f"{tag}: {m}")
-                torch.testing.assert_close(got, v1_out, rtol=1e-4, atol=1e-5,
-                                           msg=lambda m: f"{tag} v1: {m}")
                 err = float((got - ref).abs().max())
                 max_err = max(max_err, err)
                 plan = SC._fwd_plan(b, v1, cin, s, cout, dtype)
                 row = {"layer": label, "batch": b,
                        "dtype": str(dtype).split(".")[-1], "v1": v1, "s": s,
                        "c_in": cin, "c_out": cout, "tile": plan["tile"],
-                       "max_abs_err": err,
-                       "v1_max_abs_err": float((v1_out - ref).abs().max())}
-                del got, again, v1_out, ref
+                       "max_abs_err": err}
+                del got, again, ref
                 if b in FWD_TIMED:
-                    fns = {"ms": kernel, "v1_ms": yardstick}
+                    fns = {"ms": kernel}
                     g = None
                     if dtype == torch.float32:
                         g = xc.index_select(1, spiral.reshape(-1).long()) \
@@ -716,19 +686,18 @@ def phase_kernels(model, profile: bool = False):
                                bound_by="operations" if ops_ms >= bytes_ms
                                else "bytes", ops_ms=ops_ms, bytes_ms=bytes_ms)
                     log(f"[kernel] {tag:30s} tile {plan['tile']} err={err:.3e}"
-                        f" ms kernel {row['ms']:.4f} v1 {row['v1_ms']:.4f}"
+                        f" ms kernel {row['ms']:.4f}"
                         + (f" plain {row['plain_ms']:.4f} gemm "
                            f"{row['gemm_ms']:.4f}" if g is not None else "")
                         + f" bound {row['bound_ms']:.4f} ({row['bound_by']})"
-                        f" | runs {np.round(runs['ms'], 4).tolist()} v1 "
-                        f"{np.round(runs['v1_ms'], 4).tolist()}")
+                        f" | runs {np.round(runs['ms'], 4).tolist()}")
                     if profile and b == max(FWD_TIMED) and g is not None:
                         log(f"[profile] {tag} forward as dispatched")
                         profile_steps(kernel, row["ms"])
                     del g
                 else:
                     log(f"[kernel] {tag:30s} tile {plan['tile']} "
-                        f"err={err:.3e} v1 err={row['v1_max_abs_err']:.3e}")
+                        f"err={err:.3e}")
                 rows.append(row)
             del x, w, bias, xc, wc
         torch.cuda.empty_cache()
@@ -738,15 +707,13 @@ def phase_kernels(model, profile: bool = False):
 def fwd_sums(rows, b: int) -> dict:
     """The nine float32 convs at batch b, summed."""
     f32 = [r for r in rows if r["dtype"] == "float32" and r["batch"] == b]
-    keys = ("ms", "v1_ms", "plain_ms", "gemm_ms", "bound_ms", "ops_ms",
-            "bytes_ms")
+    keys = ("ms", "plain_ms", "gemm_ms", "bound_ms", "ops_ms", "bytes_ms")
     out = {k: sum(r[k] for r in f32) for k in keys}
-    for k in ("ms", "v1_ms", "plain_ms", "gemm_ms"):
+    for k in ("ms", "plain_ms", "gemm_ms"):
         out[f"{k}_runs"] = [sum(r[f"{k}_runs"][i] for r in f32)
                             for i in range(2)]
     bf16 = [r for r in rows if r["dtype"] == "bfloat16" and r["batch"] == b]
     out["bf16_ms"] = sum(r["ms"] for r in bf16)
-    out["bf16_v1_ms"] = sum(r["v1_ms"] for r in bf16)
     return out
 
 
@@ -982,10 +949,11 @@ def phase_conv_backward(model, profile: bool = False):
     (`*_runs`, the run's spread): SpiralConvFn.backward's body (dy', db,
     dx, dW and the casts back) with the halves the dispatch table names
     unfused (`ms`), with both fused (`fused_ms`) and with both on the
-    unfused route (`unfused_ms`, the yardstick: torch matmuls around the
-    [B, V1, S*C] buffers and csr_reduce); each half alone, fused and
-    unfused; and the plain conv's autograd (`plain_ms`).  `profile` adds
-    the dispatched float32 backward's device time by kernel name."""
+    unfused route (`unfused_ms`, `spiral_conv_bwd_unfused`: torch matmuls
+    around the [B, V1, S*C] buffers and csr_reduce); each half alone,
+    fused and unfused; and the plain conv's autograd (`plain_ms`).
+    `profile` adds the dispatched float32 backward's device time by kernel
+    name."""
     SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
@@ -1114,106 +1082,6 @@ def phase_conv_backward(model, profile: bool = False):
     return rows
 
 
-# the batches of the dx controls: the fast recipe's trunk and neural3DMM's
-DX_CONTROL_B = (128, 256)
-
-
-def dx_control_tables(csr, s: int) -> dict:
-    """The inverse spiral table `csr` and two controls with the same rows
-    and row lengths, each entry j = v*S + s rewritten: "own" names its
-    row's vertex u (u*S + s: dy' delivery trivial, every entry of a row
-    reads the same dy' row) and "slot0" names slot 0 (v*S: every entry
-    reads one weight slab)."""
-    from semantichuman_torch.ops.csr_reduce import CSRTable
-
-    offs = csr.offs.cpu().numpy().astype(np.int64)
-    cols = csr.cols.cpu().numpy().astype(np.int64)
-    rows = np.repeat(np.arange(len(offs) - 1), np.diff(offs))
-    dev = csr.offs.device
-    return {"table": csr,
-            "own": CSRTable.build(offs, rows * s + cols % s, csr.n_src, dev),
-            "slot0": CSRTable.build(offs, cols - cols % s, csr.n_src, dev)}
-
-
-def phase_dx_controls(model) -> dict:
-    """The dx kernels (`spiral_conv_bwd_dx`) at the seven convs whose dx
-    the step computes fused, at B = 128 and 256 (DX_CONTROL_B), on the
-    real inverse table and on the two controls of `dx_control_tables`:
-    device ms of the short-row kernels (`dx_short`, `dx_narrow`) and of
-    every dx kernel, by the profiler, the three tables in turns (table,
-    own, slot0, slot0, own, table) and each the mean of its two readings.
-    Also the short kernels' share of the f32 peak on their operations
-    (2 B S C Co per entry of a short row), and, at a conv whose dx the
-    dispatch sends unfused (64 -> 128), the kernels against the unfused
-    route in turns.  No gate: the controls say how much of the short
-    kernels' time is dy' delivery and how much the weight slabs' copies."""
-    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
-    from semantichuman_torch.ops.csr_reduce import LONG_ROW
-
-    out = {}
-    gen = torch.Generator(device=DEVICE).manual_seed(5)
-    convs = conv_layers(model)[1:]  # the first conv's input has no dx
-    for b in DX_CONTROL_B:
-        sums = {}
-        for label, v1, s, cin, cout, _act, spiral, csr in convs:
-            x = torch.empty((b, v1, cin), device=DEVICE)
-            w = torch.randn((s * cin, cout), generator=gen, device=DEVICE)
-            w /= (s * cin) ** 0.5
-            dy = torch.randn((b, v1, cout), generator=gen, device=DEVICE)
-            dy[:, -1] = 0.0
-            if "dx" in SC._unfused_halves(x, w, spiral):
-                # a dx the dispatch sends unfused: the kernels against the
-                # unfused route, in turns
-                runs = in_turns({
-                    "fused": lambda: SC.spiral_conv_bwd_dx(dy, w, csr,
-                                                           (v1, s)),
-                    "unfused": lambda: SC.spiral_conv_bwd_unfused(
-                        x, w, dy, spiral, csr, need_w=False)})
-                row = {k: float(np.mean(v)) for k, v in runs.items()}
-                out[f"B={b} {label} (dispatched unfused)"] = row
-                log(f"[dx-controls] B={b} {label:18s} dispatched unfused: "
-                    f"fused {row['fused']:.4f} ms, unfused "
-                    f"{row['unfused']:.4f} ms (runs {runs})")
-                continue
-            tables = dx_control_tables(csr, s)
-            deg = np.diff(csr.offs.cpu().numpy())
-            short_entries = int(deg[deg <= LONG_ROW].sum())
-            reads = {k: [] for k in tables}
-            for name in list(tables) + list(tables)[::-1]:
-                by = device_by_name(lambda t=tables[name]: SC.spiral_conv_bwd_dx(
-                    dy, w, t, (v1, s)), reps=5)
-                short = sum(t for n, t in by.items()
-                            if "dx_short" in n or "dx_narrow" in n)
-                total = sum(t for n, t in by.items() if "dx_" in n)
-                reads[name].append((short, total))
-            row = {}
-            least = 2 * b * short_entries * cin * cout / PEAK_FLOPS[
-                torch.float32] * 1e3
-            for name, rs in reads.items():
-                short = float(np.mean([r[0] for r in rs]))
-                total = float(np.mean([r[1] for r in rs]))
-                row[name] = {"short_ms": short, "dx_ms": total,
-                             "short_runs": [r[0] for r in rs]}
-                for k, v in (("short_ms", short), ("dx_ms", total)):
-                    sums.setdefault(name, {}).setdefault(k, 0.0)
-                    sums[name][k] += v
-            row["short_peak_share"] = least / row["table"]["short_ms"]
-            sums.setdefault("least_ms", 0.0)
-            sums["least_ms"] += least
-            out[f"B={b} {label}"] = row
-            log(f"[dx-controls] B={b} {label:18s} short ms table "
-                f"{row['table']['short_ms']:.4f} own "
-                f"{row['own']['short_ms']:.4f} slot0 "
-                f"{row['slot0']['short_ms']:.4f} | all dx ms table "
-                f"{row['table']['dx_ms']:.4f} own {row['own']['dx_ms']:.4f} "
-                f"slot0 {row['slot0']['dx_ms']:.4f} | short kernel at "
-                f"{100 * row['short_peak_share']:.1f} % of the f32 peak")
-            del dy, w, x, tables
-        out[f"B={b} sums"] = sums
-        log(f"[dx-controls] B={b} seven convs: {json.dumps(sums)}")
-    return out
-
-
 def csr_families(model) -> dict:
     """id of each CSR table of the model -> (family, label): the spiral
     inverses (the unfused dx), the pools' and unpools' gather inverses,
@@ -1290,20 +1158,18 @@ def csr_bound_ms(table, wt, b: int, c: int) -> float:
     return nbytes / PEAK_BYTES * 1e3
 
 
-CSR_SUMS = ("ms", "v1_ms", "plain_ms", "library_ms", "bound_ms")
+CSR_SUMS = ("ms", "plain_ms", "library_ms", "bound_ms")
 
 
 def csr_checks(calls, tag: str, seed: int) -> list:
     """Row 8 at each call's shape, on g drawn from `seed`: the kernel
-    equals csr_reduce_v1 bit for bit (the same order of sums and the same
-    rounding) and itself over two runs, and lies within 1e-5 of the plain
+    equals itself over two runs and lies within 1e-5 of the plain
     version's largest entry (1e-4 for a spiral inverse, whose dummy row
     sums up to 34,041 rows: index_add_ adds the same terms in its own
-    order); one counted launch of each a call.  Device ms (device_ms) of
-    the kernel and v1 in turns (kernel, v1, v1, kernel; the
-    mean and both readings), of the plain version and of `index_add_` (the
-    library call; the gathered, weighted source rows made before it),
-    beside the byte bound."""
+    order); one counted launch a call.  Device ms (device_ms) of the
+    kernel (the mean of two readings, both kept), of the plain version
+    and of `index_add_` (the library call; the gathered, weighted source
+    rows made before it), beside the byte bound."""
     from semantichuman_torch.ops import csr_reduce as TR
 
     gen = torch.Generator(device=DEVICE).manual_seed(seed)
@@ -1317,14 +1183,10 @@ def csr_checks(calls, tag: str, seed: int) -> list:
         before = read_counts()
         got = TR.csr_reduce(g, table, wt)
         again = TR.csr_reduce(g, table, wt)
-        v1 = TR.csr_reduce_v1(g, table, wt)
         ref = TR.csr_reduce_plain(g, table, wt)
         sync()
         n = counts_diff(read_counts(), before)
-        require(n["csr_reduce"] == 2 and n["csr_reduce_v1"] == 1,
-                f"csr {name}: launches {n}")
-        require(torch.equal(got, v1), f"csr {name}: the kernel and v1 "
-                "differ")
+        require(n["csr_reduce"] == 2, f"csr {name}: launches {n}")
         require(torch.equal(got, again), f"csr {name}: two runs differ")
         tol = 1e-4 if call["family"] == "dx" else 1e-5
         torch.testing.assert_close(got, ref, rtol=0,
@@ -1335,16 +1197,13 @@ def csr_checks(calls, tag: str, seed: int) -> list:
                "weighted": wt is not None,
                "long_rows": int(table.long_rows.numel()),
                "max_abs_err": float((got - ref).abs().max())}
-        del got, again, v1, ref
-        runs = {"ms": [], "v1_ms": []}
-        for key in ("ms", "v1_ms", "v1_ms", "ms"):
-            fn = TR.csr_reduce if key == "ms" else TR.csr_reduce_v1
-            runs[key].append(device_ms(lambda: fn(g, table, wt)))
+        del got, again, ref
+        runs = [device_ms(lambda: TR.csr_reduce(g, table, wt))
+                for _ in range(2)]
         src = g.index_select(1, table.cols.long())
         if wt is not None:
             src = src * wt[:, None]
-        for key, v in runs.items():
-            row[key], row[f"{key}_runs"] = float(np.mean(v)), v
+        row["ms"], row["ms_runs"] = float(np.mean(runs)), runs
         row.update(
             plain_ms=device_ms(lambda: TR.csr_reduce_plain(g, table, wt)),
             library_ms=device_ms(lambda: torch.zeros(
@@ -1352,12 +1211,11 @@ def csr_checks(calls, tag: str, seed: int) -> list:
                     1, table.rows, src)),
             bound_ms=csr_bound_ms(table, wt, b, c), bound_by="bytes")
         log(f"[csr] {name:44s} err={row['max_abs_err']:.3e} device ms "
-            f"kernel {row['ms']:.4f} v1 {row['v1_ms']:.4f} plain "
+            f"kernel {row['ms']:.4f} plain "
             f"{row['plain_ms']:.4f} index_add_ {row['library_ms']:.4f} "
             f"bound {row['bound_ms']:.4f} "
             f"({100 * row['bound_ms'] / row['ms']:.0f} % of it) | runs "
-            f"{np.round(runs['ms'], 4).tolist()} v1 "
-            f"{np.round(runs['v1_ms'], 4).tolist()}")
+            f"{np.round(runs, 4).tolist()}")
         rows.append(row)
         del g, src
     torch.cuda.empty_cache()
@@ -1389,7 +1247,7 @@ def phase_csr_reduce(model, human, tables):
     step_rows = csr_checks(calls, "step", seed=2)
     for fam, f in csr_family_sums(step_rows).items():
         log(f"[csr] step family {fam:9s} {f['calls']:2d} calls: device ms "
-            f"kernel {f['ms']:.4f} v1 {f['v1_ms']:.4f} plain "
+            f"kernel {f['ms']:.4f} plain "
             f"{f['plain_ms']:.4f} index_add_ {f['library_ms']:.4f} bound "
             f"{f['bound_ms']:.4f}")
     dx_calls = [{"family": "dx", "label": f"dx {label}",
@@ -1410,34 +1268,9 @@ def phase_csr_trainer(model, human, tables):
     rows = csr_checks(calls, "trainer", seed=8)
     for fam, f in csr_family_sums(rows).items():
         log(f"[csr] trainer family {fam:9s} {f['calls']:2d} calls: device "
-            f"ms kernel {f['ms']:.4f} v1 {f['v1_ms']:.4f} bound "
+            f"ms kernel {f['ms']:.4f} bound "
             f"{f['bound_ms']:.4f}")
     return rows
-
-
-def csr_tile_sweep(model, human, tables) -> None:
-    """Tuning only: the kernel's device ms at each call of the step with
-    its batch tile held to at most 4 (the largest the kernel takes), 2 and
-    1."""
-    from semantichuman_torch.ops import csr_reduce as TR
-
-    tiles = TR._BATCH_TILES
-    gen = torch.Generator(device=DEVICE).manual_seed(9)
-    try:
-        for call in step_csr_calls(model, human, tables):
-            table, wt = call["table"], call["wt"]
-            g = torch.randn(call["shape"], generator=gen, device=DEVICE)
-            ms = {}
-            for top in tiles:
-                TR._BATCH_TILES = tuple(t for t in tiles if t <= top)
-                ms[top] = round(device_ms(lambda: TR.csr_reduce(g, table,
-                                                                wt)), 4)
-            log(f"[csr] tiles {call['label']:16s} {list(call['shape'])} "
-                f"weighted {wt is not None}: device ms by largest tile "
-                f"{ms}")
-            del g
-    finally:
-        TR._BATCH_TILES = tiles
 
 
 def gather_calls(model, tables):
@@ -1617,16 +1450,14 @@ def part_dist_bound(args, counts, asym, mode, w_mode):
 
 
 def part_dist_modes(args, consts, ct, tag: str, times: bool):
-    """The three modes of the kernel against their plain versions and v1
-    on one input: counts equal exactly (also v1's), term sums rtol 1e-5
-    (f32 sums of ~165k pair terms per tile in another order), g0 and drp
-    to 1e-4 of the largest entry (rows of ~400 terms of either sign,
-    summed in another order), two runs bit-equal.  With `times`, kernel,
-    v1 and plain in turns (kernel, v1, plain, plain, v1, kernel).  Returns
-    {mode: row}."""
+    """The three modes of the kernel against their plain versions on one
+    input: counts equal exactly, term sums rtol 1e-5 (f32 sums of ~165k
+    pair terms per tile in another order), g0 and drp to 1e-4 of the
+    largest entry (rows of ~400 terms of either sign, summed in another
+    order), two runs bit-equal.  With `times`, kernel and plain in turns
+    (kernel, plain, plain, kernel).  Returns {mode: row}."""
     from semantichuman_torch.ops.part_dist import (part_dist_call,
-                                                   part_dist_plain,
-                                                   part_dist_v1)
+                                                   part_dist_plain)
 
     out = {}
     for mode in ("fwd", "fwd_grad", "bwd"):
@@ -1634,7 +1465,6 @@ def part_dist_modes(args, consts, ct, tag: str, times: bool):
         got = part_dist_call(mode, *args, *consts, **kw)
         again = part_dist_call(mode, *args, *consts, **kw)
         ref = part_dist_plain(*args, *consts, mode=mode, **kw)
-        old = part_dist_v1(mode, *args, *consts, **kw)
         sync()
         where = f"part_dist {mode} {tag}"
         require(all(torch.equal(x, y) for x, y in zip(
@@ -1646,8 +1476,6 @@ def part_dist_modes(args, consts, ct, tag: str, times: bool):
                               }.get(mode, got)
         sums_ref, grad_ref = {"fwd": (ref, None), "bwd": (None, ref)
                               }.get(mode, ref)
-        sums_old = {"fwd": old, "fwd_grad": old[0] if mode == "fwd_grad"
-                    else None, "bwd": None}[mode]
         err = {"max_abs": 0.0}
         if sums_got is not None:
             d = (sums_got[:, 0] - sums_ref[:, 0]).abs()
@@ -1659,8 +1487,6 @@ def part_dist_modes(args, consts, ct, tag: str, times: bool):
                 msg=lambda m: f"{where} sums: {m}")
             require(torch.equal(sums_got[:, 1], sums_ref[:, 1]),
                     f"{where}: counts differ from the plain version's")
-            require(torch.equal(sums_old[:, 1], sums_ref[:, 1]),
-                    f"{where}: v1's counts differ")
         if grad_got is not None:
             err["grad"] = rel_err(grad_got, grad_ref)
             err["max_abs"] = max(err["max_abs"], float(
@@ -1672,11 +1498,10 @@ def part_dist_modes(args, consts, ct, tag: str, times: bool):
         if sums_ref is None:
             sums_ref = part_dist_plain(*args, *consts, mode="fwd")
         row = {"mode": mode, "err": err, "counts": sums_ref[:, 1]}
-        del got, again, ref, old
+        del got, again, ref
         if times:
             runs = in_turns({
                 "ms": lambda: part_dist_call(mode, *args, *consts, **kw),
-                "v1_ms": lambda: part_dist_v1(mode, *args, *consts, **kw),
                 "plain_ms": lambda: part_dist_plain(*args, *consts,
                                                     mode=mode, **kw)},
                 iters=5)
@@ -1687,12 +1512,11 @@ def part_dist_modes(args, consts, ct, tag: str, times: bool):
 
 
 def phase_part_dist(human):
-    """The three part_dist modes against their plain versions and v1 at
-    17 parts x B = 128 (w_mode threshold, sin and all_one, relat on): see
+    """The three part_dist modes against their plain versions at 17 parts
+    x B = 128 (w_mode threshold, sin and all_one, relat on): see
     part_dist_modes.  The shares of ordered pairs in the mask and of
     unordered pairs whose two Gram orders round otherwise
-    (asymmetric_pairs) are printed.  fwd_grad in threshold mode, the
-    step's call, must be faster than v1."""
+    (asymmetric_pairs) are printed."""
     from semantichuman_torch.ops.part_dist import asymmetric_pairs
 
     rows = []
@@ -1718,28 +1542,20 @@ def phase_part_dist(human):
             rows.append(r)
             log(f"[part_dist] {w_mode:9s} {mode:8s} err={r['err']} "
                 f"kernel={r['ms']:.4f} ms "
-                f"{np.round(r['ms_runs'], 4).tolist()} v1={r['v1_ms']:.4f} "
-                f"{np.round(r['v1_ms_runs'], 4).tolist()} plain="
+                f"{np.round(r['ms_runs'], 4).tolist()} plain="
                 f"{r['plain_ms']:.3f} ms bound={r['bound_ms']:.4f} ms (f32 "
                 f"{ops_ms:.4f}, sfu {sfu_ms:.4f}) masked share "
                 f"{r['masked_share']:.4f} asymmetric share "
                 f"{r['asymmetric_share']:.4f}")
-    r = next(r for r in rows if (r["w_mode"], r["mode"])
-             == ("threshold", "fwd_grad"))
-    require(r["ms"] < r["v1_ms"], f"part_dist fwd_grad threshold: kernel "
-            f"{r['ms']:.4f} ms not faster than v1 {r['v1_ms']:.4f} ms")
     return rows
 
 
 def phase_part_dist_trainer(human):
     """The three part_dist modes at the Trainer's grid (17 parts x B = 4 =
-    68 tiles) against their plain
-    versions and v1, as part_dist_modes, for w_mode threshold, sin and
-    all_one; device times (profiler) of fwd_grad, the Trainer's call,
-    beside v1's in turns.  In threshold mode, the Trainer's, the kernel
-    must be faster than v1."""
-    from semantichuman_torch.ops.part_dist import (part_dist_call,
-                                                   part_dist_v1)
+    68 tiles) against their plain versions, as part_dist_modes, for
+    w_mode threshold, sin and all_one; device times (profiler) of
+    fwd_grad, the Trainer's call, the mean of two readings."""
+    from semantichuman_torch.ops.part_dist import part_dist_call
 
     rows = []
     for w_mode in ("threshold", "sin", "all_one"):
@@ -1748,29 +1564,16 @@ def phase_part_dist_trainer(human):
         ct = torch.linspace(0.5, 1.5, args[0].shape[0], device=DEVICE)
         modes = part_dist_modes(args, consts, ct, f"{w_mode} B={TRAINER_B}",
                                 times=False)
-        fns = {"fwd_grad_ms": lambda: part_dist_call("fwd_grad", *args,
-                                                     *consts),
-               "fwd_grad_v1_ms": lambda: part_dist_v1("fwd_grad", *args,
-                                                      *consts)}
-        runs = {k: [] for k in fns}
-        for k in list(fns) + list(fns)[::-1]:       # in turns: a, b, b, a
-            runs[k].append(device_ms(fns[k]))
+        runs = [device_ms(lambda: part_dist_call("fwd_grad", *args,
+                                                 *consts))
+                for _ in range(2)]
         row = {"w_mode": w_mode, "tiles": args[0].shape[0],
                "err": {m: r["err"] for m, r in modes.items()},
-               **{k: float(np.mean(v)) for k, v in runs.items()},
-               **{f"{k}_runs": v for k, v in runs.items()}}
+               "fwd_grad_ms": float(np.mean(runs)), "fwd_grad_ms_runs": runs}
         rows.append(row)
         log(f"[part_dist] Trainer grid {row['tiles']} tiles {w_mode:9s} "
             f"fwd_grad device ms {row['fwd_grad_ms']:.4f}"
-            f" {np.round(runs['fwd_grad_ms'], 4).tolist()} v1 "
-            f"{row['fwd_grad_v1_ms']:.4f} "
-            f"{np.round(runs['fwd_grad_v1_ms'], 4).tolist()}; errors "
-            f"{row['err']}")
-    r = rows[0]
-    require(r["fwd_grad_ms"] < r["fwd_grad_v1_ms"],
-            f"part_dist fwd_grad threshold at the Trainer's {r['tiles']} "
-            f"tiles: kernel {r['fwd_grad_ms']:.4f} device ms not faster than "
-            f"v1 {r['fwd_grad_v1_ms']:.4f}")
+            f" {np.round(runs, 4).tolist()}; errors {row['err']}")
     return rows
 
 
@@ -1919,11 +1722,8 @@ def phase_train(human, hier):
         require(fam["index_add"] == 0, f"the step ran index_add_ kernels "
                 f"({fam['index_add']:.4f} ms a step): a gather's backward "
                 "added with atomics")
-    prof["part_dist_vs_v1"] = step_part_dist_vs_v1(
-        lambda: step(p, state, *segs, spec))
     prof["gathers_vs_index_select"] = step_gathers_vs_index_select(
         lambda: step(p, state, *segs, spec))
-    prof["csr_vs_v1"] = step_csr_vs_v1(lambda: step(p, state, *segs, spec))
 
     # --- bf16 trunk, one step --------------------------------------------------
     model16 = build_model(ModelConfig(trunk_dtype="bfloat16"), hier,
@@ -1968,71 +1768,6 @@ def device_by_name(run, reps: int, attempts: int = 5,
             break
     return {n: max(w.get(n, 0.0) for w in got)
             for n in set().union(*got)} if got else {}
-
-
-def step_part_dist_vs_v1(run, reps: int = 3) -> dict:
-    """The step's part_dist device ms (its two fwd_grad calls, profiled)
-    and its wall ms, through the kernel and with part_dist_v1 swapped in,
-    in turns (kernel, v1, v1, kernel), on the same parameters and batch.
-    The kernel must be faster on the device.  Outside the counted steps:
-    the main path never runs v1.  First one step records, per call, the
-    share of unordered pairs whose two Gram orders round otherwise."""
-    from semantichuman_torch.ops import part_dist as TP
-
-    if DEVICE != "cuda":
-        return {}
-    kernel_launch = TP._launch
-
-    def v1_launch(mode, *args, ct=None):
-        return TP.part_dist_v1(mode, *args, ct=ct)
-
-    shares = []
-
-    def capture_launch(mode, *args, ct=None):
-        vp, _rp, _bone, _a, n_real = args[:5]
-        n = n_real.double().repeat_interleave(vp.shape[0] // n_real.shape[0])
-        shares.append(float(TP.asymmetric_pairs(*args[:-1]).sum())
-                      / float((n * (n - 1) / 2).sum()))
-        return kernel_launch(mode, *args, ct=ct)
-
-    TP._launch = capture_launch
-    try:
-        run()
-    finally:
-        TP._launch = kernel_launch
-    runs = {k: [] for k in ("ms", "v1_ms", "wall_ms", "v1_wall_ms")}
-    try:
-        for v1 in (False, True, True, False):
-            TP._launch = v1_launch if v1 else kernel_launch
-            by_name = device_by_name(run, reps)
-            require(bool(by_name), "the profiler saw no device kernels in "
-                    "the step")
-            key = PROFILE_GROUPS["part_dist_v1" if v1 else "part_dist"]
-            runs["v1_ms" if v1 else "ms"].append(
-                sum(t for n, t in by_name.items() if key in n))
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                run()
-            sync()
-            runs["v1_wall_ms" if v1 else "wall_ms"].append(
-                (time.perf_counter() - t0) * 1e3 / reps)
-    finally:
-        TP._launch = kernel_launch
-    out = {k: float(np.mean(v)) for k, v in runs.items()}
-    out.update({f"{k}_runs": v for k, v in runs.items()})
-    out["asymmetric_shares"] = shares
-    log(f"[profile] train step part_dist: shares of pairs whose two Gram "
-        f"orders round otherwise {np.round(shares, 4).tolist()}")
-    log(f"[profile] train step part_dist device ms: kernel {out['ms']:.4f} "
-        f"{np.round(runs['ms'], 4).tolist()}, v1 {out['v1_ms']:.4f} "
-        f"{np.round(runs['v1_ms'], 4).tolist()}; step wall ms kernel "
-        f"{out['wall_ms']:.3f} {np.round(runs['wall_ms'], 3).tolist()}, v1 "
-        f"{out['v1_wall_ms']:.3f} {np.round(runs['v1_wall_ms'], 3).tolist()}")
-    require(out["ms"] < out["v1_ms"], f"the step's part_dist: kernel "
-            f"{out['ms']:.4f} device ms not faster than v1 "
-            f"{out['v1_ms']:.4f}")
-    return out
 
 
 def step_gathers_vs_index_select(run, reps: int = 3) -> dict:
@@ -2101,63 +1836,6 @@ def step_gathers_vs_index_select(run, reps: int = 3) -> dict:
     for name, fam in out["families_ms"].items():
         log(f"[profile]   {name} by family, ms per step: "
             f"{ {k: round(v, 4) for k, v in fam.items()} }")
-    return out
-
-
-def step_csr_vs_v1(run, reps: int = 3) -> dict:
-    """The yardstick of row 8's redesign: the step with every csr_reduce
-    call swapped to csr_reduce_v1 (the port's first kernel) and through
-    the kernel, in turns (kernel, v1, v1, kernel), on the same parameters
-    and batch: wall ms per step, device ms, and the device ms of the two
-    CSR families; in each run the other family must read 0.  Outside the
-    counted steps; the swap lives here only."""
-    from semantichuman_torch.ops import csr_reduce as TR
-    from semantichuman_torch.ops import row_gather as RG
-    SC = importlib.import_module("semantichuman_torch.ops.spiral_conv")
-
-    if DEVICE != "cuda":
-        return {}
-    kernel = TR.csr_reduce
-    runs = {k: [] for k in ("wall_ms", "v1_wall_ms", "device_ms",
-                            "v1_device_ms", "csr_ms", "v1_csr_ms")}
-    try:
-        for v1 in (False, True, True, False):
-            RG.csr_reduce = SC.csr_reduce = (TR.csr_reduce_v1 if v1
-                                             else kernel)
-            run()
-            sync()
-            t0 = time.perf_counter()
-            for _ in range(reps):
-                run()
-            sync()
-            wall = (time.perf_counter() - t0) * 1e3 / reps
-            by_name = device_by_name(run, reps)
-            require(bool(by_name), "the profiler saw no device kernels in "
-                    "the step")
-            fam = {k: sum(t for n, t in by_name.items()
-                          if PROFILE_GROUPS[k] in n)
-                   for k in ("csr_reduce", "csr_reduce_v1")}
-            used, other = (("csr_reduce_v1", "csr_reduce") if v1
-                           else ("csr_reduce", "csr_reduce_v1"))
-            require(fam[other] == 0 and fam[used] > 0, f"step with "
-                    f"{used}: CSR families {fam}")
-            pre = "v1_" if v1 else ""
-            runs[pre + "wall_ms"].append(wall)
-            runs[pre + "device_ms"].append(sum(by_name.values()))
-            runs[pre + "csr_ms"].append(fam[used])
-    finally:
-        RG.csr_reduce = SC.csr_reduce = kernel
-    out = {k: float(np.mean(v)) for k, v in runs.items()}
-    out.update({f"{k}_runs": v for k, v in runs.items()})
-    log(f"[profile] train step, csr_reduce through the kernel: "
-        f"{out['wall_ms']:.3f} ms/step "
-        f"{np.round(runs['wall_ms'], 3).tolist()}, device "
-        f"{out['device_ms']:.3f} ms, csr {out['csr_ms']:.4f} ms "
-        f"{np.round(runs['csr_ms'], 4).tolist()}; through v1: "
-        f"{out['v1_wall_ms']:.3f} ms/step "
-        f"{np.round(runs['v1_wall_ms'], 3).tolist()}, device "
-        f"{out['v1_device_ms']:.3f} ms, csr {out['v1_csr_ms']:.4f} ms "
-        f"{np.round(runs['v1_csr_ms'], 4).tolist()}")
     return out
 
 
@@ -2534,8 +2212,7 @@ def phase_trainer_graph(root: Path, losses: list, final: list,
     chunks clipped at the epoch-2 checkpoint), bit for bit; (d) the
     launches recorded while the step is captured (GRAPH_LAUNCHES) and,
     over one replayed epoch, torch.profiler's count of every kernel a
-    multiple of the epoch's steps, the index_add_ family and the
-    yardsticks at 0."""
+    multiple of the epoch's steps, the index_add_ family at 0."""
     from semantichuman_torch.train.loop import Trainer
     from semantichuman_torch.utils.params import tree_leaves
 
@@ -2636,8 +2313,7 @@ def profile_replays(tr, epoch: int) -> dict:
     step (its staged schedule, on its static buffers; the Trainer's state
     is not read back): each of the port's kernels counted a multiple of
     the epoch's steps, the port's kernel families present, the index_add_
-    family and the yardsticks' at 0.  -> device busy ms a step, top kernels,
-    families."""
+    family at 0.  -> device busy ms a step, top kernels, families."""
     from torch.profiler import ProfilerActivity, profile
 
     k = len(tr.train_loader)
@@ -2685,10 +2361,8 @@ def profile_replays(tr, epoch: int) -> dict:
     for label in ("conv_fwd", "conv_bwd_dw", "csr_reduce", "part_dist",
                   "row_gather"):
         require(launches[label] > 0, f"no {label} kernel in the replays")
-    for label in ("index_add", "conv_fwd_v1", "csr_reduce_v1",
-                  "part_dist_v1"):
-        require(launches[label] == 0, f"{label} in the replays: "
-                f"{launches[label]} a step")
+    require(launches["index_add"] == 0, "index_add in the replays: "
+            f"{launches['index_add']} a step")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
     return {"device_busy_ms": busy, "kernels_per_step": sum(
         n_by_name.values()) // k, "family_launches_per_step": launches,
@@ -4340,8 +4014,8 @@ TRACE_WINDOW = (2, 5)
 # row 3 (part_dist fwd_grad), row 7, row 8 (PROFILE_GROUPS)
 TRACE_FAMILIES = ("conv_fwd", "conv_bwd_dw", "part_dist", "row_gather",
                   "csr_reduce")
-# families of a plain version or a yardstick: none may run in the window
-TRACE_ABSENT = ("index_add", "conv_fwd_v1", "csr_reduce_v1", "part_dist_v1")
+# families of a plain version: none may run in the window
+TRACE_ABSENT = ("index_add",)
 # the CPU tests' tolerances (tests/test_torch_geometry.py): operators
 # within GEO_OP_TOL of the output's largest entry; on icosphere(3) the
 # geodesic field and the biharmonic distances within GEO_FIELD_TOL of
@@ -4645,8 +4319,6 @@ def phase_dp(tmp: Path) -> tuple:
         for k in ("spiral_conv_fwd", "spiral_conv_bwd_dw", "row_gather",
                   "csr_reduce", "part_dist_fwd_grad"):
             require(c[k] > 0, f"[parallel] {path}: no {k} launch")
-        require(all(c[k] == 0 for k in YARDSTICKS),
-                f"[parallel] {path}: a yardstick launched: {c}")
     ranks = res["dp_gloo"]
     require(ranks[0][0]["launches"] == ranks[1][0]["launches"],
             "(a) the two ranks launched different kernels: "
@@ -4666,7 +4338,7 @@ def trace_families(path: str) -> dict:
 def phase_trace(tmp: Path) -> tuple:
     """(c) the B = 4 loop (the paper recipe, one epoch of 16 steps) with a
     trace window over TRACE_WINDOW and without: the trace names the
-    kernels of rows 1, 3, 7 and 8 and no plain version or yardstick, the
+    kernels of rows 1, 3, 7 and 8 and no plain version, the
     logged losses are bit-equal, and the window's cost in ms a step.
     -> (results, launches of the traced fit)."""
     from semantichuman_torch.train.loop import Trainer
@@ -5568,7 +5240,6 @@ def main(argv=None) -> int:
         log(json.dumps({k: sum(r[k] for r in bwd32) for k in (
             "ms", "fused_ms", "unfused_ms", "dw_ms", "dw_unfused_ms",
             "dx_ms", "dx_unfused_ms", "bound_ms")}))
-        log(json.dumps({"dx_controls": phase_dx_controls(model)}))
         log(card)
         return 0
     if args.part_dist:
@@ -5588,7 +5259,6 @@ def main(argv=None) -> int:
         # the CSR reduce's checks alone, for tuning its kernel
         step_rows, _dx = phase_csr_reduce(model, human, loss_tables)
         phase_csr_trainer(model, human, loss_tables)
-        csr_tile_sweep(model, human, loss_tables)
         log(json.dumps({"families": csr_family_sums(step_rows)}))
         log(card)
         return 0
@@ -5601,13 +5271,10 @@ def main(argv=None) -> int:
     fwd = {b: fwd_sums(rows, b) for b in FWD_TIMED}
     for b, f in fwd.items():
         log(f"[kernel] nine float32 convs at B={b}: kernel {f['ms']:.3f} ms "
-            f"(runs {np.round(f['ms_runs'], 3).tolist()}), v1 "
-            f"{f['v1_ms']:.3f} ({np.round(f['v1_ms_runs'], 3).tolist()}), "
+            f"(runs {np.round(f['ms_runs'], 3).tolist()}), "
             f"plain {f['plain_ms']:.3f}, gemm alone {f['gemm_ms']:.3f}, bound "
             f"{f['bound_ms']:.3f} ms ({100 * f['bound_ms'] / f['ms']:.1f} % "
-            f"of it); bf16 kernel {f['bf16_ms']:.3f} v1 {f['bf16_v1_ms']:.3f}")
-        require(f["ms"] < f["v1_ms"], f"B={b}: the kernel's nine convs "
-                f"({f['ms']:.3f} ms) not faster than v1 ({f['v1_ms']:.3f})")
+            f"of it); bf16 kernel {f['bf16_ms']:.3f}")
     kernel_ms = fwd[BATCH]["ms"]
     log(f"[serve] B={BATCH}: spiral_conv kernels {kernel_ms:.3f} ms of "
         f"{timing[BATCH]:.3f} ms per forward "
@@ -5721,12 +5388,8 @@ def main(argv=None) -> int:
         "bound_by": ("operations" if f64["ops_ms"] >= f64["bytes_ms"]
                      else "bytes"),
         "library_ms": None,
-        # the yardsticks: the port's first kernel (csrc/spiral_conv.cu), and
         # cuBLAS's SGEMM alone on the pre-gathered buffer
-        "v1_ms": f64["v1_ms"],
         "gemm_ms": f64["gemm_ms"],
-        "v1_launches_by_path": launches("spiral_conv_fwd_v1")[
-            "launches_by_path"],
         "b384": f384,
         "b64": f64,
         "forward_ms": {"default": timing, "banded": timing_banded},
@@ -5785,12 +5448,7 @@ def main(argv=None) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": "operations",
             "library_ms": None,
-            # the yardstick: the port's first kernel (csrc/part_dist_v1.cu)
-            "v1_ms": r["v1_ms"],
-            "v1_runs": r["v1_ms_runs"],
             "ms_runs": r["ms_runs"],
-            "v1_launches_by_path": launches("part_dist_v1")[
-                "launches_by_path"],
             "masked_share": r["masked_share"],
             "asymmetric_share": r["asymmetric_share"],
             "sin": pd[("sin", mode)],
@@ -5859,15 +5517,10 @@ def main(argv=None) -> int:
                            for r in csr_step + csr_dx + csr_trainer),
         **{k: sum(r[k] for r in csr_step) for k in CSR_SUMS},
         "bound_by": "bytes",
-        # the yardstick: the port's first kernel (csrc/csr_reduce_v1.cu),
-        # bit-equal at every shape above
-        "v1_launches_by_path": launches("csr_reduce_v1")[
-            "launches_by_path"],
         "families": csr_fams,
         "step_calls": csr_step,
         # weighted, at the four unpools' backward shapes (B = 384)
         "weighted_ms": sum(r["ms"] for r in csr_w),
-        "weighted_v1_ms": sum(r["v1_ms"] for r in csr_w),
         "weighted_bound_ms": sum(r["bound_ms"] for r in csr_w),
         "weighted_library_ms": sum(r["library_ms"] for r in csr_w),
         # the stress case: the nine convs' dx shapes at 384; the step runs
@@ -5875,7 +5528,6 @@ def main(argv=None) -> int:
         "conv_dx": csr_dx,
         "conv_dx_ms": {k: sum(r[k] for r in csr_dx[1:]) for k in CSR_SUMS},
         "trainer_calls": csr_trainer,
-        "step_vs_v1": train.get("csr_vs_v1"),
         "conv_backward_f32_sum": bwd_sum,
         "conv_backward": conv_bwd,
     })
@@ -5883,11 +5535,6 @@ def main(argv=None) -> int:
     # the take route, the B = 128 step; at trunk batch 12 the Trainer
     # reaches them at its four coarse convs only
     for k in KERNEL_COUNTS:
-        if k in YARDSTICKS:
-            # the yardstick: no main path reaches it
-            require(all(c[k] == 0 for c in paths.values()),
-                    f"{k} launched on a main path: {launches(k)}")
-            continue
         path = ("train_step" if k.startswith("spiral_conv_bwd")
                 else "trainer_banded" if k.startswith("banded_gather")
                 else "trainer")

@@ -13,9 +13,7 @@
 // route, where g is dy' @ W^T viewed as [B, V1*S, C] and (offs, cols) the
 // inverse spiral table.  Every sum runs in a fixed order (no atomics) and
 // a weighted term is rounded before it is added (__fmul_rn, __fadd_rn: no
-// FMA), so the result repeats from run to run and equals, bit for bit, the
-// port's first kernel (csrc/csr_reduce_v1.cu), which keeps this order and
-// rounding with one thread per (b, u, c).
+// FMA), so the result repeats from run to run.
 //
 // Bound on an H100 SXM: bytes.  Each element of g read once, each output
 // written once, one add per 4 bytes read.  At the largest weighted call
@@ -44,15 +42,16 @@
 //     the row's length.  Loads past the row's end or the tile's last batch
 //     element read the last valid ones again instead of branching (a
 //     branch per entry made each load of g wait for its index: the C = 3
-//     calls at B = 4 ran some 20 % slower than v1).  The wrapper picks BT
+//     calls at B = 4 ran some 20 % slower than the port's first kernel,
+//     one thread per (b, u, c)).  The wrapper picks BT
 //     (ops/csr_reduce.py:plan): up to 4 while the grid keeps one card's
 //     worth of threads; 1 for 4-byte units (C odd) over rows of 4 or more
 //     entries on average, which measured faster there (the faces'
 //     backward, rows of 12 bytes).  BT = 8 and 16 measured slower (BT = 16
 //     needs some 160 registers a thread, one block an SM).  Units of 8 or
 //     4 bytes where C is not a multiple of 4.
-//   * long rows keep the first kernel's reduction tree, which fixes the
-//     order of the sums: chunks of equal length; in a chunk, warp w sums
+//   * long rows take a fixed reduction tree, which fixes the order of the
+//     sums: chunks of equal length; in a chunk, warp w sums
 //     the entries w, w + 8, w + 16, ...; the 8 warp sums are added in warp
 //     order into a partial per chunk; a last kernel adds each long row's
 //     chunk partials in chunk order.  Here a warp's lanes run over (batch

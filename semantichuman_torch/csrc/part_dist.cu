@@ -7,8 +7,6 @@
 //   mode 1  _fwd_grad_call (_fwd_grad_kernel): the sums and the unscaled
 //           gradient g0 = d(term sum)/d(rp), the one-pass VJP
 //   mode 2  _vjp_bwd       (_bwd_kernel):      drp = g0 * ct, recomputed
-// The port's first kernel for the same function stays, as the yardstick,
-// in csrc/part_dist_v1.cu.
 //
 // One tile is one (part, batch element): vp, rp [n_pad, 3] (GT and
 // reconstructed vertices of the part, rows >= n_real are padding), the

@@ -2,9 +2,7 @@
 //
 // Replaces the TPU kernel semantichuman_tpu/ops/pallas/spiral_conv_pallas.py:
 // spiral_conv_fused (kernel _kernel), whose XLA form is
-// semantichuman_tpu/ops/spiral_conv.py:spiral_conv_take, and the port's
-// first kernel for it (csrc/spiral_conv.cu, kept as the yardstick).  It
-// computes
+// semantichuman_tpu/ops/spiral_conv.py:spiral_conv_take.  It computes
 //
 //   y[b, v, n] = act(sum_{s, c} x[b, spiral[v, s], c] * W[s*C + c, n] + bias[n])
 //   y[b, V1-1, :] = 0                                   (the dummy row)

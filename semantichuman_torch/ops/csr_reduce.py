@@ -12,9 +12,7 @@ taps).  Each sum runs in ascending j, with no atomics.  `csr_reduce`
 launches the hand-written kernel (`csrc/csr_reduce.cu`: one thread per
 (row, 16-byte unit) over a tile of batch elements, `plan`) for a CUDA
 tensor and counts the launch in `csr_reduce.launches`; for a CPU tensor
-it runs `csr_reduce_plain`.  `csr_reduce_v1` is the port's first kernel
-(`csrc/csr_reduce_v1.cu`: a thread per (b, u, c)), kept as the
-yardstick: no main path calls it, and the two give the same bits.
+it runs `csr_reduce_plain`, the kernel's reference.
 """
 
 from __future__ import annotations
@@ -169,10 +167,10 @@ def plan(b: int, n_rows: int, c: int, unit: int, n_chunks: int = 0,
             "long_bpw": bpw, "long_grid": long_grid}
 
 
-def _launch(name: str, g, table: CSRTable, wt, tiled: bool):
-    """Check, allocate and launch sh_<name> of library `name`, with the
-    unit and batch tile of `plan` where `tiled`; returns (output, whether
-    a kernel was launched: not for an empty output)."""
+def _launch(g, table: CSRTable, wt):
+    """Check, allocate and launch sh_csr_reduce with the unit and batch
+    tile of `plan`; returns (output, whether a kernel was launched: not
+    for an empty output)."""
     _check(g, table, wt)
     b, m, c = g.shape
     out = torch.empty((b, table.n_rows, c), dtype=torch.float32,
@@ -182,56 +180,37 @@ def _launch(name: str, g, table: CSRTable, wt, tiled: bool):
     n_chunks = table.chunk_lo.shape[0]
     partial = torch.empty((max(n_chunks, 1), b, c), dtype=torch.float32,
                           device=g.device)
-    tile = ()
-    if tiled:
-        from .row_gather import copy_unit
-        p = plan(b, table.n_rows, c, copy_unit(4 * c, g, out, partial),
-                 n_chunks, table.cols.shape[0])
-        tile = (p["unit"], p["bt"], p["long_bpw"])
-    lib = build.load(name)
+    from .row_gather import copy_unit
+    p = plan(b, table.n_rows, c, copy_unit(4 * c, g, out, partial),
+             n_chunks, table.cols.shape[0])
+    lib = build.load("csr_reduce")
     with torch.cuda.device(g.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"sh_{name}")(
+        rc = lib.sh_csr_reduce(
             g.data_ptr(), table.offs.data_ptr(), table.cols.data_ptr(),
             None if wt is None else wt.data_ptr(),
             table.chunk_lo.data_ptr(), table.chunk_hi.data_ptr(),
             table.long_rows.data_ptr(), table.chunk_offs.data_ptr(),
             partial.data_ptr(), out.data_ptr(), b, m, table.n_rows, c,
-            LONG_ROW, table.long_rows.shape[0], n_chunks, *tile, stream)
-    build.check(lib, rc, f"{name} kernel launch")
+            LONG_ROW, table.long_rows.shape[0], n_chunks, p["unit"],
+            p["bt"], p["long_bpw"], stream)
+    build.check(lib, rc, "csr_reduce kernel launch")
     return out, True
-
-
-def _on_card(g, table, wt, name: str, tiled: bool, fn) -> torch.Tensor:
-    """csr_reduce_plain for a CPU tensor; for a CUDA one the kernel,
-    counted in fn.launches."""
-    if g.device.type == "cpu":
-        return csr_reduce_plain(g, table, wt)
-    if g.device.type != "cuda":
-        raise ValueError(f"csr_reduce runs on cpu or cuda, not {g.device}")
-    out, launched = _launch(name, g, table, wt, tiled)
-    fn.launches += int(launched)
-    return out
 
 
 def csr_reduce(g: torch.Tensor, table: CSRTable,
                wt: torch.Tensor | None = None) -> torch.Tensor:
     """g [B, M, C] float32, wt [nnz] float32 in CSR order or None ->
     [B, n_rows, C] float32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    return _on_card(g, table, wt, "csr_reduce", True, csr_reduce)
+    tensors launch the kernel, counted in `csr_reduce.launches`, or
+    raise."""
+    if g.device.type == "cpu":
+        return csr_reduce_plain(g, table, wt)
+    if g.device.type != "cuda":
+        raise ValueError(f"csr_reduce runs on cpu or cuda, not {g.device}")
+    out, launched = _launch(g, table, wt)
+    csr_reduce.launches += int(launched)
+    return out
 
 
 csr_reduce.launches = 0
-
-
-def csr_reduce_v1(g: torch.Tensor, table: CSRTable,
-                  wt: torch.Tensor | None = None) -> torch.Tensor:
-    """The port's first kernel (`csrc/csr_reduce_v1.cu`), the yardstick of
-    `csr_reduce`, counted in `csr_reduce_v1.launches`; no main path calls
-    it.  Arguments and result as csr_reduce's; a CPU tensor runs
-    csr_reduce_plain."""
-    return _on_card(g, table, wt, "csr_reduce_v1", False, csr_reduce_v1)
-
-
-csr_reduce_v1.launches = 0

@@ -38,10 +38,6 @@ _VOIDP, _INT = ctypes.c_void_p, ctypes.c_int
 
 # C signature of every exported function, per source file
 SIGNATURES = {
-    "spiral_conv": {
-        "sh_spiral_conv_fwd": ([_VOIDP] * 5 + [_INT] * 7 + [_VOIDP], _INT),
-        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
-    },
     "spiral_conv_fwd": {
         "sh_spiral_conv_fwd_tiled": ([_VOIDP] * 5 + [_INT] * 15 + [_VOIDP],
                                      _INT),
@@ -51,18 +47,9 @@ SIGNATURES = {
         "sh_csr_reduce": ([_VOIDP] * 10 + [_INT] * 10 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
-    "csr_reduce_v1": {
-        "sh_csr_reduce_v1": ([_VOIDP] * 10 + [_INT] * 7 + [_VOIDP], _INT),
-        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
-    },
     "part_dist": {
         "sh_part_dist": ([_VOIDP] * 10 + [_INT] * 4 + [ctypes.c_float] * 2
                          + [_INT] * 3 + [_VOIDP], _INT),
-        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
-    },
-    "part_dist_v1": {
-        "sh_part_dist_v1": ([_VOIDP] * 10 + [_INT] * 4 + [ctypes.c_float]
-                            + [_INT] * 2 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
     "banded_gather": {

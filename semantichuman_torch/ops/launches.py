@@ -29,19 +29,16 @@ _GRAPHS: dict = {}
 
 def _counters():
     from .banded_gather import banded_gather_bwd, banded_gather_fwd
-    from .csr_reduce import csr_reduce, csr_reduce_v1
-    from .part_dist import part_dist_sums, part_dist_v1
+    from .csr_reduce import csr_reduce
+    from .part_dist import part_dist_sums
     from .row_gather import row_gather
     from .spiral_conv import (DW_CALLS, DX_CALLS, spiral_conv,
-                              spiral_conv_bwd_dw, spiral_conv_bwd_dx,
-                              spiral_conv_fwd_v1)
+                              spiral_conv_bwd_dw, spiral_conv_bwd_dx)
 
     return ({"spiral_conv_fwd": spiral_conv,
-             "spiral_conv_fwd_v1": spiral_conv_fwd_v1,
              "spiral_conv_bwd_dw": spiral_conv_bwd_dw,
              "spiral_conv_bwd_dx": spiral_conv_bwd_dx,
-             "csr_reduce": csr_reduce, "csr_reduce_v1": csr_reduce_v1,
-             "part_dist_v1": part_dist_v1,
+             "csr_reduce": csr_reduce,
              "banded_gather_fwd": banded_gather_fwd,
              "banded_gather_bwd": banded_gather_bwd,
              "row_gather": row_gather}, part_dist_sums.launches, DX_CALLS,

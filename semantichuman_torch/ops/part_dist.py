@@ -18,11 +18,10 @@ kernel (`csrc/part_dist.cu`), which share one tile computation:
 A CUDA tensor launches the kernel (counted in `part_dist_sums.launches`
 per mode); a CPU tensor runs `part_dist_plain`.  Gradients flow to rp
 only: GT vertices, bones and edit factors are data.  In threshold mode the
-kernel skips acos past a guard band (`_acos_skip_cos`).  The port's first
-kernel (`csrc/part_dist_v1.cu`) stays as the yardstick `part_dist_v1`,
-which no main path calls.  `asymmetric_pairs` counts the pairs whose two
-Gram orders round otherwise: the share that decided against evaluating
-each unordered pair once (the kernel's note).
+kernel skips acos past a guard band (`_acos_skip_cos`).  The plain
+version is the kernel's reference.  `asymmetric_pairs` counts the pairs
+whose two Gram orders round otherwise: the share that decided against
+evaluating each unordered pair once (the kernel's note).
 
 `fused_part_sums` groups parts into equal-n_pad buckets (`PartDistTables`)
 and makes one call per bucket.  A tile never holds an n x n matrix, so any
@@ -281,11 +280,11 @@ def _rows_warps(g: int, n_pad: int) -> int:
     return 4 if g * -(-n_pad // 32) >= _ROWS_WARPS_4_BLOCKS else 8
 
 
-def _run(name: str, mode: str, vp, rp, bone, a, n_real, allone,
-         w_mode: str, w_threshold: float, relat: bool, ct=None):
-    """One call of the kernel `csrc/<name>.cu` (part_dist or part_dist_v1,
-    which take the same arguments but the acos band): (sums, (sums, g0)
-    or drp like part_dist_plain, whether a kernel was launched)."""
+def _launch(mode: str, vp, rp, bone, a, n_real, allone, w_mode: str,
+            w_threshold: float, relat: bool, ct=None):
+    """One call of the kernel `csrc/part_dist.cu`, counted in
+    `part_dist_sums.launches[mode]`; arguments and results as
+    part_dist_plain's."""
     if (ct is None) != (mode != "bwd"):
         raise ValueError("mode 'bwd' and only it takes the cotangent ct")
     _check(vp, rp, bone, a, n_real, allone, w_mode, ct)
@@ -305,44 +304,20 @@ def _run(name: str, mode: str, vp, rp, bone, a, n_real, allone,
     if partial.numel() == 0:               # no tiles or no rows: no pairs
         sums.zero_()
         grad.zero_()
-        return result, False
-    band = (_acos_skip_cos(w_threshold),) if name == "part_dist" else ()
-    warps = (_rows_warps(g, n_pad),) if name == "part_dist" else ()
-    lib = build.load(name)
+        return result
+    lib = build.load("part_dist")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = getattr(lib, f"sh_{name}")(
+        rc = lib.sh_part_dist(
             vp.data_ptr(), rp.data_ptr(), bone.data_ptr(), a.data_ptr(),
             n_real.data_ptr(), allone.data_ptr(), ct.data_ptr(),
             partial.data_ptr(), sums.data_ptr(), grad.data_ptr(), g,
             g // n_real.shape[0], n_pad, W_MODES[w_mode],
-            float(w_threshold), *band, int(relat), _MODES[mode], *warps,
-            stream)
-    build.check(lib, rc, f"{name} {mode} kernel launch")
-    return result, True
-
-
-def _launch(mode: str, *args, ct=None):
-    """One kernel call, counted; arguments and results as
-    part_dist_plain's."""
-    result, launched = _run("part_dist", mode, *args, ct=ct)
-    part_dist_sums.launches[mode] += int(launched)
+            float(w_threshold), _acos_skip_cos(w_threshold), int(relat),
+            _MODES[mode], _rows_warps(g, n_pad), stream)
+    build.check(lib, rc, f"part_dist {mode} kernel launch")
+    part_dist_sums.launches[mode] += 1
     return result
-
-
-def part_dist_v1(mode: str, *args, ct=None):
-    """The port's first part_dist kernel (`csrc/part_dist_v1.cu`: no acos
-    band), the yardstick of the current one and counted in
-    `part_dist_v1.launches`; no main path calls it.  Arguments and results
-    as part_dist_call; a CPU tensor runs part_dist_plain."""
-    if args[0].device.type == "cpu":
-        return part_dist_plain(*args, mode=mode, ct=ct)
-    result, launched = _run("part_dist_v1", mode, *args, ct=ct)
-    part_dist_v1.launches += int(launched)
-    return result
-
-
-part_dist_v1.launches = 0
 
 
 def part_dist_call(mode: str, *args, ct=None):

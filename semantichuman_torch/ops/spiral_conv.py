@@ -20,13 +20,11 @@ Function whose forward is the custom op `semantichuman::spiral_conv_fwd`
 the hand-written kernel (`csrc/spiral_conv_fwd.cu`, counted in
 `spiral_conv.launches`) for a CUDA tensor and `spiral_conv_plain` for a
 CPU tensor.  The wrapper picks the kernel's tile from the shape
-(`_fwd_plan`).  The port's first forward kernel
-(`csrc/spiral_conv.cu`) stays as the yardstick, `spiral_conv_fwd_v1`, which
-a table keyed by the conv's static shape (`_FWD_V1`, empty) would send a
-shape to where the new kernel measured slower.  Its backward takes the activation's
-derivative from the output and db as a plain sum; dW and dx come from the
-two fused kernels of `csrc/spiral_conv_bwd.cu` (`spiral_conv_bwd_dw`,
-`spiral_conv_bwd_dx`, counted in their `.launches`), which gather on chip
+(`_fwd_plan`); the plain version is the kernel's reference.  Its backward
+takes the activation's derivative from the output and db as a plain sum;
+dW and dx come from the two fused kernels of `csrc/spiral_conv_bwd.cu`
+(`spiral_conv_bwd_dw`, `spiral_conv_bwd_dx`, counted in their
+`.launches`), which gather on chip
 and write nothing of width S*C to device memory; dW reads x through the
 spiral table's window plan (`ops/dw_window.py:window_of`, built with the
 tables: each tile of vertices' distinct source rows staged once), dx walks
@@ -63,7 +61,7 @@ ACTIVATIONS = {
     "identity": lambda v: v,
 }
 
-# activation codes of csrc/spiral_conv.cu and csrc/spiral_conv_fwd.cu
+# activation codes of csrc/spiral_conv_fwd.cu
 _ACT_CODES = {"identity": 0, "elu": 1, "relu": 2, "leaky_relu": 3,
               "sigmoid": 4, "tanh": 5}
 
@@ -178,39 +176,6 @@ def _check(x, spiral_idx, w, bias) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
-def spiral_conv_fwd_v1(x: torch.Tensor, spiral_idx: torch.Tensor,
-                       w: torch.Tensor, bias: torch.Tensor,
-                       activation: str = "elu") -> torch.Tensor:
-    """The port's first forward kernel (`csrc/spiral_conv.cu`: one batch
-    element per block, 4 x 4 register tiles), kept as the yardstick of
-    the current one and counted in `spiral_conv_fwd_v1.launches`.  x and w
-    in the compute type; the plain version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return spiral_conv_plain(x, spiral_idx, w, bias, activation)
-    _check(x, spiral_idx, w, bias)
-    b, v1, c = x.shape
-    s = spiral_idx.shape[1]
-    co = w.shape[1]
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the v1 kernel's grid limit "
-                         "65535")
-    y = torch.empty((b, v1, co), dtype=torch.float32, device=x.device)
-    if y.numel() == 0:
-        return y
-    lib = build.load("spiral_conv")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.sh_spiral_conv_fwd(
-            x.data_ptr(), spiral_idx.data_ptr(), w.data_ptr(),
-            bias.data_ptr(), y.data_ptr(), b, v1, c, s, co,
-            _ACT_CODES[activation], int(x.dtype == torch.bfloat16), stream)
-    build.check(lib, rc, "spiral_conv v1 kernel launch")
-    spiral_conv_fwd_v1.launches += 1
-    return y
-
-
-spiral_conv_fwd_v1.launches = 0
-
 # Tiles of csrc/spiral_conv_fwd.cu: id -> (BM rows of B*V1, BN output
 # channels, threads, blocks an SM its registers allow).  Per output width
 # (and, at 64 outputs, input width) the candidates run from the largest
@@ -241,16 +206,6 @@ def _fwd_candidates(c: int, co: int) -> tuple:
     if co > 16:
         return (3, 4)
     return (5, 6)
-
-
-# Static conv shapes (C, Co, S) whose forward takes the v1 kernel on the
-# card: only where the card measured the current kernel slower there.
-_FWD_V1 = frozenset()
-
-
-def _fwd_route(c: int, co: int, s: int) -> str:
-    """Which forward kernel a CUDA tensor of this static shape takes."""
-    return "v1" if (c, co, s) in _FWD_V1 else "tiled"
 
 
 def _fwd_plan(b: int, v1: int, c: int, s: int, co: int,
@@ -326,14 +281,11 @@ def _check_fwd(x, spiral_idx, w, bias, tile=None) -> dict:
 
 
 def _forward(x, spiral_idx, w, bias, activation, tile=None) -> torch.Tensor:
-    """The forward kernel on a CUDA tensor (the v1 kernel for a shape that
-    `_FWD_V1` names; `tile` forces one of the kernel's tiles), the plain
-    version on a CPU one; x and w arrive in the compute type."""
+    """The forward kernel on a CUDA tensor (`tile` forces one of its
+    tiles), the plain version on a CPU one; x and w arrive in the compute
+    type."""
     if x.device.type == "cpu":
         return spiral_conv_plain(x, spiral_idx, w, bias, activation)
-    if tile is None and _fwd_route(x.shape[2], w.shape[1],
-                                   spiral_idx.shape[1]) == "v1":
-        return spiral_conv_fwd_v1(x, spiral_idx, w, bias, activation)
     plan = _check_fwd(x, spiral_idx, w, bias, tile)
     b, v1, c = x.shape
     s = spiral_idx.shape[1]
@@ -409,10 +361,11 @@ def spiral_conv_bwd_dx_plain(dy: torch.Tensor, w: torch.Tensor,
 
 def spiral_conv_bwd_unfused(x, w, dy, spiral_idx, csr, need_x=True,
                             need_w=True):
-    """The unfused card route, the yardstick of the fused kernels: the
-    gathered [B*V1, S*C] buffer and a matmul for dW, dy @ W^T and the
-    csr_reduce kernel (its plain version on the CPU) for dx.  Returns
-    (dx or None, dW or None), float32."""
+    """The unfused card route, a live one (`_unfused_halves`: dx at
+    batch <= 16 and the halves `_UNFUSED` names): the gathered
+    [B*V1, S*C] buffer and a matmul for dW, dy @ W^T and the csr_reduce
+    kernel (its plain version on the CPU) for dx.  Returns (dx or None,
+    dW or None), float32."""
     b, v1, c = x.shape
     s = spiral_idx.shape[1]
     dx = dw = None

@@ -39,53 +39,40 @@ def test_modes_refuse_the_rest(argv):
         CS.parse_args(argv)
 
 
+def _families(label):
+    return [g for g, key in CS.PROFILE_GROUPS.items() if key in label]
+
+
 def test_profile_groups_split_the_two_forward_kernels():
     """Every kernel of csrc/spiral_conv_fwd.cu falls in `conv_fwd` and in
-    no other family; the v1 kernel of csrc/spiral_conv.cu in
-    `conv_fwd_v1` alone, so the step's profile shows v1 at 0 ms."""
-    new = _kernels("spiral_conv_fwd.cu")
-    old = _kernels("spiral_conv.cu")
-    assert sorted(new) == ["sc_fwd_narrow_kernel", "sc_fwd_tile_kernel"]
-    assert old == ["spiral_conv_fwd_kernel"]
-    groups = CS.PROFILE_GROUPS
-    for name, family in [(n, "conv_fwd") for n in new] + \
-            [(n, "conv_fwd_v1") for n in old]:
+    no other family."""
+    kernels = _kernels("spiral_conv_fwd.cu")
+    assert sorted(kernels) == ["sc_fwd_narrow_kernel", "sc_fwd_tile_kernel"]
+    for name in kernels:
         label = f"void (anonymous namespace)::{name}<float, 128>(float)"
-        assert [g for g, key in groups.items() if key in label] == [family]
+        assert _families(label) == ["conv_fwd"]
 
 
 def test_profile_groups_split_the_two_part_dist_kernels():
-    """Every kernel of csrc/part_dist.cu falls in `part_dist` alone, and
-    every kernel of csrc/part_dist_v1.cu in `part_dist_v1` alone."""
-    new = _kernels("part_dist.cu")
-    old = _kernels("part_dist_v1.cu")
-    assert sorted(new) == ["part_dist_rows_finish_kernel",
-                           "part_dist_rows_kernel"]
-    assert sorted(old) == ["part_dist_v1_finish_kernel",
-                           "part_dist_v1_kernel"]
-    groups = CS.PROFILE_GROUPS
-    for name, family in [(n, "part_dist") for n in new] + \
-            [(n, "part_dist_v1") for n in old]:
+    """Every kernel of csrc/part_dist.cu falls in `part_dist` and in no
+    other family."""
+    kernels = _kernels("part_dist.cu")
+    assert sorted(kernels) == ["part_dist_rows_finish_kernel",
+                               "part_dist_rows_kernel"]
+    for name in kernels:
         label = f"void (anonymous namespace)::{name}<1>(float const*)"
-        assert [g for g, key in groups.items() if key in label] == [family]
+        assert _families(label) == ["part_dist"]
 
 
 def test_profile_groups_split_the_two_csr_kernels():
-    """Every kernel of csrc/csr_reduce.cu falls in `csr_reduce` alone, and
-    every kernel of csrc/csr_reduce_v1.cu in `csr_reduce_v1` alone, so the
-    step's profile tells the two apart when v1 is swapped in."""
-    new = _kernels("csr_reduce.cu")
-    old = _kernels("csr_reduce_v1.cu")
-    assert sorted(new) == ["csr_rows_finish_kernel", "csr_rows_kernel",
-                           "csr_rows_long_kernel"]
-    assert sorted(old) == ["csr_v1_long_finish_kernel",
-                           "csr_v1_long_partial_kernel",
-                           "csr_v1_short_kernel"]
-    groups = CS.PROFILE_GROUPS
-    for name, family in [(n, "csr_reduce") for n in new] + \
-            [(n, "csr_reduce_v1") for n in old]:
+    """Every kernel of csrc/csr_reduce.cu falls in `csr_reduce` and in no
+    other family."""
+    kernels = _kernels("csr_reduce.cu")
+    assert sorted(kernels) == ["csr_rows_finish_kernel", "csr_rows_kernel",
+                               "csr_rows_long_kernel"]
+    for name in kernels:
         label = f"void (anonymous namespace)::{name}<4, 4, true>(float4)"
-        assert [g for g, key in groups.items() if key in label] == [family]
+        assert _families(label) == ["csr_reduce"]
 
 
 def test_csr_reduce_mode_parses():
@@ -98,14 +85,17 @@ def test_csr_reduce_mode_parses():
 
 
 def test_launch_literals():
-    """The conv forward's count per path is the new kernel's; v1 is
-    counted and expected at 0 everywhere; the Trainer's default step at
+    """KERNEL_COUNTS names every kernel counter `launches.read()` reports
+    and each literal counts only those; the Trainer's default step at
     batch 12 is the take route (both gates closed): 9 conv forwards and
     dW, every dx half of the 8 convs with one unfused (a csr_reduce
     each), and every row gather with a gradient adds one csr_reduce (its
     backward); the forced banded arm keeps the counts of the JAX gates:
     4 take-route convs, 4 unfused dx and 7 fix-up backwards."""
-    assert "spiral_conv_fwd_v1" in CS.KERNEL_COUNTS
+    from semantichuman_torch.ops import launches
+
+    assert set(CS.KERNEL_COUNTS) == {k for k, v in launches.read().items()
+                                     if isinstance(v, int)}
     assert [CS.SERVE_LAUNCHES[r]["spiral_conv_fwd"]
             for r in ("small", "large", "take")] == [4, 9, 9]
     assert CS.STEP_LAUNCHES["spiral_conv_fwd"] == 9
@@ -120,15 +110,11 @@ def test_launch_literals():
     assert CS.TRAIN_LAUNCHES_BANDED["csr_reduce"] == 7 + 4 + (
         CS.ENCODE_GATHER_GRADS + CS.LOSS_GATHER_GRADS) == 23
     assert CS.STEP_LAUNCHES["csr_reduce"] == 17
-    assert set(CS.YARDSTICKS) == {"spiral_conv_fwd_v1", "part_dist_v1",
-                                  "csr_reduce_v1"}
-    assert set(CS.YARDSTICKS) <= set(CS.KERNEL_COUNTS)
     assert CS.STEP_LAUNCHES["part_dist_fwd_grad"] == 2
     assert CS.TRAIN_LAUNCHES["part_dist_fwd_grad"] == 2
     for table in (CS.STEP_LAUNCHES, CS.TRAIN_LAUNCHES,
                   CS.TRAIN_LAUNCHES_BANDED, *CS.SERVE_LAUNCHES.values()):
-        for k in CS.YARDSTICKS:
-            assert CS.expect(table)[k] == 0
+        assert set(table) <= set(CS.KERNEL_COUNTS)
 
 
 def _trainer_batches():
@@ -159,7 +145,8 @@ def test_graph_launch_literals():
     """The epoch path's captured step is the 'dynamic' exchange variant:
     the volume term (one face gather and its backward) runs on every step,
     so it launches what a loop step that drew 'ori' does, the 'm' draw's
-    fewer launches never apply, and the yardsticks stay at 0."""
+    fewer launches never apply; it counts only the kernels KERNEL_COUNTS
+    names."""
     assert CS.GRAPH_LAUNCHES == CS.TRAIN_LAUNCHES
     assert CS.GRAPH_LAUNCHES_BANDED == CS.TRAIN_LAUNCHES_BANDED
     assert CS.GRAPH_LAUNCHES["row_gather"] == 6 + 4 + 11
@@ -167,8 +154,7 @@ def test_graph_launch_literals():
     assert CS.GRAPH_LAUNCHES_BANDED["row_gather"] == 6 + 8 + 11
     assert CS.GRAPH_LAUNCHES_BANDED["csr_reduce"] == 23
     assert set(CS.M_VARIANT_FEWER) <= set(CS.GRAPH_LAUNCHES)
-    for k in CS.YARDSTICKS:
-        assert CS.expect(CS.GRAPH_LAUNCHES)[k] == 0
+    assert set(CS.GRAPH_LAUNCHES) <= set(CS.KERNEL_COUNTS)
 
 
 @pytest.mark.parametrize("flag,attr", [("--dfaust", "dfaust"),
@@ -261,8 +247,8 @@ def test_n3dmm_launch_literals():
     """A neural3DMM step at B = 16: 9 conv forwards and dW, every dx half
     of the 8 convs with one on the unfused route (a csr_reduce each), 9 row
     gathers (4 pools, 4 unpools, edgereg's face gather), each with a
-    gradient; a val batch 9 forwards and 8 gathers; no part_dist, banded
-    or yardstick launch."""
+    gradient; a val batch 9 forwards and 8 gathers; no part_dist or banded
+    launch."""
     t, v = CS.TRAIN_LAUNCHES_N3DMM, CS.VAL_LAUNCHES_N3DMM
     assert (t["spiral_conv_fwd"], t["spiral_conv_bwd_dw"],
             t["spiral_conv_bwd_dx"], t["row_gather"],
@@ -270,7 +256,7 @@ def test_n3dmm_launch_literals():
     assert (v["spiral_conv_fwd"], v["row_gather"]) == (9, 8)
     for table in (t, v):
         for k in CS.KERNEL_COUNTS:
-            if k.startswith(("part_dist", "banded")) or k in CS.YARDSTICKS:
+            if k.startswith(("part_dist", "banded")):
                 assert CS.expect(table)[k] == 0
 
 
@@ -604,8 +590,8 @@ def test_device_by_name_takes_the_larger_of_two_windows(monkeypatch):
 def test_deploy_paths_join_the_kernels_line():
     """Phase 10's four counted paths (one run_demo, the eager programs,
     the captures, cli.eval_reference on the card) go into the kernels
-    line's launches_by_path beside the other phases' paths, and the
-    yardsticks are held at 0 on them as on every path."""
+    line's launches_by_path beside the other phases' paths, which the
+    kernels line holds to KERNEL_COUNTS."""
     import inspect
 
     deploy = inspect.getsource(CS.phase_deploy)
@@ -615,7 +601,7 @@ def test_deploy_paths_join_the_kernels_line():
         "edit", "export_serve", "graph_serve", "eval_reference"]
     main = inspect.getsource(CS.main)
     assert "**deploy_counts" in main
-    assert "for k in KERNEL_COUNTS:" in main and "YARDSTICKS" in main
+    assert "for k in KERNEL_COUNTS:" in main
 
 
 def test_parallel_mode_parses():

@@ -196,8 +196,7 @@ def test_part_dist_kernels_match_plain(cuda, n_reals, n_pad, batch, spread,
     """The three part_dist kernels (fwd, fwd_grad, bwd) against their
     plain versions, which round every per-pair value alike: counts equal,
     term sums rtol 1e-5 and gradients to 1e-4 of the largest entry (sums
-    in another order).  One counted launch each; two runs bit-equal; the
-    v1 kernel counts alike."""
+    in another order).  One counted launch each; two runs bit-equal."""
     from semantichuman_torch.ops import part_dist as TP
     args = _part_case(n_reals, n_pad, batch, cuda, spread=spread) \
         + [w_mode, 0.8, relat]
@@ -209,17 +208,13 @@ def test_part_dist_kernels_match_plain(cuda, n_reals, n_pad, batch, spread,
     again = TP.part_dist_call("fwd_grad", *args)
     ref_sums, ref_g0 = TP.part_dist_plain(*args, mode="fwd_grad")
     ref_drp = TP.part_dist_plain(*args, mode="bwd", ct=ct)
-    v1_before = TP.part_dist_v1.launches
-    v1_sums = TP.part_dist_v1("fwd", *args)
     torch.cuda.synchronize()
     for mode, extra in (("fwd", 1), ("fwd_grad", 2), ("bwd", 1)):
         assert TP.part_dist_sums.launches[mode] == before[mode] + extra
-    assert TP.part_dist_v1.launches == v1_before + 1
     for s in (sums, sums2):
         torch.testing.assert_close(s[:, 0], ref_sums[:, 0], rtol=1e-5,
                                    atol=0)
         assert torch.equal(s[:, 1], ref_sums[:, 1])
-    assert torch.equal(v1_sums[:, 1], ref_sums[:, 1])
     for g, r in ((g0, ref_g0), (drp, ref_drp)):
         torch.testing.assert_close(g, r, rtol=0,
                                    atol=1e-4 * float(r.abs().max()))
@@ -973,7 +968,7 @@ def test_spiral_conv_bwd_kernels_reject_bad_input(cuda, full_tables):
         TC.spiral_conv_bwd_dx(dy, w, csr_t, (v1, s + 1))
 
 
-# --- the forward kernel (csrc/spiral_conv_fwd.cu) and its yardstick -------
+# --- the forward kernel (csrc/spiral_conv_fwd.cu) ---------------------------
 
 # (v1, s, c, co) random tables off every chunk and tile size: C = 5 (K = 35,
 # element copies), C = 40 (a 32-channel slice and an 8-channel one), C = 12
@@ -1008,32 +1003,26 @@ def _fwd_inputs(b, v1, s, c, co, dtype, device, seed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_spiral_conv_fwd_matches_plain_and_v1(cuda, full_tables, dtype):
-    """The forward kernel against its plain version and the v1 kernel at
-    the nine full-width conv shapes and at ragged sizes, B = 1 and 5: the
-    same products, f32 sums in another order (rtol 1e-4, atol 1e-5); the
-    dummy row exactly zero; two runs bit-equal; one counted launch a call
-    on each wrapper."""
+def test_spiral_conv_fwd_matches_plain(cuda, full_tables, dtype):
+    """The forward kernel against its plain version at the nine full-width
+    conv shapes and at ragged sizes, B = 1 and 5: the same products, f32
+    sums in another order (rtol 1e-4, atol 1e-5); the dummy row exactly
+    zero; two runs bit-equal; one counted launch a call."""
     for i, (label, b, spiral, c, co) in enumerate(_fwd_cases(full_tables,
                                                              cuda)):
         v1, s = spiral.shape
         x, w, bias = _fwd_inputs(b, v1, s, c, co, dtype, cuda, i)
-        before = (TC.spiral_conv.launches, TC.spiral_conv_fwd_v1.launches)
+        before = TC.spiral_conv.launches
         got = TC._forward(x, spiral, w, bias, "elu")
         again = TC._forward(x, spiral, w, bias, "elu")
-        old = TC.spiral_conv_fwd_v1(x, spiral, w, bias, "elu")
         ref = TC.spiral_conv_plain(x, spiral, w, bias, "elu")
         torch.cuda.synchronize()
-        assert (TC.spiral_conv.launches,
-                TC.spiral_conv_fwd_v1.launches) == (before[0] + 2,
-                                                    before[1] + 1), label
+        assert TC.spiral_conv.launches == before + 2, label
         assert got.dtype == torch.float32 and got.shape == (b, v1, co)
         assert torch.equal(got, again), label
         assert torch.count_nonzero(got[:, -1]) == 0, label
         torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5,
                                    msg=lambda m: f"{label}: {m}")
-        torch.testing.assert_close(got, old, rtol=1e-4, atol=1e-5,
-                                   msg=lambda m: f"{label} v1: {m}")
 
 
 @pytest.mark.cuda
@@ -1231,7 +1220,7 @@ def test_gather_rows_rejects_bad_input(cuda):
         TR.csr_reduce(g, table.inverse, table.inv_w[:-1])
 
 
-# --- the CSR reduce (row 8) against its yardstick csr_reduce_v1 --------------
+# --- the CSR reduce (row 8): run to run, and against its plain version -------
 
 def _csr_cases(rng):
     """(label, CSR table, weights in CSR order or None, C): a spiral
@@ -1251,13 +1240,13 @@ def _csr_cases(rng):
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("b", [1, 3, 12, 17, 40])
 @pytest.mark.parametrize("c", [3, 6, 16, 32, 64, 192])
-def test_csr_reduce_equals_v1(cuda, c, b, weighted):
-    """The kernel keeps v1's order and rounding (ascending j, each weighted
-    product rounded on its own, long rows through the same chunk tree), so
-    the two give the same bits at every batch tile's edge and unit (16
-    bytes; 8 at C = 6; 4 at C = 3), and at B = 1 with wide rows; two runs
-    bit-equal; within 1e-5 of the plain version's largest entry (index_add_
-    adds the same terms); each call one counted launch of its kernel."""
+def test_csr_reduce_repeats_and_matches_plain(cuda, c, b, weighted):
+    """At every batch tile's edge and unit (16 bytes; 8 at C = 6; 4 at
+    C = 3), and at B = 1 with wide rows, each table with a long row: two
+    runs bit-equal (a fixed order of sums, no atomics); within 1e-5 of the
+    plain version's largest entry (index_add_ adds the same terms in
+    another order: the long rows' chunk tree is not ascending); each call
+    one counted launch."""
     from semantichuman_torch.ops import csr_reduce as TR
     rng = np.random.default_rng(b * 1000 + c)
     for label, table, has_w in _csr_cases(rng):
@@ -1265,16 +1254,13 @@ def test_csr_reduce_equals_v1(cuda, c, b, weighted):
         wt = table.inv_w if weighted and has_w else None
         g = torch.from_numpy(rng.standard_normal(
             (b, inv.n_src, c)).astype(np.float32)).to(cuda)
-        before = (TR.csr_reduce.launches, TR.csr_reduce_v1.launches)
+        before = TR.csr_reduce.launches
         got = TR.csr_reduce(g, inv, wt)
         again = TR.csr_reduce(g, inv, wt)
-        v1 = TR.csr_reduce_v1(g, inv, wt)
         ref = TR.csr_reduce_plain(g, inv, wt)
         torch.cuda.synchronize()
-        assert (TR.csr_reduce.launches, TR.csr_reduce_v1.launches) == (
-            before[0] + 2, before[1] + 1), label
+        assert TR.csr_reduce.launches == before + 2, label
         assert inv.long_rows.numel() >= 1, label
-        assert torch.equal(got, v1), label
         assert torch.equal(got, again), label
         torch.testing.assert_close(got, ref, rtol=0,
                                    atol=1e-5 * float(ref.abs().max()),
@@ -1282,10 +1268,10 @@ def test_csr_reduce_equals_v1(cuda, c, b, weighted):
 
 
 @pytest.mark.cuda
-def test_csr_reduce_equals_v1_on_the_topology(cuda, full_tables):
+def test_csr_reduce_repeats_on_the_topology(cuda, full_tables):
     """Every spiral, pool and unpool inverse of the bundled topology at
-    B = 40, weighted where the table is: the kernel equals v1 bit for
-    bit."""
+    B = 40, weighted where the table is: two runs bit-equal, within 1e-5
+    of the plain version's largest entry."""
     from semantichuman_torch.ops import csr_reduce as TR
     gen = torch.Generator(device=cuda).manual_seed(3)
     cases = [(f"spiral L{l}", t, None, 16)
@@ -1297,13 +1283,17 @@ def test_csr_reduce_equals_v1_on_the_topology(cuda, full_tables):
     for label, table, wt, c in cases:
         g = torch.randn((40, table.n_src, c), generator=gen, device=cuda)
         got = TR.csr_reduce(g, table, wt)
-        v1 = TR.csr_reduce_v1(g, table, wt)
+        again = TR.csr_reduce(g, table, wt)
+        ref = TR.csr_reduce_plain(g, table, wt)
         torch.cuda.synchronize()
-        assert torch.equal(got, v1), label
+        assert torch.equal(got, again), label
+        torch.testing.assert_close(got, ref, rtol=0,
+                                   atol=1e-5 * float(ref.abs().max()),
+                                   msg=lambda m: f"{label}: {m}")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["csr_reduce", "csr_reduce_v1"])
+@pytest.mark.parametrize("name", ["csr_reduce"])
 def test_csr_reduce_kernels_reject_bad_input(cuda, name):
     """A wrong dtype, a wrong row count, weights of the wrong shape or
     place: each raises and launches nothing."""

@@ -2,7 +2,7 @@
 against the plain acos decision (on float32 cosines and on the bundled
 meshes), the premise of one evaluation per unordered pair (where the two
 Gram orders of a pair round alike every decision agrees) and the count of
-pairs where they do not, and the v1 wrapper's plain version.  The kernels
+pairs where they do not, and the wrapper's plain version.  The kernels
 themselves run in test_torch_kernels_cuda.py."""
 
 import math
@@ -192,29 +192,12 @@ def test_guard_band_edges(thr, want):
     assert TP._acos_skip_cos(thr) == want
 
 
-def test_v1_runs_the_plain_version_on_the_cpu():
-    """part_dist_v1 on CPU tensors is the plain version, and counts no
-    launch."""
-    rng = np.random.default_rng(2)
-    vp = rng.uniform(-0.5, 0.5, (2, 16, 3)).astype(np.float32)
-    rp = (vp + rng.normal(0, 0.02, vp.shape)).astype(np.float32)
-    args = [torch.from_numpy(x) for x in (
-        vp, rp, rng.normal(0, 0.3, (2, 3)).astype(np.float32),
-        np.ones((1, 2), np.float32), np.asarray([13], np.int32),
-        np.asarray([0], np.int32))] + ["threshold", 0.8, True]
-    before = TP.part_dist_v1.launches
-    sums, g0 = TP.part_dist_v1("fwd_grad", *args)
-    ref_sums, ref_g0 = TP.part_dist_plain(*args, mode="fwd_grad")
-    assert torch.equal(sums, ref_sums) and torch.equal(g0, ref_g0)
-    assert TP.part_dist_v1.launches == before
-
-
 @pytest.mark.parametrize("w_mode", ["all_one", "linear", "sin",
                                     "threshold"])
 @pytest.mark.parametrize("mode", ["fwd", "fwd_grad", "bwd"])
 def test_wrappers_run_the_plain_version_on_the_cpu(mode, w_mode):
-    """part_dist_call and part_dist_v1 on CPU tensors are the plain
-    version in every mode and w_mode, and count no launch."""
+    """part_dist_call on CPU tensors is the plain version in every mode
+    and w_mode, and counts no launch."""
     rng = np.random.default_rng(4)
     vp = rng.uniform(-0.5, 0.5, (4, 24, 3)).astype(np.float32)
     rp = (vp + rng.normal(0, 0.02, vp.shape)).astype(np.float32)
@@ -225,14 +208,12 @@ def test_wrappers_run_the_plain_version_on_the_cpu(mode, w_mode):
         + [w_mode, 0.6, w_mode != "linear"]
     kw = {"ct": torch.linspace(0.5, 1.5, 4)} if mode == "bwd" else {}
     ref = TP.part_dist_plain(*args, mode=mode, **kw)
-    before = (dict(TP.part_dist_sums.launches), TP.part_dist_v1.launches)
-    for fn in (TP.part_dist_call, TP.part_dist_v1):
-        got = fn(mode, *args, **kw)
-        for g, r in zip(got if isinstance(got, tuple) else (got,),
-                        ref if isinstance(ref, tuple) else (ref,)):
-            assert torch.equal(g, r)
-    assert (dict(TP.part_dist_sums.launches),
-            TP.part_dist_v1.launches) == before
+    before = dict(TP.part_dist_sums.launches)
+    got = TP.part_dist_call(mode, *args, **kw)
+    for g, r in zip(got if isinstance(got, tuple) else (got,),
+                    ref if isinstance(ref, tuple) else (ref,)):
+        assert torch.equal(g, r)
+    assert dict(TP.part_dist_sums.launches) == before
 
 
 @pytest.mark.parametrize("mode,with_ct", [("fwd", True), ("bwd", False)])
@@ -258,7 +239,7 @@ def test_rows_warps(g, n_pad, want):
     assert TP._rows_warps(g, n_pad) == want
 
 
-@pytest.mark.parametrize("launch", ["_launch", "part_dist_v1"])
+@pytest.mark.parametrize("launch", ["_launch"])
 def test_tiles_above_the_shared_memory_raise(launch):
     """A tile above the kernel's shared memory raises before any launch;
     nothing falls back to another route."""
@@ -267,10 +248,5 @@ def test_tiles_above_the_shared_memory_raise(launch):
     args = (vp, vp.clone(), torch.ones((1, 3)), torch.ones((1, 1)),
             torch.tensor([big], dtype=torch.int32),
             torch.zeros(1, dtype=torch.int32), "threshold", 0.8, True)
-    fn = getattr(TP, launch)
     with pytest.raises(ValueError, match="shared-memory tile"):
-        if launch == "_launch":
-            fn("fwd", *args)
-        else:
-            fn("fwd", *(t.to("meta") if torch.is_tensor(t) else t
-                        for t in args))
+        getattr(TP, launch)("fwd", *args)

@@ -7,6 +7,8 @@ plan (`ops/dx_plan.py`) walked on the CPU.  The kernels
 against their plain versions on the card are in test_torch_kernels_cuda.py."""
 
 import importlib
+import re
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -694,3 +696,35 @@ def test_dispatch_sends_a_dx_whose_slice_cannot_fit_unfused():
         TC._check_bwd_dx(dy, w, _csr(idx), (v1, s))
     TC._check_bwd_dx(dy[..., :192].contiguous(), w[:, :192].contiguous(),
                      _csr(idx), (v1, s))
+
+
+def _host_table(table):
+    """(the wrapper's copy, the cases parsed from its CUDA source)."""
+    csrc = Path(TC.__file__).resolve().parents[1] / "csrc"
+    if table == "csr":
+        src = (csrc / "csr_reduce.cu").read_text()
+        cases = re.findall(r"case (\d+): launch_rows<NV, (\d+), W>", src)
+        assert all(c == bt for c, bt in cases)
+        return sorted(TR._BATCH_TILES), sorted(int(bt) for _c, bt in cases)
+    src = (csrc / "spiral_conv_bwd.cu").read_text()
+    if table == "dx":
+        cases = re.findall(r"case (\d+): err = dx_short_launch<T, (\d+)>",
+                           src)
+        assert all(c == ntc for c, ntc in cases)
+        return sorted(DX.NTCS), sorted(int(ntc) for _c, ntc in cases)
+    body = src[src.index("cudaError_t dw_dispatch("):]
+    body = body[:body.index("default:")]
+    cases = re.findall(r"case (\d+): return dw_launch<T, (\d+), (\d+), "
+                       r"(\d+), (\d+)>", body)
+    return DW.TILES, {int(i): tuple(map(int, rest)) for i, *rest in cases}
+
+
+@pytest.mark.parametrize("table", ["dw", "dx", "csr"])
+def test_host_table_matches_the_source(table):
+    """Each dispatch table a wrapper copies from its CUDA source equals the
+    source's instances: `dw_window.TILES` the dw_launch<T, BKT, BN, TN,
+    RG> cases of `dw_dispatch`, `dx_plan.NTCS` the dx_short_launch<T, NTC>
+    cases, `csr_reduce._BATCH_TILES` the batch tiles of launch_rows<NV,
+    BT, W> that `launch` switches on."""
+    copy, cases = _host_table(table)
+    assert cases and copy == cases

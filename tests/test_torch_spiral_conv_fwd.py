@@ -1,8 +1,8 @@
-"""The spiral conv's forward wrappers on the CPU: the checks of the forward
+"""The spiral conv's forward wrapper on the CPU: the checks of the forward
 kernel (`csrc/spiral_conv_fwd.cu`), its tile plan at the default model's
-nine convs, the route between it and the v1 kernel, the v1 wrapper's plain
-version, and the batch rule that sends dx to the unfused route.  The
-kernels themselves run in test_torch_kernels_cuda.py."""
+nine convs, the wrapper's plain version, and the batch rule that sends dx
+to the unfused route.  The kernels themselves run in
+test_torch_kernels_cuda.py."""
 
 import importlib
 import re
@@ -171,32 +171,15 @@ def test_check_rejects(fault, error):
         TC._check_fwd(x, idx, w, bias)
 
 
-def test_route_table_keys_are_model_shapes():
-    """`_FWD_V1` names only static shapes (C, Co, S) of the default
-    model's convs; an unknown shape takes the tiled kernel."""
-    shapes = {(c, co, s) for _v1, s, c, co in MODEL_CONVS}
-    assert set(TC._FWD_V1) <= shapes
-    assert TC._fwd_route(8, 16, 6) == "tiled"
-
-
-def test_route_reads_the_table(monkeypatch):
-    monkeypatch.setattr(TC, "_FWD_V1", frozenset({(64, 128, 8)}))
-    assert TC._fwd_route(64, 128, 8) == "v1"
-    assert TC._fwd_route(128, 64, 8) == "tiled"
-
-
 @pytest.mark.parametrize("activation", sorted(TC.ACTIVATIONS))
 def test_v1_wrapper_takes_plain_on_cpu(activation):
-    """On a CPU tensor both forward wrappers are the plain version and
-    launch nothing."""
+    """On a CPU tensor the forward wrapper is the plain version and
+    launches nothing."""
     x, idx, w, bias = _case(b=3, v1=50, s=9, c=3, co=3, seed=1)
-    before = (TC.spiral_conv_fwd_v1.launches, TC.spiral_conv.launches)
+    before = TC.spiral_conv.launches
     ref = TC.spiral_conv_plain(x, idx, w, bias, activation)
-    assert torch.equal(TC.spiral_conv_fwd_v1(x, idx, w, bias, activation),
-                       ref)
     assert torch.equal(TC._forward(x, idx, w, bias, activation), ref)
-    assert (TC.spiral_conv_fwd_v1.launches,
-            TC.spiral_conv.launches) == before
+    assert TC.spiral_conv.launches == before
 
 
 @pytest.mark.parametrize("b,halves", [(1, ("dx",)), (12, ("dx",)),
