@@ -7,7 +7,7 @@ Needs one NVIDIA H100 (sm_90a) and nvcc.  Phases, each of which fails the
 run:
 
 1. build: compile every CUDA kernel of the port from `semantichuman_torch/
-   csrc/` (one nvcc per source, six sources, in parallel) and print the
+   csrc/` (one nvcc per source, seven sources, in parallel) and print the
    card.
 2. the conv forward: at each of the nine full-width conv shapes (the
    bundled 6892-vertex topology's spiral tables), in float32 and bfloat16
@@ -105,17 +105,28 @@ run:
    Then the CSR reduce at the shapes of one Trainer step's calls (batch
    12, the default take route: the 8 unfused dx, the gathers' backward),
    recorded from one loss + gradient, checked and timed as in phase 4.
-7. the Trainer: the paper recipe (Config() defaults: B = 4 per segment,
-   lr 1e-3, banded_conv on, both gates closed: the take route) on
+7. the Trainer.  First the optimizer (`phase_optimizer`): the three
+   recipes the benchmark trains (the paper recipe, train_fast.yaml's clip
+   and b2, the neural3DMM baseline) each fit one short epoch on the epoch
+   path; each captured step records OPTIMIZER_LAUNCHES (the norm's two
+   kernels and the update's one), and over an epoch of replays the
+   profiler counts each of them once a replay and no `multi_tensor_apply`
+   kernel; then the optimizer at each recipe's leaves against its plain
+   chain: the norm within 2e-6 of float64 with its flag 0, the update
+   bit-equal in place and out of place, and device ms of graph replays
+   in turns.  Then the paper recipe
+   (Config() defaults: B = 4 per segment, lr 1e-3, banded_conv on, both
+   gates closed: the take route) on
    synthetic SMPL-scale data (64 train, 16 test meshes), full width, 3
    epochs with the launch counts set to 0 just before fit(): finite
    falling epoch losses and per step (TRAIN_LAUNCHES) 9 spiral-conv
    forwards and 9 dW, 0 dx (at batch <= 16 every dx half takes the
    unfused route), 21 row gathers (the encode's 6, the unpools' 4, the
    loss's 11), 24 csr_reduce (the 8 unfused dx, the 16 gathers with a
-   gradient), 2 part_dist fwd_grad, one row gather and one csr_reduce
-   fewer on a step whose skeleton exchange drew 'm' (no volume term);
-   plus 9 forward launches and 11 row gathers per validation pass.
+   gradient), 2 part_dist fwd_grad, the optimizer's three kernels
+   (OPTIMIZER_LAUNCHES, every training step), one row gather and one
+   csr_reduce fewer on a step whose skeleton exchange drew 'm' (no volume
+   term); plus 9 forward launches and 11 row gathers per validation pass.
    fit() runs as a user's does, with torch's default algorithms, and a
    second fit() from the same seed must give its epoch losses and final
    parameters bit for bit.  Four runs resumed from its epoch-2
@@ -331,7 +342,12 @@ DEVICE = "cuda"
 KERNEL_COUNTS = ("spiral_conv_fwd", "spiral_conv_bwd_dw",
                  "spiral_conv_bwd_dx", "csr_reduce", "part_dist_fwd",
                  "part_dist_fwd_grad", "part_dist_bwd", "banded_gather_fwd",
-                 "banded_gather_bwd", "row_gather")
+                 "banded_gather_bwd", "row_gather", "adam_sumsq",
+                 "adam_norm", "adam_update")
+# the optimizer's launches a training step, whatever the recipe's clip,
+# decay and b2 (`ops/adam.py`): the gradients' norm (the chunks' sums and
+# their fixed-order finish) and one Adam update over every leaf
+OPTIMIZER_LAUNCHES = {"adam_sumsq": 1, "adam_norm": 1, "adam_update": 1}
 # row gathers (`ops/row_gather.py:gather_rows`, the row_gather kernel) of
 # one encode: the 4 pools and the part and keypoint heads; all but the
 # keypoint head's (its input is data) take a gradient, whose backward is
@@ -395,7 +411,7 @@ TRAIN_LAUNCHES = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
                   + LOSS_GATHERS,
                   "csr_reduce": 8 + ENCODE_GATHER_GRADS + UNPOOL_GATHERS
                   + LOSS_GATHER_GRADS,
-                  "part_dist_fwd_grad": 2}
+                  "part_dist_fwd_grad": 2, **OPTIMIZER_LAUNCHES}
 # the same step in the forced banded arm (FORCED_GATES): the forward as
 # "small" above plus the loss's gathers; backward through 8 banded calls
 # and their 7 fix-up gathers' backward through csr_reduce; the 4
@@ -407,7 +423,7 @@ TRAIN_LAUNCHES_BANDED = {"spiral_conv_fwd": 4, "spiral_conv_bwd_dw": 4,
                          "row_gather": ENCODE_GATHERS + 8 + LOSS_GATHERS,
                          "csr_reduce": 7 + 4 + ENCODE_GATHER_GRADS
                          + LOSS_GATHER_GRADS,
-                         "part_dist_fwd_grad": 2}
+                         "part_dist_fwd_grad": 2, **OPTIMIZER_LAUNCHES}
 # launches per step of the epoch path, recorded while its step is captured
 # (train/graph.py): the 'dynamic' exchange variant runs the volume term on
 # every step and multiplies it by the step's 'ori' draw, so every step
@@ -427,7 +443,7 @@ STEP_LAUNCHES = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
                  "row_gather": ENCODE_GATHERS + UNPOOL_GATHERS + LOSS_GATHERS,
                  "csr_reduce": 1 + ENCODE_GATHER_GRADS + UNPOOL_GATHERS
                  + LOSS_GATHER_GRADS,
-                 "part_dist_fwd_grad": 2}
+                 "part_dist_fwd_grad": 2, **OPTIMIZER_LAUNCHES}
 # launches per step of the neural3DMM recipe (configs/train_neural3dmm.yaml:
 # B = 16, banded_conv off, so the take route): 9 conv forwards and their
 # 9 dW; the 8 dx halves (all but the first conv's, whose input is data)
@@ -439,7 +455,7 @@ POOL_GATHERS = 4
 N3DMM_GATHERS = POOL_GATHERS + UNPOOL_GATHERS + 1
 TRAIN_LAUNCHES_N3DMM = {"spiral_conv_fwd": 9, "spiral_conv_bwd_dw": 9,
                         "spiral_conv_bwd_dx": 0, "row_gather": N3DMM_GATHERS,
-                        "csr_reduce": 8 + N3DMM_GATHERS}
+                        "csr_reduce": 8 + N3DMM_GATHERS, **OPTIMIZER_LAUNCHES}
 # a neural3DMM val or test batch (16 meshes): one forward, its pools and
 # unpools
 VAL_LAUNCHES_N3DMM = {"spiral_conv_fwd": 9,
@@ -2298,6 +2314,196 @@ def phase_trainer_graph(root: Path, losses: list, final: list,
     return out
 
 
+def optimizer_recipes() -> dict:
+    """The benchmark's three training recipes, each cut to one short epoch
+    of synthetic meshes on the epoch path: the paper recipe (Config()
+    defaults: decay 5e-5, b2 0.999, no clip), configs/train_fast.yaml
+    (clip 5, b2 0.95) and configs/train_neural3dmm.yaml (the baseline:
+    decay 5e-5, b2 0.999, 22 leaves)."""
+    from semantichuman_torch.config import Config
+
+    def cut(name: str, n_train: int):
+        raw = Config.from_yaml(str(ROOT / "configs" / name)).to_dict()
+        raw["data"].update(synthetic=True, synthetic_train=n_train,
+                           synthetic_test=16)
+        raw["train"].update(n_epochs=1, scan_epochs=1, val_every=100,
+                            ck_frequency=100, save_recons=False,
+                            epoch_scan=True)
+        return Config.from_dict(raw)
+
+    return {"b4": trainer_cfg(epoch_scan=True, n_epochs=1, ck_frequency=100),
+            "b64": cut("train_fast.yaml", 128),
+            "n3dmm": cut("train_neural3dmm.yaml", 64)}
+
+
+def optimizer_state(sizes: list, seed: int) -> tuple:
+    """Random gradients, parameters and moments (nu >= 0) on the card,
+    leaves of `sizes` entries."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def leaves(scale):
+        return [torch.randn(n, generator=gen, device="cuda") * scale
+                for n in sizes]
+
+    grads, params, mu = leaves(1e-2), leaves(0.05), leaves(1e-3)
+    return grads, params, mu, [t.abs() for t in leaves(1e-4)]
+
+
+def optimizer_check(opt, sizes: list) -> dict:
+    """The optimizer's kernels against its plain chain on the card, at
+    leaves of `sizes` under the recipe's clip, decay and b2: the norm
+    within 2e-6 (relative) of float64, its flag 0, two runs bit-equal;
+    given that norm, `update_`'s parameters and moments (in place) and
+    `adam_update`'s updates and moments (out of place) bit-equal to
+    `update_plain_`'s and `_moments`'.  -> the norm's relative error and
+    whether the clip engaged."""
+    from semantichuman_torch.ops import adam as adam_ops
+    from semantichuman_torch.train.optim import global_norm
+
+    grads, params, mu, nu = optimizer_state(sizes, seed=1)
+    stats = global_norm(grads)
+    require(torch.equal(stats, global_norm(grads)),
+            "the norm kernels differ from run to run")
+    exact = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    err = abs(float(stats[0]) - exact) / exact
+    require(err <= 2e-6, f"the norm {float(stats[0])!r} is {err:.3e} off "
+            f"float64's {exact!r}")
+    require(float(stats[1]) == 0.0, "the norm's flag is set on finite "
+            "gradients")
+    scalars = torch.from_numpy(opt.step_scalars(10, 1)[0]).cuda()
+    row = torch.cat((scalars, stats))
+    bad = torch.zeros((), dtype=torch.int64, device="cuda")
+    got = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    want = [[t.clone() for t in ts] for ts in (params, mu, nu)]
+    keep = opt.update_(grads, *got, row, bad)
+    opt.update_plain_(grads, *want, row, keep)
+    out = adam_ops.adam_update(grads, params, mu, nu, scalars, norm=stats,
+                               out=True, **opt._hyper())
+    ref_mu, ref_nu, ref_u = opt._moments(grads, params, mu, nu, scalars,
+                                         stats)
+    sync()
+    for mode, a_s, b_s in (("in place", sum(got, []), sum(want, [])),
+                           ("out of place", sum(out, []),
+                            ref_u + ref_mu + ref_nu)):
+        for i, (a, b) in enumerate(zip(a_s, b_s)):
+            require(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+                    f"{mode}: tensor {i} of the update kernel differs from "
+                    f"the plain chain's in {int((a != b).sum())} entries")
+    return {"norm_rel_err": err,
+            "clip_engaged": bool(0 < opt.grad_clip <= float(stats[0]))}
+
+
+def optimizer_ms(opt, sizes: list, reps: int = 20) -> dict:
+    """Device ms of one optimizer step over leaves of `sizes` (random
+    state): the kernels (`global_norm`, `update_`) and the plain chain
+    (`global_norm_plain`, `update_plain_`), each as `reps` calls captured
+    in one graph and replayed, in turns (plain, kernels, kernels, plain),
+    beside the least time of the update's and the norm's bytes (28 and 4
+    bytes an entry) at 3.35 TB/s."""
+    from semantichuman_torch.train.optim import global_norm, global_norm_plain
+
+    grads, params, mu, nu = optimizer_state(sizes, seed=0)
+    scalars = torch.from_numpy(opt.step_scalars(10, 1)[0]).cuda()
+    arms = {"kernels": lambda: opt.update_(
+                grads, params, mu, nu, torch.cat((scalars,
+                                                  global_norm(grads)))),
+            "plain": lambda: opt.update_plain_(
+                grads, params, mu, nu,
+                torch.cat((scalars, global_norm_plain(grads))), None)}
+    graphs = {}
+    for arm, fn in arms.items():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graphs[arm] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[arm]):
+            for _ in range(reps):
+                fn()
+    runs = {arm: [] for arm in arms}
+    for arm in ("plain", "kernels", "kernels", "plain"):
+        graphs[arm].replay()
+        sync()
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        graphs[arm].replay()
+        t1.record()
+        sync()
+        runs[arm].append(t0.elapsed_time(t1) / reps)
+    n = sum(sizes)
+    return {"ms": {arm: float(np.mean(r)) for arm, r in runs.items()},
+            "runs": runs, "update_bound_ms": 28 * n / PEAK_BYTES * 1e3,
+            "norm_bound_ms": 4 * n / PEAK_BYTES * 1e3}
+
+
+def phase_optimizer(root: Path) -> dict:
+    """The optimizer of each recipe's captured step (`optimizer_recipes`):
+    the capture records each kernel of OPTIMIZER_LAUNCHES once, and over
+    one epoch of replays under torch.profiler each of those kernels runs
+    once a replay and no `multi_tensor_apply` kernel (torch's `_foreach`
+    passes, the optimizer's plain version) runs at all.  Then the
+    optimizer at the recipe's leaves against its plain chain
+    (`optimizer_check`, `optimizer_ms`).  -> per recipe the record, the
+    optimizer kernels' device ms a step in the replays, the check and the
+    timings."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from semantichuman_torch.train.loop import Trainer
+
+    out = {}
+    for name, cfg in optimizer_recipes().items():
+        with graph_probe() as caps:
+            tr = Trainer(cfg, trainer_workdir(root, f"optimizer_{name}"),
+                         device=DEVICE)
+            require(tr._epoch_scan_ok(), f"{name}: not on the epoch path")
+            tr.fit()
+        require(len(caps) == 1, f"{name}: {len(caps)} captures, want 1")
+        rec = {k: caps[0]["counts"][k] for k in OPTIMIZER_LAUNCHES}
+        require(rec == OPTIMIZER_LAUNCHES, f"{name}: the captured step "
+                f"launches {rec} of the optimizer, want {OPTIMIZER_LAUNCHES}")
+        k = len(tr.train_loader)
+        (run, _step), = [v for key, v in tr._step_cache.items()
+                         if key[0] == "scan"]
+        tr._epoch_buffers.load(tr.params, tr.opt_state)
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(k):
+                run()
+            sync()
+        n_by_name, ms = {}, {}
+        for e in prof.events():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                n_by_name[e.name] = n_by_name.get(e.name, 0) + 1
+                ms[e.name] = (ms.get(e.name, 0.0)
+                              + e.time_range.elapsed_us() / 1e3 / k)
+        adam = {nm: n for nm, n in n_by_name.items() if "adam_" in nm}
+        foreach = {nm: n for nm, n in n_by_name.items()
+                   if "multi_tensor_apply" in nm}
+        log(f"[optimizer] {name}: captured record {rec}; over {k} replays "
+            f"{adam}, foreach {foreach}; device ms a step "
+            f"{ {nm: round(t, 4) for nm, t in ms.items() if 'adam_' in nm} }")
+        require(len(adam) == 3 and all(n == k for n in adam.values()),
+                f"{name}: optimizer kernels {adam} over {k} replays")
+        require(not foreach, f"{name}: foreach kernels in the replays "
+                f"{foreach}")
+        sizes = [t.numel() for t in tr._epoch_buffers.leaves]
+        check = optimizer_check(tr.optimizer, sizes)
+        log(f"[optimizer] {name}: kernels bit-equal to the plain chain in "
+            f"place and out of place; {check}")
+        timing = optimizer_ms(tr.optimizer, sizes)
+        log(f"[optimizer] {name}: device ms a step, {timing['ms']} (least "
+            f"{timing['update_bound_ms']:.4f} + "
+            f"{timing['norm_bound_ms']:.4f})")
+        out[name] = {"record": rec, "steps": k, "adam_ms_per_step": {
+            nm: t for nm, t in ms.items() if "adam_" in nm}, **check,
+            **timing}
+        del tr
+        torch.cuda.empty_cache()
+    return out
+
+
 def port_kernels() -> set:
     """The names of the __global__ functions of the port's CUDA sources."""
     names = set()
@@ -2621,7 +2827,8 @@ def phase_trainer(root: Path):
     from semantichuman_torch.train.loop import Trainer
     from semantichuman_torch.utils.params import tree_leaves, tree_unflatten
 
-    out = {"foreach_div_by_float": foreach_div_rounding()}
+    out = {"foreach_div_by_float": foreach_div_rounding(),
+           "optimizer": phase_optimizer(root)}
     t0 = time.perf_counter()
     tr = Trainer(trainer_cfg(), trainer_workdir(root, "fit"),
                  device=DEVICE)

@@ -65,6 +65,15 @@ SIGNATURES = {
                                   _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
     },
+    "adam": {
+        "sh_adam_sumsq": ([_VOIDP] * 3 + [_INT, ctypes.c_uint, _INT]
+                          + [_VOIDP] * 2, _INT),
+        "sh_adam_norm": ([_VOIDP, _INT, _VOIDP, _VOIDP], _INT),
+        "sh_adam_update": ([_VOIDP] * 3 + [_INT, ctypes.c_uint, _INT]
+                           + [_VOIDP] * 3 + [ctypes.c_float] * 7
+                           + [_INT] * 2 + [_VOIDP], _INT),
+        "sh_cuda_error_string": ([_INT], ctypes.c_char_p),
+    },
     "row_gather": {
         "sh_gather_rows": ([_VOIDP] * 4 + [_INT] * 8 + [_VOIDP], _INT),
         "sh_cuda_error_string": ([_INT], ctypes.c_char_p),

@@ -28,6 +28,7 @@ _GRAPHS: dict = {}
 
 
 def _counters():
+    from .adam import adam_norm, adam_sumsq, adam_update
     from .banded_gather import banded_gather_bwd, banded_gather_fwd
     from .csr_reduce import csr_reduce
     from .part_dist import part_dist_sums
@@ -41,8 +42,9 @@ def _counters():
              "csr_reduce": csr_reduce,
              "banded_gather_fwd": banded_gather_fwd,
              "banded_gather_bwd": banded_gather_bwd,
-             "row_gather": row_gather}, part_dist_sums.launches, DX_CALLS,
-            DW_CALLS)
+             "row_gather": row_gather, "adam_sumsq": adam_sumsq,
+             "adam_norm": adam_norm, "adam_update": adam_update},
+            part_dist_sums.launches, DX_CALLS, DW_CALLS)
 
 
 def read() -> dict:

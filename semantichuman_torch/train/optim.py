@@ -19,6 +19,16 @@ take those three numbers from `step_scalars` (the schedule and the bias
 corrections in double, rounded once to float32) as a float32 tensor, so
 the two give the same bits.
 
+On the card both take the hand-written kernels of `ops/adam.py` (the
+norm in two launches, the update in one, over a table of every leaf);
+CPU tensors take the chain of PyTorch calls below (`_moments`), which the
+kernels compute entry for entry in the same order.  `global_norm` gives
+the gradients' norm and whether an entry is NaN or Inf, which the clip
+and the skip rule read: `update_` takes them as the last two of its
+scalars, so the captured step computes them once, for its `gnorm` metric
+and the update; `update` computes them itself where the clip or the
+skip rule reads them, as optax's clip does.
+
 The state keeps optax's two counters: `count` (Adam's, which drives the
 bias corrections) and the lr schedule's step, `count + schedule_offset`.
 They advance together, so the offset is 0 unless a reference checkpoint
@@ -34,6 +44,7 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from ..ops import adam as adam_ops
 from ..utils.params import tree_leaves, tree_unflatten
 
 
@@ -74,8 +85,22 @@ class AdamState:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (optax.global_norm)."""
-    return torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    """[2] float32: sqrt of the sum of squares of every element
+    (optax.global_norm), and 1.0 where an element is NaN or Inf, else 0.0
+    (the skip rule's test).  On the card `ops/adam.py:grad_norm`."""
+    tensors = list(tensors)
+    if tensors and tensors[0].is_cuda:
+        return adam_ops.grad_norm(tensors)
+    return global_norm_plain(tensors)
+
+
+def global_norm_plain(tensors) -> torch.Tensor:
+    """`global_norm` as a chain of PyTorch calls: the CPU's, and the
+    kernels' reference."""
+    tensors = list(tensors)
+    norm = torch.sqrt(sum(torch.sum(t.float() * t.float()) for t in tensors))
+    finite = torch.stack([torch.isfinite(t).all() for t in tensors]).all()
+    return torch.stack((norm, (~finite).float()))
 
 
 class Adam:
@@ -104,10 +129,11 @@ class Adam:
         tree = grads
         grads = [g.detach() for g in tree_leaves(grads)]
         params = [p.detach() for p in tree_leaves(params)]
+        stats = (global_norm(grads) if self.grad_clip > 0
+                 or self.skip_nonfinite > 0 else None)
         if self.skip_nonfinite > 0:
             # one host sync per step, only in this mode
-            finite = bool(torch.stack([torch.isfinite(g).all()
-                                       for g in grads]).all())
+            finite = bool(stats[1] == 0)
             bad = 0 if finite else state.notfinite_count + 1
             if not finite and bad <= self.skip_nonfinite:
                 return (tree_unflatten(tree, [torch.zeros_like(g)
@@ -115,11 +141,20 @@ class Adam:
                         replace(state, notfinite_count=bad))
             state = replace(state, notfinite_count=bad)
         scalars = torch.from_numpy(self.step_scalars(
-            state.count, 1, state.schedule_offset)[0])
-        mu, nu, updates = self._moments(grads, params, state.mu, state.nu,
-                                        scalars.to(grads[0].device))
+            state.count, 1, state.schedule_offset)[0]).to(grads[0].device)
+        if grads[0].is_cuda:
+            updates, mu, nu = adam_ops.adam_update(
+                grads, params, state.mu, state.nu, scalars, norm=stats,
+                out=True, **self._hyper())
+        else:
+            mu, nu, updates = self._moments(grads, params, state.mu,
+                                            state.nu, scalars, stats)
         return (tree_unflatten(tree, updates),
                 replace(state, count=state.count + 1, mu=mu, nu=nu))
+
+    def _hyper(self) -> dict:
+        return dict(clip=self.grad_clip, wd=self.weight_decay, b1=self.B1,
+                    b2=self.b2, eps=self.EPS)
 
     def step_scalars(self, count: int, k: int,
                      schedule_offset: int = 0) -> np.ndarray:
@@ -136,21 +171,34 @@ class Adam:
 
     def update_(self, grads, params, mu, nu, scalars, bad=None):
         """`update` in place, with no host read: params, mu and nu (lists of
-        tensors) take their new values; scalars [3] float32 on their device
-        is this step's row of `step_scalars`.  With skip_nonfinite > 0, bad
-        (a 0-d int64 tensor, the count of non-finite steps in a row) is
-        updated in place, a step is applied as optax.apply_if_finite
-        decides, and the returned 0-d bool tensor says whether it was
-        (state.count advances only then); else None is returned."""
+        tensors) take their new values; scalars [5] float32 on their device
+        is this step's row of `step_scalars` followed by the gradients'
+        `global_norm` (the norm, the NaN or Inf flag).  With
+        skip_nonfinite > 0, bad (a 0-d int64 tensor, the count of
+        non-finite steps in a row) is updated in place, a step is applied
+        as optax.apply_if_finite decides, and the returned 0-d bool tensor
+        says whether it was (state.count advances only then); else None is
+        returned."""
         grads = [g.detach() for g in grads]
         keep = None
         if self.skip_nonfinite > 0:
-            finite = torch.stack([torch.isfinite(g).all()
-                                  for g in grads]).all()
+            finite = scalars[4] == 0
             bad.copy_(torch.where(finite, torch.zeros_like(bad), bad + 1))
             keep = finite | (bad > self.skip_nonfinite)
+        if grads[0].is_cuda:
+            adam_ops.adam_update(grads, params, mu, nu, scalars[:3],
+                                 norm=scalars[3:], keep=keep, **self._hyper())
+        else:
+            self.update_plain_(grads, params, mu, nu, scalars, keep)
+        return keep
+
+    def update_plain_(self, grads, params, mu, nu, scalars,
+                      keep=None) -> None:
+        """The in-place step as a chain of PyTorch calls, on any device (the
+        CPU's, and the kernel's reference): scalars [5] as `update_` takes
+        them; keep, a 0-d bool tensor or None, as `update_` decided it."""
         new_mu, new_nu, updates = self._moments(grads, params, mu, nu,
-                                                scalars)
+                                                scalars[:3], scalars[3:])
         if keep is not None:
             new_mu = [torch.where(keep, a, b) for a, b in zip(new_mu, mu)]
             new_nu = [torch.where(keep, a, b) for a, b in zip(new_nu, nu)]
@@ -159,17 +207,18 @@ class Adam:
         torch._foreach_copy_(mu, new_mu)
         torch._foreach_copy_(nu, new_nu)
         torch._foreach_add_(params, updates)
-        return keep
 
-    def _moments(self, grads, params, mu, nu, scalars):
-        """(new mu, new nu, updates) of one step from the raw gradients;
-        scalars [3] float32 on the gradients' device: -lr, 1 - b1^t,
-        1 - b2^t.  Both `update` and `update_` take them as a tensor, so
-        the loop and a captured step divide and multiply alike (on the
-        card `_foreach_div` by a Python float rounds otherwise than a
-        division by the same float32 number)."""
+    def _moments(self, grads, params, mu, nu, scalars, stats):
+        """(new mu, new nu, updates) of one step from the raw gradients, the
+        plain version of `ops/adam.py:adam_update`; scalars [3] float32 on
+        the gradients' device: -lr, 1 - b1^t, 1 - b2^t.  Both `update` and
+        `update_` take them as a tensor, so the loop and a captured step
+        divide and multiply alike (on the card `_foreach_div` by a Python
+        float rounds otherwise than a division by the same float32
+        number).  stats: the gradients' `global_norm`, read where the clip
+        is on."""
         if self.grad_clip > 0:
-            norm = global_norm(grads)
+            norm = stats[0]
             keep = norm < self.grad_clip
             grads = [torch.where(keep, g, (g / norm) * self.grad_clip)
                      for g in grads]

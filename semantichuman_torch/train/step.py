@@ -299,7 +299,7 @@ def _optimizer_step(loss_fn, optimizer, data_parallel: bool = False):
             vals = all_reduce_mean(torch.stack(
                 [metrics[n].float().reshape(()) for n in names]))
             metrics = dict(zip(names, vals.unbind()))
-        metrics["gnorm"] = global_norm(tree_leaves(grads))
+        metrics["gnorm"] = global_norm(tree_leaves(grads))[0]
         updates, opt_state = optimizer.update(grads, opt_state, params)
         new = [p.detach() + u for p, u in zip(tree_leaves(params),
                                               tree_leaves(updates))]
@@ -424,7 +424,8 @@ def make_epoch_scan_step(model, tables: L.LossTables, optimizer,
     step(buf: EpochBuffers) reads row k of the staged schedule ("idx_tr",
     "idx_in", "idx_ex" [K, B] int64, "spec:<name>" [K, ...]) through the
     device counter buf.k, runs the loss, its gradient and
-    `Adam.update_` with row buf.pos of buf.scalars, writes the metrics
+    `Adam.update_` with row buf.pos of buf.scalars and the gradients'
+    `global_norm` (computed once, also the gnorm metric), writes the metrics
     (`step.metric_names`, the loss terms and gnorm) into row k of
     buf.metrics, and adds 1 to k.  It reads no host value, so it can be
     captured as a CUDA graph.  exc_variant 'dynamic' reads each step's
@@ -463,9 +464,10 @@ def _epoch_step(loss_fn, optimizer, inputs):
         _, metrics, grads = value_and_grad(loss_fn, buf.params,
                                            *inputs(row, sched))
         grads = tree_leaves(grads)
-        metrics["gnorm"] = global_norm(grads)
-        keep = optimizer.update_(grads, buf.leaves, buf.mu, buf.nu,
-                                 buf.scalars.index_select(0, buf.pos)[0],
+        stats = global_norm(grads)
+        metrics["gnorm"] = stats[0]
+        scalars = torch.cat((buf.scalars.index_select(0, buf.pos)[0], stats))
+        keep = optimizer.update_(grads, buf.leaves, buf.mu, buf.nu, scalars,
                                  buf.bad)
         buf.pos.add_(1 if keep is None else keep.long())
         if not names:

@@ -19,7 +19,7 @@ import yaml
 
 from semantichuman_torch.config import Config as TorchConfig
 from semantichuman_torch.train.loop import Trainer as TorchTrainer
-from semantichuman_torch.train.optim import make_optimizer
+from semantichuman_torch.train.optim import global_norm, make_optimizer
 from semantichuman_torch.utils.params import (params_to_numpy, tree_leaves,
                                               tree_map, tree_unflatten)
 from semantichuman_torch.utils.testing import \
@@ -372,9 +372,9 @@ def _tensors(tree):
 
 def _run_both(opt, grads_seq, rng):
     """Adam.update (the loop) and Adam.update_ on static tensors with the
-    staged scalars, over the same gradients: after each step, (the loop's
-    state, its parameters, update_'s parameters, moments, updates applied
-    and bad-step count)."""
+    staged scalars and the gradients' norm, over the same gradients:
+    after each step, (the loop's state, its parameters, update_'s
+    parameters, moments, updates applied and bad-step count)."""
     params = _tensors(_tree(rng))
     state = opt.init(params)
     leaves = [p.clone() for p in tree_leaves(params)]
@@ -389,8 +389,8 @@ def _run_both(opt, grads_seq, rng):
         upd, state = opt.update(g, state, params)
         params = tree_unflatten(params, [
             p + u for p, u in zip(tree_leaves(params), tree_leaves(upd))])
-        keep = opt.update_(tree_leaves(g), leaves, mu, nu, scalars[applied],
-                           bad)
+        row = torch.cat((scalars[applied], global_norm(tree_leaves(g))))
+        keep = opt.update_(tree_leaves(g), leaves, mu, nu, row, bad)
         applied += 1 if keep is None else int(keep)
         out.append((state, tree_leaves(params),
                     *([t.clone() for t in ts] for ts in (leaves, mu, nu)),

@@ -1656,3 +1656,277 @@ def test_bundle_moved_to_a_second_card(tmp_path):
         assert [s[0].device for s in got] == [c0, c1]
         for g, r in zip(got.gather(c0), bundle.forward(verts[:8])):
             torch.testing.assert_close(g, r, rtol=0, atol=1e-5)
+
+
+# --- the optimizer: global norm and Adam over a table of every leaf ---------
+
+OPT = importlib.import_module("semantichuman_torch.ops.adam")
+# (clip mode, weight decay, b2): the three recipes' settings and the rest
+# of each flag's values; the clip is off, set above the norm (idle) or
+# below it (engaged)
+ADAM_CASES = [("off", 5e-5, 0.999), ("off", 0.0, 0.95), ("idle", 5e-5, 0.95),
+              ("engaged", 5e-5, 0.95), ("engaged", 0.0, 0.999)]
+
+
+@pytest.fixture(scope="module")
+def model_sizes():
+    """The leaf sizes of the full-width PartAE (24) and neural3DMM (22), in
+    tree_leaves order."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from semantichuman_torch.config import Config
+    from semantichuman_torch.data.synthetic import SyntheticHuman
+    from semantichuman_torch.models import build_model
+    from semantichuman_torch.topology import MeshHierarchy
+    from semantichuman_torch.utils.params import tree_leaves
+
+    hier = MeshHierarchy.load(TOPOLOGY)
+    part_dict = SyntheticHuman().part_dict
+    out = {}
+    for name, model_type, extra in (("partae", "multiz+partkps", {}),
+                                    ("n3dmm", "neural3DMM", {"nz": 256})):
+        cfg = Config.from_dict({"model": {"model_type": model_type, **extra}})
+        model = build_model(cfg.model, hier, part_dict, device="cpu")
+        out[name] = [t.numel() for t in tree_leaves(model.init(0))]
+    assert [len(out["partae"]), len(out["n3dmm"])] == [24, 22]
+    return out
+
+
+def _adam_state(sizes, device, seed=0):
+    """Gradients (each leaf at its own scale, 1e-4 to 1), parameters and
+    both moments (nu >= 0) of the given leaf sizes."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def leaf(n, scale):
+        return torch.randn(n, generator=gen, device=device) * scale
+
+    scales = (10.0 ** torch.linspace(-4, 0, len(sizes))).tolist()
+    grads = [leaf(n, s) for n, s in zip(sizes, scales)]
+    params = [leaf(n, 0.05) for n in sizes]
+    mu = [leaf(n, 1e-3) for n in sizes]
+    nu = [leaf(n, 1e-4).abs() for n in sizes]
+    return grads, params, mu, nu
+
+
+def _adam(clip, wd, b2, skip=0):
+    from semantichuman_torch.train.optim import make_optimizer
+    return make_optimizer(1e-3, wd, 0.99, steps_per_epoch=5, grad_clip=clip,
+                          adam_b2=b2, skip_nonfinite=skip)
+
+
+def _bits(a, b) -> bool:
+    """a and b the same bits, NaN where the other has NaN."""
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    return torch.equal(torch.where(nan, 0.0, a).view(torch.int32),
+                       torch.where(nan, 0.0, b).view(torch.int32))
+
+
+def _ulps(a, b) -> str:
+    ia, ib = a.view(torch.int32).long(), b.view(torch.int32).long()
+    d = (ia - ib).abs()
+    return f"{int((d > 0).sum())} entries differ, at most {int(d.max())} ulp"
+
+
+def _clones(*lists):
+    return [[t.clone() for t in ts] for ts in lists]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("in_place", [True, False], ids=["in_place", "out"])
+@pytest.mark.parametrize("mode,wd,b2", ADAM_CASES)
+@pytest.mark.parametrize("leaf_set", ["partae", "n3dmm"])
+def test_adam_update_matches_the_plain_chain(cuda, model_sizes, leaf_set, mode,
+                                             wd, b2, in_place):
+    """Given the same norm, the update kernel's parameters, moments (in
+    place: `update_plain_`, the foreach chain) and updates (out of place:
+    `_moments`) equal the plain chain's on the card bit for bit, at both
+    models' leaves, with the clip off, idle and engaged, the decay on and
+    off, b2 0.999 and 0.95; a second run gives the same bits; one launch."""
+    from semantichuman_torch.train.optim import global_norm
+
+    grads, params, mu, nu = _adam_state(model_sizes[leaf_set], cuda)
+    norm = global_norm(grads)
+    clip = {"off": 0.0, "idle": 2 * float(norm[0]),
+            "engaged": float(norm[0]) / 4}[mode]
+    opt = _adam(clip, wd, b2)
+    scalars = torch.from_numpy(opt.step_scalars(6, 1)[0]).to(cuda)
+    if in_place:
+        want = _clones(params, mu, nu)
+        opt.update_plain_(grads, *want, torch.cat((scalars, norm)), None)
+        runs = []
+        for _ in range(2):
+            got = _clones(params, mu, nu)
+            before = OPT.adam_update.launches
+            OPT.adam_update(grads, *got, scalars, norm=norm, **opt._hyper())
+            assert OPT.adam_update.launches == before + 1
+            runs.append(sum(got, []))
+        want = sum(want, [])
+    else:
+        mu_r, nu_r, u_r = opt._moments(grads, params, mu, nu, scalars, norm)
+        want = u_r + mu_r + nu_r
+        runs = [sum(OPT.adam_update(grads, params, mu, nu, scalars,
+                                    norm=norm, out=True, **opt._hyper()), [])
+                for _ in range(2)]
+    torch.cuda.synchronize()
+    for i, (a, b, c) in enumerate(zip(runs[0], runs[1], want)):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), i
+        assert torch.equal(a.view(torch.int32), c.view(torch.int32)), \
+            f"leaf {i % len(grads)}: {_ulps(a, c)}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("leaf_set", ["partae", "n3dmm"])
+def test_grad_norm_matches_the_plain_sum(cuda, model_sizes, leaf_set):
+    """The norm kernels' result within 2e-6 (relative) of the sum in
+    float64, as the plain chain's float32 sum is (float32 sums of up to
+    28.6 M squares, each a tree of at most ~40 additions deep), two runs
+    bit-equal, the flag 0 for finite gradients; two launches."""
+    from semantichuman_torch.train.optim import global_norm, global_norm_plain
+
+    grads = _adam_state(model_sizes[leaf_set], cuda)[0]
+    exact = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    before = (OPT.adam_sumsq.launches, OPT.adam_norm.launches)
+    a, b = OPT.grad_norm(grads), OPT.grad_norm(grads)
+    assert (OPT.adam_sumsq.launches, OPT.adam_norm.launches) == (
+        before[0] + 2, before[1] + 2)
+    assert torch.equal(a, b) and float(a[1]) == 0.0
+    assert abs(float(a[0]) - exact) <= 2e-6 * exact
+    assert abs(float(global_norm_plain(grads)[0]) - exact) <= 2e-6 * exact
+    assert torch.equal(global_norm(grads), a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad_value", [float("nan"), float("inf"), 1e30],
+                         ids=["nan", "inf", "huge"])
+def test_grad_norm_flags_only_nonfinite_entries(cuda, model_sizes, bad_value):
+    """One NaN or Inf entry sets the flag, and the norm is NaN or Inf as
+    the plain sum's; a finite entry whose square overflows gives an Inf
+    norm and no flag."""
+    from semantichuman_torch.train.optim import global_norm_plain
+
+    grads = _adam_state(model_sizes["partae"], cuda)[0]
+    grads[20][12345] = bad_value
+    got = OPT.grad_norm(grads)
+    assert float(got[1]) == (0.0 if bad_value == 1e30 else 1.0)
+    assert _bits(got, global_norm_plain(grads))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad0", [0, 2])
+@pytest.mark.parametrize("bad_value", [float("nan"), float("inf"), None],
+                         ids=["nan", "inf", "finite"])
+def test_adam_skip_rule_matches_the_plain_chain(cuda, model_sizes, bad_value,
+                                                bad0):
+    """skip_nonfinite 2, the clip engaged: the device flag of the norm
+    kernels decides as torch.isfinite does.  A NaN or Inf step with 0 bad
+    steps before is skipped (parameters + 0, moments kept, bad 1); with 2
+    before it is applied (bad 3); a finite step is applied (bad 0).
+    Parameters, moments, bad and keep equal the plain chain's."""
+    from semantichuman_torch.train.optim import global_norm
+
+    grads, params, mu, nu = _adam_state(model_sizes["partae"], cuda)
+    if bad_value is not None:
+        grads[3][7] = bad_value
+    opt = _adam(0.5, 5e-5, 0.95, skip=2)
+    scalars = torch.from_numpy(opt.step_scalars(3, 1)[0]).to(cuda)
+    row = torch.cat((scalars, global_norm(grads)))
+    got, want = _clones(params, mu, nu), _clones(params, mu, nu)
+    bad = torch.full((), bad0, dtype=torch.int64, device=cuda)
+    keep = opt.update_(grads, *got, row, bad)
+    finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+    bad_r = torch.where(finite, 0, bad0 + 1)
+    keep_r = finite | (bad_r > 2)
+    opt.update_plain_(grads, *want, row, keep_r)
+    assert int(bad) == int(bad_r) and bool(keep) == bool(keep_r)
+    assert bool(keep) == (bad_value is None or bad0 == 2)
+    for a, b in zip(sum(got, []), sum(want, [])):
+        assert _bits(a, b)
+
+
+@pytest.mark.cuda
+def test_adam_captured_replay_equals_eager(cuda, model_sizes):
+    """The norm and the in-place update captured in a CUDA graph (PartAE's
+    leaves, the clip engaged): two replays, the second after the step's
+    scalars changed in place, give the eager calls' bits."""
+    from semantichuman_torch.train.optim import global_norm
+
+    grads, params, mu, nu = _adam_state(model_sizes["partae"], cuda)
+    opt = _adam(0.05, 5e-5, 0.95)
+    scalars = torch.from_numpy(opt.step_scalars(0, 1)[0]).to(cuda)
+    state = _clones(params, mu, nu)
+
+    def step():
+        opt.update_(grads, *state, torch.cat((scalars, global_norm(grads))))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        step()
+    eager = _clones(params, mu, nu)
+    for t in range(2):
+        scalars.copy_(torch.from_numpy(opt.step_scalars(t, 1)[0]))
+        for dst, src in zip(sum(state, []), sum(eager, [])):
+            dst.copy_(src)
+        graph.replay()
+        opt.update_(grads, *eager, torch.cat((scalars, global_norm(grads))))
+        torch.cuda.synchronize()
+        for a, b in zip(sum(state, []), sum(eager, [])):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_adam_long_leaf_list_and_unaligned_leaves(cuda):
+    """70 leaves, some empty and some views one float off 16-byte
+    alignment (the kernels' scalar path): three launches of the sum and of
+    the update, one of the finish; the update bit-equal to the plain
+    chain's and the norm within 2e-6 of float64."""
+    from semantichuman_torch.train.optim import global_norm
+
+    sizes = [(i * 7919) % 20000 for i in range(70)]
+    grads, params, mu, nu = _adam_state(sizes, cuda, seed=4)
+    for ts in (grads, params, mu):
+        for i in range(1, 70, 3):
+            buf = torch.empty(sizes[i] + 1, device=cuda)
+            buf[1:] = ts[i]
+            ts[i] = buf[1:]
+    opt = _adam(1.0, 5e-5, 0.95)
+    scalars = torch.from_numpy(opt.step_scalars(2, 1)[0]).to(cuda)
+    before = {k: getattr(OPT, k).launches
+              for k in ("adam_sumsq", "adam_norm", "adam_update")}
+    norm = global_norm(grads)
+    got = _clones(params, mu, nu)
+    OPT.adam_update(grads, *got, scalars, norm=norm, **opt._hyper())
+    assert {k: getattr(OPT, k).launches - n for k, n in before.items()} == {
+        "adam_sumsq": 3, "adam_norm": 1, "adam_update": 3}
+    want = _clones(params, mu, nu)
+    opt.update_plain_(grads, *want, torch.cat((scalars, norm)), None)
+    for a, b in zip(sum(got, []), sum(want, [])):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    exact = float(torch.sqrt(sum((g.double() ** 2).sum() for g in grads)))
+    assert abs(float(norm[0]) - exact) <= 2e-6 * exact
+
+
+@pytest.mark.cuda
+def test_adam_kernels_reject_bad_input(cuda):
+    grads, params, mu, nu = _adam_state([64, 8], cuda)
+    scalars = torch.ones(3, device=cuda)
+    hyper = dict(clip=0.0, wd=0.0, b1=0.9, b2=0.999, eps=1e-8)
+    with pytest.raises(TypeError):
+        OPT.grad_norm([g.double() for g in grads])
+    with pytest.raises(ValueError):
+        OPT.adam_update(grads, [params[0].reshape(8, 8).t(), params[1]],
+                        mu, nu, scalars, **hyper)
+    with pytest.raises(ValueError):
+        OPT.adam_update(grads, params, mu, nu, scalars,
+                        **{**hyper, "clip": 1.0})
+    with pytest.raises(ValueError):
+        OPT.adam_update(grads, params[:1] + [params[0]], mu, nu, scalars,
+                        **hyper)
+    with pytest.raises(ValueError):
+        OPT.adam_update(grads, params, mu, nu, scalars.cpu(), **hyper)
